@@ -1,0 +1,38 @@
+"""Light samplers (counterpart of pbrt_tpu/lightsamplers.py): uniform and
+power (alias table). The alias rows keep the reference layout
+[q, alias, pmf_self, pmf_alias]."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .utils.sampling import AliasTable
+
+LS_UNIFORM = 0   # the reference's kind codes
+LS_POWER = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LightSampler:
+    kind: int
+    n_lights: int
+    rows: np.ndarray = None       # (L, 4) float32 alias rows (power only)
+    pmf_table: np.ndarray = None  # (L,) float32
+
+
+def make_light_sampler(kind: str, light_powers) -> LightSampler:
+    if kind not in ("uniform", "power"):
+        raise NotImplementedError(
+            f"light sampler {kind!r}: not ported (ROADMAP.md, slice 3: "
+            "manylight)")
+    powers = np.asarray(light_powers, np.float64)
+    n = len(powers)
+    if kind == "power" and n > 0 and powers.sum() > 0:
+        at = AliasTable.build(powers)
+        rows = np.stack([at.q, at.alias.astype(np.float32), at.pmf,
+                         at.pmf[at.alias]], axis=1)
+        return LightSampler(kind=LS_POWER, n_lights=n, rows=rows,
+                            pmf_table=at.pmf)
+    pmf = np.full(max(n, 1), 1.0 / max(n, 1), np.float32)
+    return LightSampler(kind=LS_UNIFORM, n_lights=n, pmf_table=pmf)

@@ -1,0 +1,100 @@
+"""CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU and nvcc (marker `cuda`) and skip
+elsewhere. The file imports no jax, so on a machine without it run it
+without the suite's conftest:
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from pbrt_tpu_torch import filters as flt
+from pbrt_tpu_torch import samplers as smp
+from pbrt_tpu_torch import scenes
+from pbrt_tpu_torch.ops import megawave
+from pbrt_tpu_torch.ops import tri_intersect as ti
+from pbrt_tpu_torch.utils import spectrum as spc
+
+W = H = 64
+SPP = 16
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tri_intersect_kernel_matches_plain(cuda_device, any_hit):
+    scene, _cam = scenes.make_cornell_box(W, H, device=cuda_device)
+    rs = np.random.RandomState(7)
+    n = 1 << 16
+    o = rs.uniform([-50, -50, -900], [600, 600, 600], (n, 3))
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = rs.uniform(0, 1500, n) if any_hit else np.full(n, 1e30)
+    args = [torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+            for a in (o, d, t_max)]
+    before = ti.counter.launches
+    got = ti.tri_intersect(scene.tri_pallas, *args, scene.mega.n_tris,
+                           any_hit)
+    torch.cuda.synchronize()
+    assert ti.counter.launches == before + 1
+    want = ti.tri_intersect_plain(scene.tri_pallas, *args,
+                                  scene.mega.n_tris, any_hit)
+    same = got[1] == want[1]
+    assert same.float().mean().item() >= 0.9999
+    torch.testing.assert_close(got[0][same], want[0][same], rtol=1e-5,
+                               atol=0)
+
+
+def _uniform_light_box(device):
+    """A floor, a back wall and two lamps under the uniform light sampler
+    (the megakernel's other light-pick branch), seen by the cornell
+    camera."""
+    from pbrt_tpu_torch.scene_core import SceneBuilder
+    from pbrt_tpu_torch.utils import color as pcolor
+    b = SceneBuilder()
+    m = b.materials.add_diffuse((0.6, 0.5, 0.4))
+    quad = [[0, 1, 2], [0, 2, 3]]
+    b.add_mesh([(556, 0, 0), (0, 0, 0), (0, 0, 560), (556, 0, 560)], quad, m)
+    b.add_mesh([(556, 0, 560), (0, 0, 560), (0, 549, 560), (556, 549, 560)],
+               quad, m)
+    lamp = pcolor.RGBIlluminantSpectrum((8.0, 8.0, 8.0))
+    for x0 in (100, 350):
+        # wound so the emitting side faces down
+        b.add_mesh([(x0, 500, 200), (x0 + 100, 500, 200),
+                    (x0 + 100, 500, 330), (x0, 500, 330)], quad, m,
+                   emission=lamp)
+    return b.build(light_sampler="uniform", device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("light_sampler", ["power", "uniform"])
+def test_megakernel_matches_plain(cuda_device, light_sampler):
+    scene, cam = scenes.make_cornell_box(W, H, device=cuda_device)
+    if light_sampler == "uniform":
+        scene = _uniform_light_box(cuda_device)
+        assert scene.mega.ls_uniform
+    sampler = smp.make_sampler("zsobol", spp=SPP, full_resolution=(W, H))
+    pix = torch.arange(W * H, device=cuda_device).repeat(SPP)
+    si = torch.arange(W * H * SPP, device=cuda_device) // (W * H)
+    px, py = pix % W, pix // W
+    lam = spc.sample_visible_wavelengths(
+        smp.sample_1d(sampler, px, py, si, 5)).lam
+    w = megawave.prepare_full(scene, sampler, cam,
+                              flt.make_filter("gaussian"), px, py, si, lam,
+                              max_depth=5)
+    before = megawave.counter.launches
+    L, fw = megawave.wave_full(w)
+    torch.cuda.synchronize()
+    assert megawave.counter.launches == before + 1
+    L_p, fw_p = megawave.wave_full_plain(w)
+    rel = ((L - L_p).abs() / L_p.abs().clamp(min=1e-3)).amax(dim=1)
+    assert (rel < 1e-4).float().mean().item() >= 0.999
+    assert abs(L.mean().item() / L_p.mean().item() - 1) < 1e-3
+    torch.testing.assert_close(fw, fw_p, rtol=1e-5, atol=1e-6)
