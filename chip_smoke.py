@@ -18,9 +18,23 @@ Phases, each of which raises on failure (exit code 1):
      the MRSE and mean-ratio gates of tools/golden.py, and written to
      pbrt_tpu_torch/_build/;
   6. times with CUDA events at the main path's wave shape (160,000 lanes):
-     each kernel beside its plain version, and the render in paths/s.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+     each kernel beside its plain version, and the render in paths/s;
+  7. the BVH8 kernel against its plain version on the card: meshfield's
+     BVH8, 2^20 seeded rays from the world box +-1, closest hit (t_max
+     1e30) and any hit (t_max 30);
+  8. the meshfield path through the user entry points
+     (scene.parser.parse_file -> integrators.render.render): 200x200,
+     32 spp, max depth 4, every closest and shadow query through the BVH8
+     kernel, launch counts read around it, the image gated against
+     goldens/meshfield_200_32spp.exr and written to pbrt_tpu_torch/_build/;
+  9. cornell through the general wave (PathOptions(megakernel=False)):
+     400x400, 64 spp, max depth 5, every query through the triangle
+     kernel, launch counts read around it, gated like phase 5;
+ 10. times with CUDA events: the BVH8 kernel and its plain version at 2^20
+     rays, closest and any hit, and the two renders in paths/s.
+Phase 2 builds every kernel (one nvcc per source, all started together)
+and the host BVH builder (g++). The line before the last is a JSON object
+with one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import subprocess
@@ -32,6 +46,10 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "goldens" / "cornell_400_64spp.exr"
 GATE_MRSE = 0.08        # tools/golden.py CONFIGS, cornell
 GATE_MEAN_RATIO = 0.02
+MESH_SCENE = ROOT / "scenes" / "meshfield.pbrt"
+MESH_GOLDEN = ROOT / "goldens" / "meshfield_200_32spp.exr"
+MESH_GATE_MRSE = 0.05   # tools/golden.py CONFIGS, meshfield
+MESH_GATE_MEAN_RATIO = 0.02
 
 
 def check(cond, what):
@@ -105,6 +123,43 @@ def seeded_rays(n, device, seed=7):
             for a in (o, d, t_any)]
 
 
+def gate(img, golden, shape, max_mrse, max_ratio, label):
+    """Hold a render to a reference-renderer golden; returns (mrse, mean
+    ratio error)."""
+    import numpy as np
+    from pbrt_tpu_torch.utils import image
+    check(img.shape == shape and bool(np.isfinite(img).all()),
+          f"{label}: render output shape or values")
+    ref = image.read_exr(golden)
+    m = mrse(img, ref)
+    ratio = abs(float(img.mean()) / max(float(ref.mean()), 1e-9) - 1.0)
+    print(f"[{label}] mrse {m:.5f} (gate {max_mrse}), mean ratio err "
+          f"{ratio:.5f} (gate {max_ratio})", flush=True)
+    check(m <= max_mrse and ratio <= max_ratio, f"{label}: golden gate")
+    return m, ratio
+
+
+def reset_counts(counters):
+    for c in counters:
+        c.launches = 0
+        c.plain = 0
+
+
+def box_rays(scene, n, device, seed=0):
+    """bench.py's Mrays/s rays: origins uniform in the world box +-1,
+    normally distributed directions."""
+    import numpy as np
+    import torch
+    tri = scene.tri_all[:, :9].reshape(-1, 3).cpu().numpy()
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(tri.min(axis=0) - 1, tri.max(axis=0) + 1,
+                    (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(o, device=device),
+            torch.as_tensor(d, device=device))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -113,15 +168,19 @@ def main():
         return 2
     import numpy as np
     from pbrt_tpu_torch import filters as flt
+    from pbrt_tpu_torch import native
     from pbrt_tpu_torch import samplers as smp
     from pbrt_tpu_torch import scenes
     from pbrt_tpu_torch.integrators import path as path_mod
     from pbrt_tpu_torch.integrators import render
     from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.ops import bvh8
     from pbrt_tpu_torch.ops import megawave
     from pbrt_tpu_torch.ops import tri_intersect as ti
+    from pbrt_tpu_torch.scene import parser
     from pbrt_tpu_torch.utils import image
     from pbrt_tpu_torch.utils import spectrum as spc
+    counters = (megawave.counter, ti.counter, bvh8.counter)
 
     dev = torch.device("cuda", 0)
 
@@ -135,12 +194,22 @@ def main():
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    lib_path, log = _build.build()
-    _build.load_library()
-    regs = [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
-    print(f"[2 build] {lib_path.name} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc sm_90a -fmad=false); ptxas: {regs}", flush=True)
+    libs = _build.build()
+    dt = time.perf_counter() - t0
+    for name, (lib_path, log) in libs.items():
+        _build.load_library(name)
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"[2 build] {lib_path.name} (nvcc sm_90a -fmad=false); "
+              f"ptxas: {regs}", flush=True)
+    print(f"[2 build] {len(libs)} kernel libraries in {dt:.2f} s, one "
+          "nvcc per source started together", flush=True)
+    t0 = time.perf_counter()
+    native_path, _log = native.build()
+    native.load_library()
+    print(f"[2 build] host BVH builder {native_path.name} (g++ "
+          f"{' '.join(native.GXX_FLAGS)}, pbrt_tpu/native/*.cpp) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 3. tri_intersect kernel vs plain, 1M rays ----
     scene, cam = scenes.make_cornell_box(400, 400, device=dev)
@@ -182,14 +251,12 @@ def main():
     mw_err = compare_wave(w4, "4 megakernel 64x64x16")
 
     # ---- 5. the main path: render cornell 400x400, 64 spp, depth 5 ----
-    for c in (megawave.counter, ti.counter):
-        c.launches = 0
-        c.plain = 0
+    reset_counts(counters)
     img, stats = render.render(scene, cam, spp=64, device=dev,
                                opts=path_mod.PathOptions(max_depth=5))
     launches = {"megawave": megawave.counter.launches,
                 "tri_intersect": ti.counter.launches}
-    plain_runs = megawave.counter.plain + ti.counter.plain
+    plain_runs = sum(c.plain for c in counters)
     print(f"[5 render] launches {launches}, plain-version runs "
           f"{plain_runs}; {stats['seconds']:.3f} s, "
           f"{stats['paths_per_sec']:.6g} paths/s, "
@@ -236,6 +303,97 @@ def main():
           f"{ti_ms:.4f} ms vs plain {ti_plain_ms:.4f} ms ({n_pix} rays); "
           f"render {stats['paths_per_sec']:.6g} paths/s", flush=True)
 
+    # ---- 7. BVH8 kernel vs plain, meshfield, 2^20 rays ----
+    mesh = parser.parse_file(MESH_SCENE, device=dev).scene
+    b8 = mesh.bvh8
+    print(f"[7 bvh8] meshfield: {mesh.n_tris} triangles, {b8.n_nodes} "
+          f"nodes, depth {b8.depth}", flush=True)
+    n_rays = 1 << 20
+    o7, d7 = box_rays(mesh, n_rays, dev)
+    b8_err = 0.0
+    for any_hit, t_max in ((False, 1e30), (True, 30.0)):
+        got = bvh8.bvh8_intersect(b8, o7, d7, t_max, any_hit)
+        t_p, prim_p, _b1, _b2 = bvh8.bvh8_intersect_plain(
+            b8, o7, d7, torch.full((n_rays,), t_max, device=dev), any_hit)
+        torch.cuda.synchronize()
+        hit_agree = (got["hit"] == (prim_p >= 0)).float().mean().item()
+        same = got["prim"] == prim_p
+        agree = same.float().mean().item()
+        hit = same & (prim_p >= 0)
+        t_exact = torch.equal(got["t"][hit], t_p[hit])
+        err = (got["t"][hit] - t_p[hit]).abs().max().item() \
+            if bool(hit.any()) else 0.0
+        b8_err = max(b8_err, err)
+        print(f"[7 bvh8] any_hit={any_hit}: hit equal on "
+              f"{hit_agree * 100:.4f}%, prim equal on {agree * 100:.4f}% of "
+              f"{n_rays} rays, hit share "
+              f"{(prim_p >= 0).float().mean().item():.4f}, t bit-equal "
+              f"where prim equal: {t_exact}, max |dt| {err:.3g}", flush=True)
+        check(hit_agree >= 0.9999, f"bvh8 hit agreement {hit_agree}")
+        if not any_hit:
+            check(agree >= 0.9999, f"bvh8 prim agreement {agree}")
+            check(t_exact, "bvh8 t differs where prim is equal")
+
+    # ---- 8. meshfield through the entry points ----
+    reset_counts(counters)
+    desc = parser.parse_file(MESH_SCENE, device=dev)
+    mimg, mstats = render.render(desc.scene, desc.camera,
+                                 sampler=desc.sampler, device=dev,
+                                 opts=path_mod.PathOptions(max_depth=4))
+    mlaunch = {c: k.launches for c, k in (("bvh8", bvh8.counter),
+                                          ("tri_intersect", ti.counter),
+                                          ("megawave", megawave.counter))}
+    mplain = sum(c.plain for c in counters)
+    print(f"[8 meshfield] launches {mlaunch}, plain-version runs {mplain}; "
+          f"{mstats['seconds']:.3f} s, {mstats['paths_per_sec']:.6g} "
+          f"paths/s, {mstats['lanes_per_wave']} lanes per wave", flush=True)
+    check(mlaunch["bvh8"] >= 1, "meshfield launched no BVH8 kernel")
+    check(mlaunch["tri_intersect"] == 0 and mlaunch["megawave"] == 0,
+          "meshfield left the BVH8 route")
+    check(mplain == 0, "meshfield ran a plain version on the card")
+    m_mrse, m_ratio = gate(mimg, MESH_GOLDEN, (200, 200, 3), MESH_GATE_MRSE,
+                           MESH_GATE_MEAN_RATIO, "8 meshfield golden")
+    image.write_exr(_build.BUILD_DIR / "meshfield_200_32spp.exr", mimg)
+
+    # ---- 9. cornell through the general wave ----
+    reset_counts(counters)
+    gimg, gstats = render.render(
+        scene, cam, spp=64, device=dev,
+        opts=path_mod.PathOptions(max_depth=5, megakernel=False))
+    glaunch = {"tri_intersect": ti.counter.launches,
+               "megawave": megawave.counter.launches,
+               "bvh8": bvh8.counter.launches}
+    gplain = sum(c.plain for c in counters)
+    print(f"[9 cornell general] launches {glaunch}, plain-version runs "
+          f"{gplain}; {gstats['seconds']:.3f} s, "
+          f"{gstats['paths_per_sec']:.6g} paths/s", flush=True)
+    check(glaunch["tri_intersect"] >= 1,
+          "general-wave cornell launched no triangle kernel")
+    check(glaunch["megawave"] == 0 and glaunch["bvh8"] == 0,
+          "general-wave cornell left the triangle-kernel route")
+    check(gplain == 0, "general-wave cornell ran a plain version")
+    g_mrse, g_ratio = gate(gimg, GOLDEN, (400, 400, 3), GATE_MRSE,
+                           GATE_MEAN_RATIO, "9 cornell general golden")
+    image.write_exr(_build.BUILD_DIR / "cornell_general_400_64spp.exr", gimg)
+
+    # ---- 10. times: BVH8 kernel and plain at 2^20 rays ----
+    b8_ms = {}
+    for any_hit, t_max in ((False, 1e30), (True, 30.0)):
+        tv = torch.full((n_rays,), t_max, device=dev)
+        k_ms = cuda_ms(lambda: bvh8.bvh8_intersect(b8, o7, d7, tv, any_hit),
+                       reps=20, warmup=3)
+        p_ms = cuda_ms(lambda: bvh8.bvh8_intersect_plain(b8, o7, d7, tv,
+                                                         any_hit), reps=2)
+        b8_ms[any_hit] = (k_ms, p_ms)
+        print(f"[10 times] card {card}: bvh8 any_hit={any_hit} kernel "
+              f"{k_ms:.4f} ms ({n_rays / k_ms / 1e3:.2f} Mrays/s) vs plain "
+              f"{p_ms:.4f} ms ({n_rays / p_ms / 1e3:.3f} Mrays/s), {n_rays} "
+              "rays", flush=True)
+    print(f"[10 times] card {card}: meshfield 200x200x32 "
+          f"{mstats['paths_per_sec']:.6g} paths/s; cornell general wave "
+          f"400x400x64 {gstats['paths_per_sec']:.6g} paths/s; cornell "
+          f"megakernel {stats['paths_per_sec']:.6g} paths/s", flush=True)
+
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]
     check(not bad, f"imported modules of the JAX stack: {bad}")
@@ -245,19 +403,29 @@ def main():
              replaces="pbrt_tpu/ops/megawave.py:559",
              launches=launches["megawave"], max_abs_err=mw_err,
              ms=mw_ms, plain_ms=mw_plain_ms),
-        # its test runs inside every megakernel launch
-        # (csrc/tri_intersect.cuh); the standalone kernel serves callers
-        # outside the main path, so the main path launches it 0 times
+        # launches: the general-wave cornell render (phase 9); its test
+        # also runs inside every megakernel launch (tri_intersect.cuh)
         dict(name="tri_intersect", route="cuda",
              source="pbrt_tpu_torch/csrc/tri_intersect.cu",
              replaces="pbrt_tpu/ops/pallas_intersect.py:125",
-             launches=launches["tri_intersect"], max_abs_err=tri_err,
-             ms=ti_ms, plain_ms=ti_plain_ms,
-             runs_inside="megawave"),
+             launches=glaunch["tri_intersect"], max_abs_err=tri_err,
+             ms=ti_ms, plain_ms=ti_plain_ms),
+        # launches: the meshfield render (phase 8); ms: closest hit at
+        # 2^20 rays (any hit in any_hit_ms)
+        dict(name="bvh8", route="cuda",
+             source="pbrt_tpu_torch/csrc/bvh8.cu",
+             replaces="pbrt_tpu/ops/pallas_bvh8.py:793",
+             launches=mlaunch["bvh8"], max_abs_err=b8_err,
+             ms=b8_ms[False][0], plain_ms=b8_ms[False][1],
+             any_hit_ms=b8_ms[True][0], any_hit_plain_ms=b8_ms[True][1]),
     ]
     print(json.dumps(dict(render=dict(
         paths_per_sec=stats["paths_per_sec"], seconds=stats["seconds"],
-        mrse=m, mean_ratio_err=ratio))))
+        mrse=m, mean_ratio_err=ratio), meshfield=dict(
+        paths_per_sec=mstats["paths_per_sec"], seconds=mstats["seconds"],
+        mrse=m_mrse, mean_ratio_err=m_ratio), cornell_general=dict(
+        paths_per_sec=gstats["paths_per_sec"], seconds=gstats["seconds"],
+        mrse=g_mrse, mean_ratio_err=g_ratio))))
     print(f"card: {card}")
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps({"ok": True, "device": {

@@ -71,3 +71,11 @@ def generate_ray(cam: Camera, p_film: torch.Tensor):
     d = d_cam @ m[:3, :3].T
     length = torch.sqrt(torch.sum(d * d, dim=-1))
     return o, d / torch.clamp(length, min=1e-20)[..., None]
+
+
+def generate_ray_weighted(cam: Camera, p_film: torch.Tensor):
+    """generate_ray and the camera weight (reference
+    generate_ray_weighted; 1 for every pinhole ray). Returns (o, d,
+    weight (N,))."""
+    o, d = generate_ray(cam, p_film)
+    return o, d, torch.ones_like(p_film[..., 0])

@@ -5,12 +5,17 @@ SamplerParams, exported to numpy by the caller (this package imports no
 jax), and returns the port's (Scene, Camera, SamplerParams) on a device, so
 both packages can compute on the same scene.
 
-arrays: "tri_pallas" (T*16,); "attr", "light", "mat" (the reference's
-megawave.scene_tables); "spectra_pool" (S, 471); "lights_packed" (L, 24);
-"c2w_m" (4, 4); "tan_half_fov" ().
-meta: "mega" (the MegaMeta fields as a dict), "width", "height",
-"screen_min", "screen_max", "has_lens", "seed", "spp", "log2_spp",
-"n_base4_digits".
+arrays: "tri_all" (T, 27); "mat_pool" (M, 22); "lights_packed" (L, 24);
+"spectra_pool" (S, 471); "ls_rows" (L, 4) and "ls_pmf" (L,), the light
+sampler's alias rows and pmf table; "c2w_m" (4, 4); "tan_half_fov" ();
+"tri_pallas" (T'*16,) on the brute-force route; "nodes_f", "nodes_q",
+"tris_b8", "prim_indices" (the BVH8 tables) on the BVH route; "attr",
+"light", "mat" (the reference's megawave.scene_tables) for a megakernel
+scene.
+meta: "ls_kind", "n_lights", "scene_radius", "inf_indices", "light_tags",
+"n_tris"; "bvh8" (n_nodes, n_tris, depth) on the BVH route; "mega" (the
+MegaMeta fields as a dict, or None); "width", "height", "screen_min",
+"screen_max", "has_lens", "seed", "spp", "log2_spp", "n_base4_digits".
 """
 from __future__ import annotations
 
@@ -19,7 +24,9 @@ import torch
 
 from . import cameras as cam_mod
 from . import device as dev_mod
+from . import lightsamplers as lsamp
 from . import samplers as smp
+from .ops.bvh8 import BVH8
 from .ops.megawave import MegaMeta
 from .scene_core import Scene
 
@@ -27,15 +34,36 @@ from .scene_core import Scene
 def from_jax_scene(arrays: dict, meta: dict, device="cpu"):
     device = dev_mod.resolve(device)
 
-    def t(name):
-        return torch.as_tensor(np.array(arrays[name], np.float32),
-                               device=device)
+    def t(name, dtype=np.float32):
+        if name not in arrays:
+            return None
+        return torch.as_tensor(np.array(arrays[name], dtype), device=device)
 
-    scene = Scene(tri_pallas=t("tri_pallas"), attr=t("attr"),
-                  light=t("light"), mat=t("mat"),
-                  spectra_pool=t("spectra_pool"),
-                  lights_packed=t("lights_packed"),
-                  mega=MegaMeta(**meta["mega"]))
+    bvh8 = None
+    if "nodes_f" in arrays:
+        n_nodes, n_tris, depth = meta["bvh8"]
+        bvh8 = BVH8(nodes_f=t("nodes_f"), nodes_q=t("nodes_q", np.int32),
+                    tris=t("tris_b8"),
+                    prim_indices=t("prim_indices", np.int32),
+                    n_nodes=int(n_nodes), n_tris=int(n_tris),
+                    depth=int(depth))
+    kind = int(meta["ls_kind"])
+    ls = lsamp.LightSampler(
+        kind=kind, n_lights=int(meta["n_lights"]),
+        rows=(np.asarray(arrays["ls_rows"], np.float32)
+              if kind == lsamp.LS_POWER else None),
+        pmf_table=np.asarray(arrays["ls_pmf"], np.float32))
+    mega = meta.get("mega")
+    scene = Scene(
+        tri_all=t("tri_all"), tri_pallas=t("tri_pallas"), bvh8=bvh8,
+        mat_pool=t("mat_pool"), lights_packed=t("lights_packed"),
+        alias_rows=t("ls_rows") if kind == lsamp.LS_POWER else None,
+        spectra_pool=t("spectra_pool"), light_sampler=ls,
+        scene_radius=float(np.float32(meta["scene_radius"])),
+        inf_indices=tuple(int(i) for i in meta["inf_indices"]),
+        light_tags=tuple(int(i) for i in meta["light_tags"]),
+        n_tris=int(meta["n_tris"]), attr=t("attr"), light=t("light"),
+        mat=t("mat"), mega=MegaMeta(**mega) if mega is not None else None)
     camera = cam_mod.Camera(
         kind=cam_mod.CAMERA_PERSPECTIVE,
         c2w_m=np.asarray(arrays["c2w_m"], np.float32),

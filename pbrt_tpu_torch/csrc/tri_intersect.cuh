@@ -6,6 +6,8 @@
 // Moeller-Trumbore on rows [p0, e1, e2, pad] (16 floats per triangle, edges
 // precomputed), relative barycentric tolerance 1e-6 * |det|, t > 1e-6,
 // t below the running bound, padding rows masked by index (n_real).
+// The BVH8 kernel (bvh8.cu) runs the same test on its 9-float rows
+// [p0, e1, e2] with its own lower t bound (1e-5).
 // Closest hit keeps the lower index on equal t. Any hit scans groups of
 // four triangles (the reference kernel's unroll) and stops after the first
 // group that holds a hit. The expressions keep the operation order of
@@ -29,7 +31,7 @@ __device__ __forceinline__ bool tri_test(const float* __restrict__ r,
                                          float ox, float oy, float oz,
                                          float dx, float dy, float dz,
                                          float t_bound, float& t, float& b1,
-                                         float& b2) {
+                                         float& b2, float t_min = 1e-6f) {
   const float p0x = r[0], p0y = r[1], p0z = r[2];
   const float e1x = r[3], e1y = r[4], e1z = r[5];
   const float e2x = r[6], e2y = r[7], e2z = r[8];
@@ -54,7 +56,7 @@ __device__ __forceinline__ bool tri_test(const float* __restrict__ r,
   b1 = u_n * inv_det;
   b2 = v_n * inv_det;
   return det_a > 1e-12f && u_n >= -tol && v_n >= -tol &&
-         u_n + v_n <= det_a + tol && t > 1e-6f && t < t_bound;
+         u_n + v_n <= det_a + tol && t > t_min && t < t_bound;
 }
 
 // tri: the pool (n_tris rows, n_tris a multiple of kHitGroup), normally in

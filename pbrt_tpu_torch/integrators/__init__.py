@@ -1,2 +1,2 @@
 """Integrators (counterpart of pbrt_tpu/integrators/): the path integrator
-on the megakernel, and the render driver."""
+(the megakernel or the general wave), and the render driver."""

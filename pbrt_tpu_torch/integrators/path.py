@@ -1,42 +1,212 @@
 """Path integrator (counterpart of pbrt_tpu/integrators/path.py): one wave
-of camera paths through the megakernel.
+of camera paths, through the megakernel or the general wave.
 
-Only the megakernel configuration is ported: an eligible scene, the zsobol
-sampler, a pinhole perspective camera and a gaussian filter. The general
-wave (the reference's trace_paths) is queued in ROADMAP.md.
+The general wave (`trace_paths`) keeps every lane's state in tensors and
+runs one depth at a time: the closest hit, emission with MIS at area-light
+hits, escaped rays to the uniform infinite lights, next-event estimation
+with an any-hit shadow ray, the diffuse BSDF sample and Russian roulette,
+with the reference's sampler dimension layout (camera dims 0-5, then 11
+per bounce: light pick +0, light point +1/+2, BSDF +3/+4/+5, roulette
++6). Dead lanes are masked, and their rays are queried with t_max = -1,
+which the triangle queries answer with a miss at no cost. The reference's
+lane compaction and morton ray sort are TPU workarounds and are left out.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from .. import bxdfs
+from .. import cameras as cam_mod
+from .. import filters as flt
+from .. import lights as lgt
+from .. import lightsamplers as lsamp
+from .. import materials as mtl
 from .. import samplers as smp
+from .. import scene_core as sc
 from ..ops import megawave
 from ..utils import spectrum as spc
+from ..utils import vecmath as vm
+from ..utils.math import INV_4PI, power_heuristic, safe_div
+
+CAM_DIMS = megawave.CAM_DIMS
+DIMS_PER_BOUNCE = megawave.DIMS_PER_BOUNCE
 
 
 @dataclasses.dataclass(frozen=True)
 class PathOptions:
     max_depth: int = 5
     rr_start_depth: int = 1
+    # the megakernel for eligible scenes: "auto" (used whenever the scene,
+    # sampler, camera and filter are eligible) or False (the general wave)
+    megakernel: object = "auto"
+
+
+def _use_megawave(scene, sampler, camera, filt, opts) -> bool:
+    if opts.megakernel is False:
+        return False
+    if opts.megakernel != "auto":
+        raise ValueError(f"PathOptions.megakernel must be False or 'auto', "
+                         f"not {opts.megakernel!r}")
+    return megawave.eligible_full(scene, sampler, camera, filt)
+
+
+def _to_local(ns, t1, t2, w):
+    return torch.stack([vm.dot(w, t1), vm.dot(w, t2), vm.dot(w, ns)],
+                       dim=-1)
+
+
+def _to_world(ns, t1, t2, w):
+    return w[:, 0:1] * t1 + w[:, 1:2] * t2 + w[:, 2:3] * ns
+
+
+def _shading_frame(ns, dpdu):
+    """Orthonormal (t1, t2), t1 along dpdu projected off ns."""
+    t1 = dpdu - vm.dot(dpdu, ns)[:, None] * ns
+    bad = vm.length_squared(t1) < 1e-12
+    t1f, _ = vm.coordinate_system(ns)
+    t1 = vm.normalize(torch.where(bad[:, None], t1f, t1))
+    return t1, vm.cross(ns, t1)
+
+
+def _nee(scene, sampler, px, py, si, lam, spec_cache, isect, ns, ng, t1, t2,
+         wo_local, bp, active, depth):
+    """Next-event estimation (reference SampleLd): one light sample and its
+    shadow ray. Returns the (N, 4) contribution before beta."""
+    base = CAM_DIMS + depth * DIMS_PER_BOUNCE
+    u_pick = smp.sample_1d(sampler, px, py, si, base)
+    u_l = smp.sample_2d(sampler, px, py, si, base + 1)
+    li_idx, pmf = lsamp.sample_light(scene.light_sampler, u_pick,
+                                     scene.alias_rows)
+    ls = lgt.sample_li(scene.lights_packed, torch.clamp(li_idx, min=0),
+                       isect["p"], u_l, lam, scene.spectra_pool,
+                       scene.scene_radius, scene.light_tags, spec_cache)
+    wi = ls["wi"]
+    wi_local = _to_local(ns, t1, t2, wi)
+    f = bxdfs.bsdf_f(bp, wo_local, wi_local) * \
+        torch.abs(wi_local[:, 2])[:, None]
+    pdf_b = bxdfs.bsdf_pdf(bp, wo_local, wi_local)
+    pdf_l = ls["pdf"] * pmf
+    ok = active & ls["valid"] & (pdf_l > 0) & (f > 0).any(dim=-1)
+    o_sh = sc.offset_ray_origin_exact(isect["p"], isect["p_err"], ng, wi)
+    dist = vm.length(ls["p_light"] - o_sh)
+    ok = ok & ~sc.intersect_p(scene, o_sh, wi,
+                              torch.where(ok, dist * 0.999, -1.0))
+    w_mis = torch.where(ls["is_delta"], 1.0,
+                        power_heuristic(1.0, pdf_l, 1.0, pdf_b))
+    Ld = f * ls["L"] * safe_div(w_mis, pdf_l)[:, None]
+    return torch.where(ok[:, None], Ld, 0.0)
+
+
+def trace_paths(scene, sampler, px, py, sample_index, o, d,
+                swl: spc.SampledWavelengths, opts: PathOptions):
+    """Trace one wave of paths from camera rays o, d (N, 3). Returns L
+    (N, 4) spectral radiance (the film divides by swl.pdf)."""
+    N = o.shape[0]
+    lam = swl.lam
+    spec_cache = None
+    if scene.spectra_pool.shape[0] <= lgt.SPEC_CACHE_MAX:
+        spec_cache = lgt.eval_all_spectra(scene.spectra_pool, lam)
+    ls = scene.light_sampler
+    beta = torch.ones((N, 4), dtype=torch.float32, device=o.device)
+    L = torch.zeros_like(beta)
+    active = torch.ones((N,), dtype=torch.bool, device=o.device)
+    prev_pdf = torch.ones((N,), dtype=torch.float32, device=o.device)
+    for depth in range(opts.max_depth):
+        isect = sc.intersect(scene, o, d, torch.where(active, 1e30, -1.0))
+        hit = isect["hit"] & active
+
+        # --- emitted radiance at hits of emissive triangles ---
+        if scene.has_area_lights:
+            is_emitter = hit & (isect["light"] >= 0)
+            lrow = scene.lights_packed[torch.clamp(isect["light"], min=0)]
+            Le = lgt.area_light_radiance(lrow, isect["ng"], isect["wo"], lam,
+                                         scene.spectra_pool, spec_cache)
+            pdf_light = lgt.pdf_li_area_tri(o, d, isect["p"], isect["p0"],
+                                            isect["p1"], isect["p2"]) * \
+                lrow[:, 14]
+            w_emit = torch.ones_like(pdf_light) if depth == 0 else \
+                power_heuristic(1.0, prev_pdf, 1.0, pdf_light)
+            L = L + torch.where(is_emitter[:, None],
+                                beta * Le * w_emit[:, None], 0.0)
+
+        # --- escaped rays: uniform infinite lights ---
+        if scene.inf_indices:
+            escaped = active & ~isect["hit"]
+            Le_inf = lgt.infinite_light_radiance(
+                scene.lights_packed, scene.inf_indices, lam,
+                scene.spectra_pool, spec_cache)
+            pdf_inf = torch.full_like(prev_pdf, float(
+                np.float32(ls.pmf_table[scene.inf_indices[0]])
+                * np.float32(INV_4PI)))
+            w_inf = torch.ones_like(pdf_inf) if depth == 0 else \
+                power_heuristic(1.0, prev_pdf, 1.0, pdf_inf)
+            L = L + torch.where(escaped[:, None],
+                                beta * Le_inf * w_inf[:, None], 0.0)
+
+        active = hit
+        ns, ng = isect["ns"], isect["ng"]
+        t1, t2 = _shading_frame(ns, isect["dpdu"])
+        wo_local = _to_local(ns, t1, t2, isect["wo"])
+        bp = mtl.get_bsdf_params(scene.mat_pool, isect["mat"], lam)
+
+        # --- next-event estimation ---
+        if ls.n_lights > 0:
+            L = L + beta * _nee(scene, sampler, px, py, sample_index, lam,
+                                spec_cache, isect, ns, ng, t1, t2, wo_local,
+                                bp, active, depth)
+        if depth + 1 == opts.max_depth:
+            break   # the last bounce's sample and roulette add nothing to L
+
+        # --- BSDF sample for the next bounce ---
+        base = CAM_DIMS + depth * DIMS_PER_BOUNCE
+        u2 = smp.sample_2d(sampler, px, py, sample_index, base + 4)
+        bs = bxdfs.bsdf_sample(bp, wo_local, u2)
+        wi_world = _to_world(ns, t1, t2, bs["wi"])
+        throughput = bs["f"] * safe_div(torch.abs(bs["wi"][:, 2]),
+                                        bs["pdf"])[:, None]
+        beta_new = beta * throughput
+        active = active & bs["valid"] & (beta_new > 0).any(dim=-1)
+        beta = torch.where(active[:, None], beta_new, beta)
+
+        # --- Russian roulette on beta ---
+        if depth >= opts.rr_start_depth:
+            rr_max = beta.amax(dim=-1)
+            u_rr = smp.sample_1d(sampler, px, py, sample_index, base + 6)
+            q = torch.clamp(1.0 - rr_max, min=0.0)
+            do_rr = rr_max < 1.0
+            killed = do_rr & (u_rr < q)
+            active = active & ~killed
+            beta = torch.where((do_rr & ~killed)[:, None],
+                               beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
+                               beta)
+        o = sc.offset_ray_origin_exact(isect["p"], isect["p_err"], ng,
+                                       wi_world)
+        d = wi_world
+        prev_pdf = bs["pdf"]
+    return L
 
 
 def render_wave(scene, camera, sampler, filt, pixel_idx: torch.Tensor,
                 sample_index: torch.Tensor, opts: PathOptions):
     """One wave over flat pixel ids (N,) and per-lane sample indices (N,).
     Returns (spectral L (N, 4), wavelengths, filter weight (N,))."""
-    if not megawave.eligible_full(scene, sampler, camera, filt):
-        raise NotImplementedError(
-            "render_wave: only the megakernel configuration is ported "
-            "(eligible scene, zsobol, pinhole camera, gaussian filter); the "
-            "general wave is queued in ROADMAP.md")
     px = pixel_idx % camera.width
     py = pixel_idx // camera.width
     u_lam = smp.sample_1d(sampler, px, py, sample_index, 5)
     swl = spc.sample_visible_wavelengths(u_lam)
-    L, fw = megawave.trace_full(scene, sampler, camera, filt, px, py,
-                                sample_index, swl.lam,
-                                max_depth=opts.max_depth,
-                                rr_start=opts.rr_start_depth)
-    return L, swl, fw
+    if _use_megawave(scene, sampler, camera, filt, opts):
+        L, fw = megawave.trace_full(scene, sampler, camera, filt, px, py,
+                                    sample_index, swl.lam,
+                                    max_depth=opts.max_depth,
+                                    rr_start=opts.rr_start_depth)
+        return L, swl, fw
+    u_pix = smp.sample_pixel_2d(sampler, px, py, sample_index, 0)
+    f_off, f_weight = flt.sample(filt, u_pix)
+    p_film = torch.stack([px.to(torch.float32) + 0.5 + f_off[:, 0],
+                          py.to(torch.float32) + 0.5 + f_off[:, 1]], dim=-1)
+    o, d, cam_wt = cam_mod.generate_ray_weighted(camera, p_film)
+    L = trace_paths(scene, sampler, px, py, sample_index, o, d, swl, opts)
+    return L, swl, f_weight * cam_wt

@@ -6,6 +6,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .utils.sampling import AliasTable
 
@@ -36,3 +37,22 @@ def make_light_sampler(kind: str, light_powers) -> LightSampler:
                             pmf_table=at.pmf)
     pmf = np.full(max(n, 1), 1.0 / max(n, 1), np.float32)
     return LightSampler(kind=LS_UNIFORM, n_lights=n, pmf_table=pmf)
+
+
+def sample_light(ls: LightSampler, u, rows=None):
+    """Pick a light with u (N,) (reference sample_light, the uniform and
+    power samplers). rows: the power sampler's (L, 4) alias rows as a
+    tensor on u's device. Returns (light index (N,) int64, pmf (N,))."""
+    n = ls.n_lights
+    if n == 0:
+        return torch.full_like(u, -1, dtype=torch.int64), torch.zeros_like(u)
+    if ls.kind == LS_POWER:
+        up = u * n
+        i = torch.clamp(up.to(torch.int32), 0, n - 1).to(torch.int64)
+        frac = up - i.to(torch.float32)
+        r = rows[i]
+        take = frac < r[:, 0]
+        return (torch.where(take, i, r[:, 1].round().to(torch.int64)),
+                torch.where(take, r[:, 2], r[:, 3]))
+    idx = torch.clamp((u * n).to(torch.int32), 0, n - 1).to(torch.int64)
+    return idx, torch.full_like(u, float(np.float32(1.0 / n)))

@@ -1,14 +1,16 @@
 """Build and load the CUDA kernels of csrc/.
 
-All `.cu` files compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes (no PyTorch headers, so a build takes
-seconds). The library is built at first use into pbrt_tpu_torch/_build/,
-named by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one is reused.
+Each `.cu` file compiles with nvcc into a shared library of its own with a
+plain C interface, loaded with ctypes (no PyTorch headers, so a build
+takes seconds). `build()` starts one nvcc per source, all at once, and
+waits for them together. A library is built at first use into
+pbrt_tpu_torch/_build/, named by a hash of its source, the shared headers
+and the flags, so an edited source rebuilds and an unchanged one is
+reused.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false, so that every multiply and
 add rounds on its own the way the plain PyTorch versions' separate ops do
-(the triangle test's edge tolerance and the path's hit and Russian-roulette
+(the triangle and slab tests and the path's hit and Russian-roulette
 decisions depend on it).
 """
 from __future__ import annotations
@@ -32,13 +34,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# source name -> {entry point: argtypes}
 SIGNATURES = {
-    # tri, o, d, t_max, t, prim, b1, b2, n, n_tris, n_real, any_hit, stream
-    "tri_intersect_launch": [_P] * 8 + [_I] * 4 + [_P],
-    # cam, tri, attr, light, mat, seeds, sobol01, mi, lam, le, L, fw,
-    # n, n_tris, n_real, n_mats, n_lights, n_dims, max_depth, rr_start,
-    # B, log2_spp, ls_uniform, 9 filter constants, stream
-    "megawave_launch": [_P] * 12 + [_I] * 11 + [_F] * 9 + [_P],
+    "tri_intersect": {
+        # tri, o, d, t_max, t, prim, b1, b2, n, n_tris, n_real, any_hit,
+        # stream
+        "tri_intersect_launch": [_P] * 8 + [_I] * 4 + [_P],
+    },
+    "megawave": {
+        # cam, tri, attr, light, mat, seeds, sobol01, mi, lam, le, L, fw,
+        # n, n_tris, n_real, n_mats, n_lights, n_dims, max_depth, rr_start,
+        # B, log2_spp, ls_uniform, 9 filter constants, stream
+        "megawave_launch": [_P] * 12 + [_I] * 11 + [_F] * 9 + [_P],
+    },
+    "bvh8": {
+        # nodes_f, nodes_q, tris, prim_indices, o, d, t_max, t, prim, b1,
+        # b2, n, any_hit, stream
+        "bvh8_intersect_launch": [_P] * 11 + [_I] * 2 + [_P],
+    },
 }
 
 
@@ -50,47 +63,62 @@ def _nvcc() -> str:
                        "machine with the card")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def library_path() -> Path:
+def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in _sources():
+    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"libpbrt_tpu_torch_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, str]:
-    """Compile the library if it is not built yet. Returns (path, the
-    compiler's output: ptxas register and spill counts)."""
-    out = library_path()
-    if out.exists():
-        return out, ""
+def build(names=None) -> dict:
+    """Compile the libraries of `names` (default: every source) that are
+    not built yet, one nvcc process per source, all started together.
+    Returns {name: (path, the compiler's output: ptxas registers and
+    spills, empty when the library was already built)}."""
+    names = list(SIGNATURES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
+    done, running = {}, {}
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)   # atomic: concurrent builders never see half
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                done[name] = (out, "")
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            running[name] = (out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (out, tmp, proc) in running.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc failed ({proc.returncode}):\n"
+                              f"{log}")
+                continue
+            os.replace(tmp, out)   # atomic: concurrent builders never see half
+            done[name] = (out, log)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+        for _out, tmp, proc in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return done
 
 
-@functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    path, _log = build()
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    path, _log = build([name])[name]
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib

@@ -27,14 +27,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import bxdfs
 from .. import cameras as cam_mod
 from .. import filters as flt
 from .. import lights as lgt
+from .. import materials as mtl
 from .. import samplers as smp
 from ..utils import lowdiscrepancy as ld
 from ..utils import rng as prng
-from ..utils.math import (next_float_down, next_float_up, power_heuristic,
-                          safe_div)
+from ..utils.math import (INV_PI, next_float_down, next_float_up,
+                          power_heuristic, safe_div)
 from . import LaunchCounter
 from .tri_intersect import tri_intersect_plain
 
@@ -51,8 +53,6 @@ DIMS_PER_BOUNCE = 11
 # camera table: c2w rows 0-2 | screen window | tan_half_fov | W | H
 CAM_COLS = 19
 
-_INV_PI = float(np.float32(1.0 / np.pi))
-_PI = float(np.float32(np.pi))
 # gamma(7) error-bound factor, rounded once from float64 like the reference
 _EPS = np.finfo(np.float32).eps * 0.5
 _G7 = float(np.float32((7 * _EPS) / (1 - 7 * _EPS)))
@@ -256,34 +256,6 @@ def _coordinate_system_t1(v):
     return (1.0 + sign * v[0] * v[0] * a, sign * b, -sign * v[0])
 
 
-def _sample_uniform_triangle(u0, u1):
-    cond = u0 < u1
-    b0 = torch.where(cond, u0 * 0.5, u0 - u1 * 0.5)
-    b1 = torch.where(cond, u1 - b0, u1 * 0.5)
-    return b0, b1, 1.0 - b0 - b1
-
-
-def _sample_cosine_hemisphere(u0, u1):
-    """Concentric-disk mapping lifted to the hemisphere."""
-    ox = 2.0 * u0 - 1.0
-    oy = 2.0 * u1 - 1.0
-    zero = (ox == 0.0) & (oy == 0.0)
-    cond = torch.abs(ox) > torch.abs(oy)
-    r = torch.where(cond, ox, oy)
-    theta = torch.where(cond, (_PI / 4.0) * safe_div(oy, ox),
-                        (_PI / 2.0) - (_PI / 4.0) * safe_div(ox, oy))
-    r = torch.where(zero, 0.0, r)
-    dx = r * torch.cos(theta)
-    dy = r * torch.sin(theta)
-    return dx, dy, torch.sqrt(torch.clamp(1.0 - dx * dx - dy * dy, min=0.0))
-
-
-def _sigmoid_poly(c0, c1, c2, lam):
-    x = (c0 * lam + c1) * lam + c2
-    s = 0.5 + x / (2.0 * torch.sqrt(1.0 + x * x))
-    return torch.where(torch.isinf(x), torch.where(x > 0, 1.0, 0.0), s)
-
-
 class _ZSobol:
     """ZSobol draws of one wave with the host seed table."""
 
@@ -396,7 +368,7 @@ def wave_full_plain(w: FullWave):
         t2 = _cross3(ns, t1)
         wo_local = (_dot3(wo, t1), _dot3(wo, t2), _dot3(wo, ns))
         m = mat_rows[matf.to(torch.int64)]
-        albedo = [_sigmoid_poly(m[:, 0], m[:, 1], m[:, 2], lam4[c])
+        albedo = [mtl.sigmoid_polynomial(m[:, 0], m[:, 1], m[:, 2], lam4[c])
                   for c in range(4)]
 
         # --- next-event estimation ---
@@ -420,7 +392,7 @@ def wave_full_plain(w: FullWave):
         vb = (lv[:, 3], lv[:, 4], lv[:, 5])
         vc = (lv[:, 6], lv[:, 7], lv[:, 8])
         lscale, lts = lv[:, 9], lv[:, 11]
-        sb0, sb1, sb2 = _sample_uniform_triangle(ul0, ul1)
+        sb0, sb1, sb2 = lgt.sample_uniform_triangle(ul0, ul1)
         p_tri = tuple(sb0 * va[c] + sb1 * vb[c] + sb2 * vc[c]
                       for c in range(3))
         ngl, ngl_len = _normalize3(_cross3(
@@ -437,9 +409,9 @@ def wave_full_plain(w: FullWave):
         wi_local = (_dot3(wi, t1), _dot3(wi, t2), _dot3(wi, ns))
         same = wo_local[2] * wi_local[2] > 0
         awi = torch.abs(wi_local[2])
-        f = [torch.where(same, albedo[c] * _INV_PI * awi, 0.0)
+        f = [torch.where(same, albedo[c] * INV_PI * awi, 0.0)
              for c in range(4)]
-        pdf_b = torch.where(same, awi * _INV_PI, 0.0)
+        pdf_b = torch.where(same, awi * INV_PI, 0.0)
         Le_l = [torch.where(l_emit_ok, Le_in[c] * lscale, 0.0)
                 for c in range(4)]
         any_L = (Le_l[0] > 0) | (Le_l[1] > 0) | (Le_l[2] > 0) | (Le_l[3] > 0)
@@ -459,12 +431,12 @@ def wave_full_plain(w: FullWave):
 
         # --- BSDF sample (diffuse cosine lobe) ---
         ub0, ub1 = zs.d2(base + 4)
-        wx, wy, wz = _sample_cosine_hemisphere(ub0, ub1)
+        wx, wy, wz = bxdfs.sample_cosine_hemisphere(ub0, ub1)
         wz = torch.where(wo_local[2] < 0, -wz, wz)
         same_b = wo_local[2] * wz > 0
         acb = torch.abs(wz)
-        pdf_s = torch.where(same_b, acb * _INV_PI, 0.0)
-        thr = safe_div(acb, pdf_s) * _INV_PI
+        pdf_s = torch.where(same_b, acb * INV_PI, 0.0)
+        thr = safe_div(acb, pdf_s) * INV_PI
         beta_new = [beta[c] * torch.where(same_b, albedo[c] * thr, 0.0)
                     for c in range(4)]
         any_beta = (beta_new[0] > 0) | (beta_new[1] > 0) | \
@@ -511,7 +483,7 @@ def _launch(w: FullWave):
     if w.cam.numel() != CAM_COLS:
         raise ValueError("megawave: camera table must have 19 entries")
     dev = w.lam.device
-    lib = _build.load_library()
+    lib = _build.load_library("megawave")
     # u32 values reinterpreted as int32 (the kernel reads uint32)
     mi32 = torch.where(w.mi >= 2 ** 31, w.mi - 2 ** 32, w.mi) \
         .to(torch.int32).contiguous()

@@ -113,7 +113,7 @@ def _launch(tri, o, d, t_max, n_real, any_hit):
     for x in (tri, o, d, t_max):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError("tri_intersect: float32 contiguous tensors only")
-    lib = _build.load_library()
+    lib = _build.load_library("tri_intersect")
     N = o.shape[0]
     t = torch.empty((N,), dtype=torch.float32, device=o.device)
     prim = torch.empty((N,), dtype=torch.int32, device=o.device)

@@ -96,3 +96,8 @@ def sample_2d(params: SamplerParams, px, py, sample_index, dim):
     ub = ld.u32_to_sample(ld.fast_owen_scramble(ld.sobol_sample_u32(idx, 1),
                                                 hb))
     return torch.stack([ua, ub], dim=-1)
+
+
+def sample_pixel_2d(params: SamplerParams, px, py, sample_index, dim):
+    """Pixel-position sample (reference GetPixel2D): sample_2d for ZSobol."""
+    return sample_2d(params, px, py, sample_index, dim)

@@ -1,13 +1,20 @@
 """Compiled scene (counterpart of pbrt_tpu/scene_core.py): the SceneBuilder
-subset the cornell box needs, and the tables the megakernel reads.
+subset of the ported slices, the device tables, and the intersection entry
+points of the general path wave.
 
 A scene is built on the host in numpy and moved once to the device the
-caller names. Only the megakernel's closed world is ported — triangle
-meshes with diffuse materials and area-triangle emission, at most 64
-triangles, a uniform or power light sampler, one emission spectrum — so
-`build` applies the reference's eligibility test (scene_core.py, the
-megakernel block of SceneBuilder.build) and raises NotImplementedError for
-anything outside it.
+caller names. It holds triangle meshes (per-vertex normals and uvs when
+given) with diffuse materials, area-triangle emission and uniform infinite
+lights, under a uniform or power light sampler. Other shapes, lights,
+materials, media, textures, instances and alpha are not ported: their
+builders do not exist here, and the parser refuses their directives.
+
+Triangle queries follow the reference's dispatch (_tri_dispatch): above
+4096 triangles, or with force_bvh, every closest and any hit goes through
+the BVH8 kernel (ops/bvh8.py) over the whole scene; otherwise through the
+brute-force triangle kernel (ops/tri_intersect.py). The megakernel's
+eligibility test is the reference's: an eligible scene (cornell class)
+also carries the megakernel's tables and metadata.
 """
 from __future__ import annotations
 
@@ -20,33 +27,60 @@ from . import device as dev_mod
 from . import lights as lgt
 from . import lightsamplers as lsamp
 from . import materials as mtl
+from .ops import bvh as bvh_mod
+from .ops import bvh8 as bvh8_mod
+from .ops import tri_intersect as ti
 from .ops.megawave import MegaMeta, ATTR_COLS, LIGHT_COLS
-from .ops.tri_intersect import pad_triangles
 from .utils import color as pcolor
 from .utils import spectrum as spc
+from .utils import vecmath as vm
+from .utils.math import gamma_bound, next_float_down, next_float_up
 
 MAX_MEGA_TRIS = 64
+BVH_MIN_TRIS = 4096   # the reference's brute-force / BVH crossover
 
 
 @dataclasses.dataclass
 class Scene:
-    """Device tables of an eligible scene.
+    """Device tables.
 
-    tri_pallas: (T*16,) [p0, e1, e2, pad] per triangle, T padded to 4;
-    attr: (n_tris*11,) [p0 p1 p2 mat light]; light: (L*16,) [va vb vc
-    scale pmf two_sided q alias pmf_self pmf_alias]; mat: (M*3,) sigmoid
-    albedo coefficients; spectra_pool: (S, 471); lights_packed: (L, 24)."""
+    tri_all (T, 27) triangle rows in original order, [p0, p1, p2, id]
+    then [n0, n1, n2, uv0, uv1, uv2, mat, light]; tri_pallas (T'*16,)
+    the brute-force pool (None on the BVH route); bvh8 the BVH8 tables
+    (None on the brute-force route); mat_pool (M, 22); lights_packed
+    (L, 24); alias_rows (L, 4) alias rows of a power sampler (else None);
+    spectra_pool (S, 471). Host metadata: the light sampler, the scene
+    radius (float32 value), the pool indices of the infinite lights, the
+    light tags present. attr, light, mat and mega: the megakernel's tables
+    and metadata, None unless the scene is eligible."""
+    tri_all: torch.Tensor
     tri_pallas: torch.Tensor
-    attr: torch.Tensor
-    light: torch.Tensor
-    mat: torch.Tensor
-    spectra_pool: torch.Tensor
+    bvh8: bvh8_mod.BVH8
+    mat_pool: torch.Tensor
     lights_packed: torch.Tensor
-    mega: MegaMeta
+    alias_rows: torch.Tensor
+    spectra_pool: torch.Tensor
+    light_sampler: lsamp.LightSampler
+    scene_radius: float
+    inf_indices: tuple
+    light_tags: tuple
+    n_tris: int
+    attr: torch.Tensor = None
+    light: torch.Tensor = None
+    mat: torch.Tensor = None
+    mega: MegaMeta = None
 
     @property
     def device(self) -> torch.device:
-        return self.tri_pallas.device
+        return self.tri_all.device
+
+    @property
+    def use_bvh(self) -> bool:
+        return self.bvh8 is not None
+
+    @property
+    def has_area_lights(self) -> bool:
+        return lgt.LIGHT_AREA_TRI in self.light_tags
 
 
 class SceneBuilder:
@@ -56,6 +90,8 @@ class SceneBuilder:
         self.cs = pcolor.srgb()
         self.materials = mtl.MaterialBuilder(self.cs)
         self.p0, self.p1, self.p2 = [], [], []
+        self.n0, self.n1, self.n2 = [], [], []
+        self.uv0, self.uv1, self.uv2 = [], [], []
         self.t_mat = []
         self.t_light = []
         self.light_rows = []
@@ -76,21 +112,38 @@ class SceneBuilder:
             self._spec_cache[key] = idx
         return idx
 
-    def add_mesh(self, vertices, indices, material: int, emission=None,
-                 emission_scale=1.0, two_sided=False):
-        """vertices (V, 3); indices (F, 3); emission: host Spectrum making
-        each triangle an area light. Returns the light indices created."""
+    def add_mesh(self, vertices, indices, material: int, normals=None,
+                 uvs=None, emission=None, emission_scale=1.0,
+                 two_sided=False):
+        """vertices (V, 3); indices (F, 3); normals (V, 3) and uvs (V, 2)
+        per vertex, optional; emission: host Spectrum making each triangle
+        an area light. Returns the light indices created."""
         vertices = np.asarray(vertices, np.float32)
         indices = np.asarray(indices, np.int64)
-        p0 = vertices[indices[:, 0]]
-        p1 = vertices[indices[:, 1]]
-        p2 = vertices[indices[:, 2]]
+        p0, p1, p2 = (vertices[indices[:, i]] for i in range(3))
+        if normals is not None:
+            normals = np.asarray(normals, np.float32)
+            n0, n1, n2 = (normals[indices[:, i]] for i in range(3))
+        else:
+            ng = np.cross(p1 - p0, p2 - p0)
+            ng /= np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True),
+                             1e-20)
+            n0 = n1 = n2 = ng
+        if uvs is not None:
+            uvs = np.asarray(uvs, np.float32)
+            uv0, uv1, uv2 = (uvs[indices[:, i]] for i in range(3))
+        else:
+            uv0 = np.zeros((len(p0), 2), np.float32)
+            uv1 = np.tile(np.array([[1, 0]], np.float32), (len(p0), 1))
+            uv2 = np.tile(np.array([[1, 1]], np.float32), (len(p0), 1))
         created = []
         for i in range(len(p0)):
             tri = len(self.t_mat)
-            self.p0.append(p0[i])
-            self.p1.append(p1[i])
-            self.p2.append(p2[i])
+            for dst, src in ((self.p0, p0), (self.p1, p1), (self.p2, p2),
+                             (self.n0, n0), (self.n1, n1), (self.n2, n2),
+                             (self.uv0, uv0), (self.uv1, uv1),
+                             (self.uv2, uv2)):
+                dst.append(src[i])
             self.t_mat.append(material)
             if emission is None:
                 self.t_light.append(-1)
@@ -99,10 +152,11 @@ class SceneBuilder:
                                                  p2[i] - p0[i]))
             li = len(self.light_rows)
             self.light_rows.append(dict(
-                tag=lgt.LIGHT_AREA_TRI,
+                tag=lgt.LIGHT_AREA_TRI, p=np.zeros(3), dir=np.zeros(3),
                 spec_idx=self.add_spectrum(emission,
                                            key=("emit", id(emission))),
                 scale=emission_scale, tri=tri, two_sided=two_sided,
+                cfs=1.0, cfe=1.0, is_delta=False,
                 power=lgt.compute_light_power(
                     lgt.LIGHT_AREA_TRI, emission_scale, emission, area=area,
                     two_sided=two_sided)))
@@ -110,35 +164,104 @@ class SceneBuilder:
             created.append(li)
         return created
 
-    def _check_eligible(self, light_sampler: str):
-        n_tri = len(self.p0)
-        rows = self.light_rows
-        why = None
-        if n_tri == 0:
-            why = "empty scene"
-        elif n_tri > MAX_MEGA_TRIS:
-            why = (f"{n_tri} triangles (the brute-force megakernel takes at "
-                   f"most {MAX_MEGA_TRIS}; larger meshes need the BVH8 "
-                   "kernel, ROADMAP.md slice 2)")
-        elif not rows:
-            why = "no area light (ROADMAP.md slice 2: infinite lights)"
-        elif light_sampler not in ("uniform", "power"):
-            why = f"light sampler {light_sampler!r} (ROADMAP.md slice 3)"
-        elif len({r["spec_idx"] for r in rows}) != 1:
-            why = "more than one emission spectrum (ROADMAP.md slice 3)"
-        if why is not None:
-            raise NotImplementedError(
-                "scene outside the megakernel's closed world: " + why)
+    def add_uniform_infinite_light(self, spectrum: spc.Spectrum,
+                                   scale=1.0) -> int:
+        """A constant environment; its power is set at build time from the
+        scene radius."""
+        self.light_rows.append(dict(
+            tag=lgt.LIGHT_UNIFORM_INFINITE, p=np.zeros(3), dir=np.zeros(3),
+            spec_idx=self.add_spectrum(spectrum, key=("inf", id(spectrum))),
+            scale=scale, tri=0, two_sided=False, cfs=1.0, cfe=1.0,
+            is_delta=False, power=1.0))
+        return len(self.light_rows) - 1
 
-    def build(self, light_sampler="power", device="cpu") -> Scene:
-        device = dev_mod.resolve(device)
-        self._check_eligible(light_sampler)
-        p0, p1, p2 = (np.stack(v) for v in (self.p0, self.p1, self.p2))
+    def _mega_meta(self, use_bvh, ls, p0, p1, p2):
+        """The megakernel's static eligibility (reference SceneBuilder.build,
+        the megakernel block); None when the scene is outside it."""
         rows = self.light_rows
+        n_tri = len(p0)
+        if (use_bvh or n_tri > MAX_MEGA_TRIS or not rows
+                or ls.kind not in (lsamp.LS_UNIFORM, lsamp.LS_POWER)
+                or any(r["tag"] != lgt.LIGHT_AREA_TRI for r in rows)
+                or len({r["spec_idx"] for r in rows}) != 1):
+            return None
+        face_ng = np.cross(p1 - p0, p2 - p0)
+        face_ng /= np.maximum(
+            np.linalg.norm(face_ng, axis=-1, keepdims=True), 1e-20)
+        n0h = np.stack(self.n0)
+        flat_ok = (np.allclose(n0h, np.stack(self.n1))
+                   and np.allclose(n0h, np.stack(self.n2))
+                   and np.allclose(n0h, face_ng, atol=1e-5))
+        uv_ok = (np.allclose(np.stack(self.uv0), [0.0, 0.0])
+                 and np.allclose(np.stack(self.uv1), [1.0, 0.0])
+                 and np.allclose(np.stack(self.uv2), [1.0, 1.0]))
+        if not (flat_ok and uv_ok):
+            return None
+        return MegaMeta(n_tris=n_tri, n_mats=len(self.materials.rows),
+                        n_lights=len(rows),
+                        light_spec=int(rows[0]["spec_idx"]),
+                        ls_uniform=bool(ls.kind == lsamp.LS_UNIFORM))
+
+    def build(self, light_sampler="power", force_bvh=None,
+              device="cpu") -> Scene:
+        device = dev_mod.resolve(device)
+        if not self.p0:
+            # a dummy far-away triangle keeps the triangle pipeline
+            # non-empty, as in the reference
+            self.add_mesh([[9e8, 9e8, 9e8], [9.0001e8, 9e8, 9e8],
+                           [9e8, 9.0001e8, 9e8]], [[0, 1, 2]],
+                          self.materials.add_diffuse((0, 0, 0)))
+        p0, p1, p2 = (np.stack(v) for v in (self.p0, self.p1, self.p2))
+        n_tri = len(p0)
+        lo = np.minimum(np.minimum(p0, p1), p2)
+        hi = np.maximum(np.maximum(p0, p1), p2)
+        radius = 0.5 * float(np.linalg.norm(hi.max(axis=0) - lo.min(axis=0))) \
+            + 1e-3
+        use_bvh = (n_tri > BVH_MIN_TRIS) if force_bvh is None else \
+            bool(force_bvh)
+        rows = self.light_rows
+        for r in rows:     # the scene-radius term of infinite-light power
+            if r["tag"] == lgt.LIGHT_UNIFORM_INFINITE:
+                base = spc.DenselySampledSpectrum(
+                    self.spectra[r["spec_idx"]].astype(np.float64))
+                r["power"] = lgt.compute_light_power(
+                    r["tag"], r["scale"], base, scene_radius=radius)
         ls = lsamp.make_light_sampler(light_sampler,
                                       [r["power"] for r in rows])
-        lights_packed = lgt.pack_area_lights(rows, p0, p1, p2, ls.pmf_table)
-        n_tri = len(p0)
+        lights_packed = lgt.pack_light_pool(rows, p0, p1, p2, ls.pmf_table)
+        tri_geo = bvh_mod.pack_tri_geo(p0, p1, p2)
+        tri_shade = np.concatenate([
+            np.stack(self.n0), np.stack(self.n1), np.stack(self.n2),
+            np.stack(self.uv0), np.stack(self.uv1), np.stack(self.uv2),
+            np.asarray(self.t_mat, np.float32)[:, None],
+            np.asarray(self.t_light, np.float32)[:, None]],
+            axis=1).astype(np.float32)
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                   device=device)
+
+        bvh8 = tri_pallas = None
+        if use_bvh:
+            bvh8 = bvh8_mod.build_bvh8(lo, hi, tri_geo, device=device)
+        else:
+            tri_pallas = t(ti.pad_triangles(tri_geo[:, :9]))
+        scene = Scene(
+            tri_all=t(np.concatenate([tri_geo, tri_shade], axis=1)),
+            tri_pallas=tri_pallas, bvh8=bvh8,
+            mat_pool=t(self.materials.packed()),
+            lights_packed=t(lights_packed),
+            alias_rows=t(ls.rows) if ls.kind == lsamp.LS_POWER else None,
+            spectra_pool=t(np.stack(self.spectra) if self.spectra
+                           else np.zeros((1, spc.N_CIE))),
+            light_sampler=ls, scene_radius=float(np.float32(radius)),
+            inf_indices=tuple(i for i, r in enumerate(rows)
+                              if r["tag"] == lgt.LIGHT_UNIFORM_INFINITE),
+            light_tags=tuple(sorted({r["tag"] for r in rows})),
+            n_tris=n_tri)
+        mega = self._mega_meta(use_bvh, ls, p0, p1, p2)
+        if mega is None:
+            return scene
         attr = np.concatenate([
             p0, p1, p2, np.asarray(self.t_mat, np.float32)[:, None],
             np.asarray(self.t_light, np.float32)[:, None]], axis=1)
@@ -154,18 +277,87 @@ class SceneBuilder:
                                 lights_packed[:, 14:15],
                                 lights_packed[:, 10:11], alias], axis=1)
         assert light.shape[1] == LIGHT_COLS
-        mega = MegaMeta(n_tris=n_tri, n_mats=len(self.materials.rows),
-                        n_lights=len(rows),
-                        light_spec=int(rows[0]["spec_idx"]),
-                        ls_uniform=bool(ls.kind == lsamp.LS_UNIFORM))
+        return dataclasses.replace(
+            scene, attr=t(attr.reshape(-1)), light=t(light.reshape(-1)),
+            mat=t(self.materials.coeffs().reshape(-1)), mega=mega)
 
-        def t(a):
-            return torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                                   device=device)
 
-        return Scene(
-            tri_pallas=t(pad_triangles(np.concatenate([p0, p1, p2], 1))),
-            attr=t(attr.reshape(-1)), light=t(light.reshape(-1)),
-            mat=t(self.materials.coeffs().reshape(-1)),
-            spectra_pool=t(np.stack(self.spectra)),
-            lights_packed=t(lights_packed), mega=mega)
+# ---------------------------------------------------------------------------
+# Intersection entry points (triangles only)
+
+def _tri_dispatch(scene: Scene, o, d, t_max, any_hit: bool):
+    """Closest or any hit through the scene's route. Returns dict(hit, t
+    (inf on a miss), prim (original id, -1 on a miss), b0, b1, b2)."""
+    # the kernels read packed rows: camera origins arrive broadcast
+    o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
+    if scene.use_bvh:
+        return bvh8_mod.bvh8_intersect(scene.bvh8, o, d, t_max, any_hit)
+    t, prim, b1, b2 = ti.tri_intersect(scene.tri_pallas, o, d, t_max,
+                                       scene.n_tris, any_hit)
+    hit = prim >= 0
+    return dict(hit=hit, t=torch.where(hit, t, torch.inf), prim=prim,
+                b0=1.0 - b1 - b2, b1=b1, b2=b2)
+
+
+def intersection_p_error(b0, b1, b2, p0, p1, p2):
+    """Triangle-hit position error bound: gamma(7) * sum |b_i p_i|."""
+    return gamma_bound(7) * (torch.abs(b0[:, None] * p0)
+                             + torch.abs(b1[:, None] * p1)
+                             + torch.abs(b2[:, None] * p2))
+
+
+def intersect(scene: Scene, o, d, t_max):
+    """Closest hit of rays o, d (N, 3) below t_max (N,). Returns dict(hit,
+    t, prim, p, ng, ns, uv, mat, light, wo, p0, p1, p2, dpdu, dpdv,
+    p_err); ng is turned to the side of the shading normal ns."""
+    r = _tri_dispatch(scene, o, d, t_max, any_hit=False)
+    prim = torch.clamp(r["prim"], min=0).to(torch.int64)
+    b0, b1, b2 = r["b0"], r["b1"], r["b2"]
+    row = scene.tri_all[prim]
+    p0, p1, p2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+    n0, n1, n2 = row[:, 10:13], row[:, 13:16], row[:, 16:19]
+    uv0, uv1, uv2 = row[:, 19:21], row[:, 21:23], row[:, 23:25]
+    p = b0[:, None] * p0 + b1[:, None] * p1 + b2[:, None] * p2
+    ng = vm.normalize(vm.cross(p1 - p0, p2 - p0))
+    ns = vm.normalize(b0[:, None] * n0 + b1[:, None] * n1 + b2[:, None] * n2)
+    ng = torch.where((vm.dot(ng, ns) < 0)[:, None], -ng, ng)
+    uv = b0[:, None] * uv0 + b1[:, None] * uv1 + b2[:, None] * uv2
+    # parametric derivatives (reference Triangle InteractionFromIntersection)
+    duv02 = uv0 - uv2
+    duv12 = uv1 - uv2
+    dp02 = p0 - p2
+    dp12 = p1 - p2
+    det = duv02[:, 0] * duv12[:, 1] - duv02[:, 1] * duv12[:, 0]
+    small = torch.abs(det) < 1e-12
+    inv_det = torch.where(small, 0.0, 1.0 / det)
+    dpdu = (duv12[:, 1:2] * dp02 - duv02[:, 1:2] * dp12) * inv_det[:, None]
+    dpdv = (-duv12[:, 0:1] * dp02 + duv02[:, 0:1] * dp12) * inv_det[:, None]
+    degen = small | (vm.length_squared(vm.cross(dpdu, dpdv)) < 1e-18)
+    t1f, t2f = vm.coordinate_system(ng)
+    dpdu = torch.where(degen[:, None], t1f, dpdu)
+    dpdv = torch.where(degen[:, None], t2f, dpdv)
+    p_err = torch.maximum(intersection_p_error(b0, b1, b2, p0, p1, p2),
+                          gamma_bound(7) * torch.abs(p))
+    return dict(hit=r["hit"], t=r["t"], prim=prim, p=p, ng=ng, ns=ns, uv=uv,
+                mat=row[:, 25].round().to(torch.int64),
+                light=row[:, 26].round().to(torch.int64), wo=-d, p0=p0,
+                p1=p1, p2=p2, dpdu=dpdu, dpdv=dpdv, p_err=p_err)
+
+
+def intersect_p(scene: Scene, o, d, t_max):
+    """Any-hit (shadow) query. Returns bool occluded (N,)."""
+    return _tri_dispatch(scene, o, d, t_max, any_hit=True)["hit"]
+
+
+def offset_ray_origin_exact(p, p_err, ng, w):
+    """Push the origin past the hit's error box along ng, to the side of
+    w, each coordinate rounded one float away from p (reference
+    Interaction::OffsetRayOrigin)."""
+    dist = (torch.abs(ng[:, 0]) * p_err[:, 0]
+            + torch.abs(ng[:, 1]) * p_err[:, 1]
+            + torch.abs(ng[:, 2]) * p_err[:, 2])
+    offset = dist[:, None] * ng
+    offset = torch.where((vm.dot(w, ng) < 0)[:, None], -offset, offset)
+    po = p + offset
+    return torch.where(offset > 0, next_float_up(po),
+                       torch.where(offset < 0, next_float_down(po), po))

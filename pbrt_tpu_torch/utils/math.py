@@ -6,6 +6,10 @@ import numpy as np
 import torch
 
 MACHINE_EPSILON = float(np.finfo(np.float32).eps * 0.5)
+# the reference's float32 constants, as Python floats holding those values
+PI = float(np.float32(np.pi))
+INV_PI = float(np.float32(1.0 / np.pi))
+INV_4PI = float(np.float32(1.0 / (4 * np.pi)))
 _TINY = float(np.nextafter(np.float32(0), np.float32(1)))
 
 # Giles (2012) single-precision erf^-1 polynomial coefficients

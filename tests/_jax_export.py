@@ -1,29 +1,57 @@
-"""Export the reference's cornell scene, camera and sampler to numpy, in the
-form pbrt_tpu_torch.convert.from_jax_scene takes (shared by the
-test_torch_* files)."""
+"""Export the reference's scenes, cameras and samplers to numpy, in the form
+pbrt_tpu_torch.convert.from_jax_scene takes (shared by the test_torch_*
+files)."""
 import numpy as np
 
+from pbrt_tpu import lights as jlgt
 from pbrt_tpu import samplers as jsmp
 from pbrt_tpu import scenes as jscenes
 from pbrt_tpu.ops import megawave as jmw
+
+
+def export(scene, cam, sampler):
+    """(arrays, meta) of a reference Scene, Camera and SamplerParams."""
+    ls = scene.light_sampler
+    arrays = dict(tri_all=np.asarray(scene.tri_all),
+                  mat_pool=np.asarray(scene.materials.packed),
+                  lights_packed=np.asarray(scene.lights.packed),
+                  spectra_pool=np.asarray(scene.spectra_pool),
+                  ls_pmf=np.asarray(ls.pmf_table),
+                  c2w_m=np.asarray(cam.c2w_m),
+                  tan_half_fov=np.asarray(cam.tan_half_fov))
+    if ls.rows is not None:
+        arrays["ls_rows"] = np.asarray(ls.rows)
+    meta = dict(ls_kind=ls.kind, n_lights=ls.n_lights,
+                scene_radius=float(scene.scene_radius),
+                inf_indices=scene.inf_indices,
+                light_tags=tuple(t for t in scene.lights.tags_present
+                                 if t != jlgt.LIGHT_NONE),
+                n_tris=int(scene.tri_geo.shape[0]), mega=None,
+                width=cam.width, height=cam.height,
+                screen_min=cam.screen_min, screen_max=cam.screen_max,
+                has_lens=cam.has_lens, seed=sampler.seed, spp=sampler.spp,
+                log2_spp=sampler.log2_spp,
+                n_base4_digits=sampler.n_base4_digits)
+    if scene.bvh8 is not None:
+        b8 = scene.bvh8
+        arrays.update(nodes_f=np.asarray(b8.nodes_f),
+                      nodes_q=np.asarray(b8.nodes_q),
+                      tris_b8=np.asarray(b8.tris),
+                      prim_indices=np.asarray(b8.prim_indices))
+        meta["bvh8"] = (b8.n_nodes, b8.n_tris, b8.depth)
+    else:
+        arrays["tri_pallas"] = np.asarray(scene.tri_pallas)
+    if scene.mega is not None:
+        attr, light, mat = jmw.scene_tables(scene)
+        arrays.update(attr=np.asarray(attr), light=np.asarray(light),
+                      mat=np.asarray(mat))
+        meta["mega"] = scene.mega._asdict()
+    return arrays, meta
 
 
 def export_cornell(W=16, H=16, spp=4):
     """Returns (jax scene, jax camera, jax sampler, arrays, meta)."""
     scene, cam = jscenes.make_cornell_box(width=W, height=H)
     sampler = jsmp.make_sampler("zsobol", spp=spp, full_resolution=(W, H))
-    attr, light, mat = jmw.scene_tables(scene)
-    arrays = dict(tri_pallas=np.asarray(scene.tri_pallas),
-                  attr=np.asarray(attr), light=np.asarray(light),
-                  mat=np.asarray(mat),
-                  spectra_pool=np.asarray(scene.spectra_pool),
-                  lights_packed=np.asarray(scene.lights.packed),
-                  c2w_m=np.asarray(cam.c2w_m),
-                  tan_half_fov=np.asarray(cam.tan_half_fov))
-    meta = dict(mega=scene.mega._asdict(), width=cam.width,
-                height=cam.height, screen_min=cam.screen_min,
-                screen_max=cam.screen_max, has_lens=cam.has_lens,
-                seed=sampler.seed, spp=sampler.spp,
-                log2_spp=sampler.log2_spp,
-                n_base4_digits=sampler.n_base4_digits)
+    arrays, meta = export(scene, cam, sampler)
     return scene, cam, sampler, arrays, meta

@@ -12,8 +12,10 @@ import torch
 from pbrt_tpu_torch import filters as flt
 from pbrt_tpu_torch import samplers as smp
 from pbrt_tpu_torch import scenes
+from pbrt_tpu_torch.ops import bvh8
 from pbrt_tpu_torch.ops import megawave
 from pbrt_tpu_torch.ops import tri_intersect as ti
+from pbrt_tpu_torch.scene import parser
 from pbrt_tpu_torch.utils import spectrum as spc
 
 W = H = 64
@@ -98,3 +100,36 @@ def test_megakernel_matches_plain(cuda_device, light_sampler):
     assert (rel < 1e-4).float().mean().item() >= 0.999
     assert abs(L.mean().item() / L_p.mean().item() - 1) < 1e-3
     torch.testing.assert_close(fw, fw_p, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh8_kernel_matches_plain(cuda_device, any_hit):
+    """meshfield's BVH8, 2^16 seeded rays from the world box +-1."""
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    scene = parser.parse_file(root / "scenes" / "meshfield.pbrt",
+                              device=cuda_device).scene
+    tri = scene.tri_all[:, :9].reshape(-1, 3)
+    lo = tri.amin(dim=0).cpu().numpy() - 1.0
+    hi = tri.amax(dim=0).cpu().numpy() + 1.0
+    rs = np.random.RandomState(11)
+    n = 1 << 16
+    o = rs.uniform(lo, hi, (n, 3))
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+            for a in (o, d))
+    t_max = 30.0 if any_hit else 1e30
+    before = bvh8.counter.launches
+    got = bvh8.bvh8_intersect(scene.bvh8, o, d, t_max, any_hit)
+    torch.cuda.synchronize()
+    assert bvh8.counter.launches == before + 1
+    t_vec = torch.full((n,), t_max, device=cuda_device)
+    want = dict(zip(("t", "prim", "b1", "b2"), bvh8.bvh8_intersect_plain(
+        scene.bvh8, o, d, t_vec, any_hit)))
+    assert (got["hit"] == (want["prim"] >= 0)).float().mean().item() \
+        >= 0.9999
+    same = got["prim"] == want["prim"]
+    assert same.float().mean().item() >= 0.9999
+    assert torch.equal(got["t"][same], want["t"][same])

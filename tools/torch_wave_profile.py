@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Where one wave of the PyTorch + CUDA port's main path spends its time.
+"""Where one wave of the PyTorch + CUDA port spends its time.
 
 Run from the repository root on a machine with an NVIDIA GPU:
-    python3 tools/torch_wave_profile.py
+    python3 tools/torch_wave_profile.py [--scene cornell|meshfield|both]
 
-Cornell box 400x400, 64 spp, max depth 5 (pbrt_tpu_torch only; no jax).
-Prints the card's name and power limit, then
-  1. each stage of one 160,000-lane wave timed on its own with a
-     synchronize around it (median of --reps waves after one warm-up):
-     the wavelength sample at zsobol dim 5, sample_visible_wavelengths,
+cornell: the main path, 400x400, 64 spp, max depth 5, on the megakernel.
+meshfield: scenes/meshfield.pbrt, 200x200, 32 spp, max depth 4, on the
+general wave and the BVH8 kernel. (pbrt_tpu_torch only; no jax.)
+Prints the card's name and power limit, then for each scene
+  1. the stages of one wave (160,000 lanes), each timed with a synchronize
+     around it, median of --reps waves after one warm-up. cornell: the
+     wavelength sample at zsobol dim 5, sample_visible_wavelengths,
      megawave.prepare_full, the megakernel, the sensor projection and the
-     film add;
-  2. --renders full renders (64 spp), unprofiled: paths/s of each;
+     film add. meshfield: the host-launched sampler dimensions, the camera
+     (filter sample and pinhole rays), the closest-hit queries
+     (scene_core.intersect), the NEE shadow queries (intersect_p), the
+     rest of the wave (shading: emission, lights, BSDF, roulette), and
+     the film (sensor projection and add);
+  2. --renders full renders, unprofiled: paths/s of each;
   3. a render of --profiled-spp samples under torch.profiler: wall time,
      the sum of device self times and their ratio (the device busy share;
      the profiler slows the host side, so the share without it is higher).
@@ -28,8 +34,144 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
+def profiled_share(render_fn, label):
+    """Device busy share of one render under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        render_fn()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    ka = prof.key_averages()
+    # the device's own events only: an aten op's row repeats the time of
+    # the kernels it launched, so summing every row counts it twice
+    dev_ms = sum(e.self_device_time_total for e in ka
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)) / 1e3
+    print(f"{label}: profiled render wall {wall_ms:.3f} ms, device self "
+          f"time {dev_ms:.3f} ms, busy share {dev_ms / wall_ms:.4f}",
+          flush=True)
+    print(ka.table(sort_by="self_device_time_total", row_limit=12))
+    return wall_ms, dev_ms
+
+
+class StageTimers:
+    """Wrap module functions so each call is timed with a synchronize
+    around it and added to its stage; nested timed calls count once, in
+    the outermost stage."""
+
+    def __init__(self):
+        self.ms = {}
+        self._depth = 0
+        self._saved = []
+
+    def wrap(self, module, name, stage):
+        import torch
+        fn = getattr(module, name)
+
+        def timed(*a, **k):
+            if self._depth:
+                return fn(*a, **k)
+            self._depth += 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                self.ms[stage] = self.ms.get(stage, 0.0) + \
+                    (time.perf_counter() - t) * 1e3
+                self._depth -= 1
+        self._saved.append((module, name, fn))
+        setattr(module, name, timed)
+
+    def restore(self):
+        for module, name, fn in reversed(self._saved):
+            setattr(module, name, fn)
+        self._saved.clear()
+
+
+def profile_meshfield(args, dev):
+    """Stage times, renders and busy share of the meshfield general wave."""
+    import torch
+    from pbrt_tpu_torch import cameras as cam_mod
+    from pbrt_tpu_torch import film as film_mod
+    from pbrt_tpu_torch import filters as flt
+    from pbrt_tpu_torch import samplers as smp
+    from pbrt_tpu_torch import scene_core as sc
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.scene import parser
+
+    root = Path(__file__).resolve().parent.parent
+    desc = parser.parse_file(root / "scenes" / "meshfield.pbrt", device=dev)
+    scene, cam, sampler = desc.scene, desc.camera, desc.sampler
+    opts = path_mod.PathOptions(max_depth=4)
+    W, H = cam.width, cam.height
+    render.render(scene, cam, sampler=sampler, device=dev, opts=opts)
+    filt = flt.make_filter("gaussian")
+    sensor = film_mod.make_pixel_sensor()
+    film = film_mod.make_film(W, H, dev)
+    m = 4     # sample indices per 160k-lane wave (render.py's rule)
+    pix = torch.arange(W * H, device=dev).repeat(m)
+    si = torch.arange(W * H * m, device=dev) // (W * H)
+    names = ("sampler dims", "camera", "intersect", "NEE shadow", "shading",
+             "film")
+    per_wave = {k: [] for k in names}
+    for rep in range(args.reps + 1):
+        timers = StageTimers()
+        for fn in ("sample_1d", "sample_2d", "sample_pixel_2d"):
+            timers.wrap(smp, fn, "sampler dims")
+        timers.wrap(flt, "sample", "camera")
+        timers.wrap(cam_mod, "generate_ray_weighted", "camera")
+        timers.wrap(sc, "intersect", "intersect")
+        timers.wrap(sc, "intersect_p", "NEE shadow")
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            L, swl, fw = path_mod.render_wave(scene, cam, sampler, filt, pix,
+                                              si + 4 * rep, opts)
+            torch.cuda.synchronize()
+            wave_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            timers.restore()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rgb = film_mod.sensor_to_sensor_rgb(sensor, L, swl)
+        film_mod.add_samples(film, pix, rgb, fw, identity=True)
+        torch.cuda.synchronize()
+        timers.ms["film"] = (time.perf_counter() - t) * 1e3
+        timers.ms["shading"] = wave_ms - sum(
+            v for k, v in timers.ms.items() if k != "film")
+        if rep:   # the first wave is the warm-up
+            for k in names:
+                per_wave[k].append(timers.ms.get(k, 0.0))
+    stage_ms = {k: statistics.median(v) for k, v in per_wave.items()}
+    print(f"meshfield stage ms, median of {args.reps} waves of {W * H * m} "
+          f"lanes: {json.dumps(stage_ms)}", flush=True)
+    renders = [render.render(scene, cam, sampler=sampler, device=dev,
+                             opts=opts)[1]["paths_per_sec"]
+               for _ in range(args.renders)]
+    print(f"meshfield renders, 32 spp, paths/s: {renders}", flush=True)
+    wall_ms, dev_ms = profiled_share(
+        lambda: render.render(scene, cam, spp=args.profiled_spp,
+                              sampler=smp.make_sampler(
+                                  "zsobol", spp=args.profiled_spp,
+                                  full_resolution=(W, H)),
+                              device=dev, opts=opts),
+        f"meshfield, {args.profiled_spp} spp")
+    return dict(stage_ms=stage_ms, render_paths_per_sec=renders,
+                profiled_wall_ms=wall_ms, device_ms=dev_ms,
+                busy_share=dev_ms / wall_ms)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scene", choices=("cornell", "meshfield", "both"),
+                    default="both")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--renders", type=int, default=5)
     ap.add_argument("--profiled-spp", type=int, default=8)
@@ -39,9 +181,25 @@ def main():
     if not torch.cuda.is_available():
         print("torch_wave_profile: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "--id=0"],
+                          capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda", 0)
+    out = dict(card=card)
+    if args.scene in ("cornell", "both"):
+        out["cornell"] = profile_cornell(args, dev)
+    if args.scene in ("meshfield", "both"):
+        out["meshfield"] = profile_meshfield(args, dev)
+    print(json.dumps(out))
+    return 0
+
+
+def profile_cornell(args, dev):
+    """Stage times, renders and busy share of the cornell main path."""
+    import torch
     from pbrt_tpu_torch import film as film_mod
     from pbrt_tpu_torch import filters as flt
     from pbrt_tpu_torch import samplers as smp
@@ -50,12 +208,6 @@ def main():
     from pbrt_tpu_torch.ops import megawave
     from pbrt_tpu_torch.utils import spectrum as spc
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader", "--id=0"],
-                          capture_output=True, text=True,
-                          timeout=60).stdout.strip()
-    print(f"card: {card}", flush=True)
-    dev = torch.device("cuda", 0)
     W = H = 400
     scene, cam = scenes.make_cornell_box(W, H, device=dev)
     render.render(scene, cam, spp=4, device=dev)   # builds the kernels
@@ -98,29 +250,13 @@ def main():
     renders = [render.render(scene, cam, spp=64, device=dev)[1]
                ["paths_per_sec"] for _ in range(args.renders)]
     print(f"renders, 64 spp, paths/s: {renders}", flush=True)
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        render.render(scene, cam, spp=args.profiled_spp, device=dev)
-        wall_ms = (time.perf_counter() - t) * 1e3
-    ka = prof.key_averages()
-    # the device's own events only: an aten op's row repeats the time of
-    # the kernels it launched, so summing every row counts it twice
-    dev_ms = sum(e.self_device_time_total for e in ka
-                 if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False)) / 1e3
-    print(f"profiled render, {args.profiled_spp} spp: wall {wall_ms:.3f} ms, "
-          f"device self time {dev_ms:.3f} ms, busy share "
-          f"{dev_ms / wall_ms:.4f}", flush=True)
-    print(ka.table(sort_by="self_device_time_total", row_limit=12))
-    print(json.dumps(dict(card=card, stage_ms=stage_ms,
-                          render_paths_per_sec=renders,
-                          profiled_spp=args.profiled_spp,
-                          profiled_wall_ms=wall_ms, device_ms=dev_ms,
-                          busy_share=dev_ms / wall_ms)))
-    return 0
+    wall_ms, dev_ms = profiled_share(
+        lambda: render.render(scene, cam, spp=args.profiled_spp,
+                              device=dev),
+        f"cornell, {args.profiled_spp} spp")
+    return dict(stage_ms=stage_ms, render_paths_per_sec=renders,
+                profiled_spp=args.profiled_spp, profiled_wall_ms=wall_ms,
+                device_ms=dev_ms, busy_share=dev_ms / wall_ms)
 
 
 if __name__ == "__main__":
