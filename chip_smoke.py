@@ -6,7 +6,7 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each of which raises on failure (exit code 1):
   1. start: a CUDA device must be present (else exit 2); print the card's
      name and power limit as nvidia-smi reports them;
-  2. build the two CUDA kernels from pbrt_tpu_torch/csrc with nvcc;
+  2. build every CUDA kernel library of pbrt_tpu_torch/csrc with nvcc;
   3. tri_intersect kernel against its plain PyTorch version on the card,
      1M seeded rays against the cornell pool, closest and any hit;
   4. megakernel against its plain version on the card: cornell 64x64,
@@ -31,10 +31,30 @@ Phases, each of which raises on failure (exit code 1):
      400x400, 64 spp, max depth 5, every query through the triangle
      kernel, launch counts read around it, gated like phase 5;
  10. times with CUDA events: the BVH8 kernel and its plain version at 2^20
-     rays, closest and any hit, and the two renders in paths/s.
+     rays, closest and any hit, and the two renders in paths/s;
+ 11. the bvh2 library's ptxas report: registers, stack frame and spills of
+     its two entries (single level, two levels);
+ 12. the single-level bvh2 kernel against its plain version: meshfield's
+     binary BVH, the 2^20 rays of phase 7, closest and any hit (t_max 30);
+ 13. the two-level bvh2 kernel against its plain version: meshfield's
+     triangles as one prototype instanced 64 times on an 8x8 grid, each
+     turned about y by a seeded angle, and the instances golden's own
+     tables, 2^20 rays from each world box +-1, closest and any hit;
+ 14. the instances path through the user entry points (parse_file ->
+     render): 200x200, 32 spp, max depth 3, every closest and shadow query
+     through the two-level kernel, launch counts read around it, the image
+     gated against goldens/instances_200_32spp.exr and written to
+     pbrt_tpu_torch/_build/;
+ 15. times with CUDA events: both bvh2 entries and their plain versions
+     beside the BVH8 kernel on the same rays, and the instances render in
+     paths/s.
 Phase 2 builds every kernel (one nvcc per source, all started together)
 and the host BVH builder (g++). The line before the last is a JSON object
-with one entry per kernel; the last line is {"ok": true, "device": {...}}.
+with one entry per kernel, each with its bound: the larger of the bytes it
+must move over 3.35 TB/s and the f32 operations this run's rays needed
+(counted by the plain version) over 67 TFLOP/s, the H100 SXM's published
+peaks; no single PyTorch call computes any of these functions, so
+library_ms is null. The last line is {"ok": true, "device": {...}}.
 """
 import json
 import subprocess
@@ -50,6 +70,19 @@ MESH_SCENE = ROOT / "scenes" / "meshfield.pbrt"
 MESH_GOLDEN = ROOT / "goldens" / "meshfield_200_32spp.exr"
 MESH_GATE_MRSE = 0.05   # tools/golden.py CONFIGS, meshfield
 MESH_GATE_MEAN_RATIO = 0.02
+INST_SCENE = ROOT / "scenes" / "instances.pbrt"
+INST_GOLDEN = ROOT / "goldens" / "instances_200_32spp.exr"
+INST_GATE_MRSE = 0.05   # tools/golden.py CONFIGS, instances
+INST_GATE_MEAN_RATIO = 0.02
+# the bound's peaks (H100 SXM data sheet) and the f32 operations of one
+# unit of work, counted from the kernels' sources
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+SLAB_OPS = 26           # 6 sub, 6 mul, 6 min/max, 6 for tmin/tmax, 2 test
+TRI_OPS = 60            # Moeller-Trumbore on rows with precomputed edges
+TRI_RAW_OPS = 64        # on raw vertices: 6 edge subtractions, no tolerance
+BVH8_CHILD_OPS = 12 + SLAB_OPS   # dequantise a child box, then its slab
+ENTER_OPS = 39          # a ray through w2o (33) and its 3 inverse dirs
 
 
 def check(cond, what):
@@ -139,6 +172,93 @@ def gate(img, golden, shape, max_mrse, max_ratio, label):
     return m, ratio
 
 
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time of the work on the card."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def traversal_bound(work, n_rays, out_bytes, tables, tri_ops=TRI_RAW_OPS,
+                    visit_ops=SLAB_OPS):
+    """Bound of a BVH query: rays read once (o, d, t_max: 28 B), hits
+    written once, tables read once; node visits, triangle tests and
+    instance entries as the plain version counted them on the same rays."""
+    n_bytes = n_rays * (28 + out_bytes) + sum(4 * x.numel() for x in tables)
+    n_ops = (work["node_visits"] * visit_ops + work["tri_tests"] * tri_ops
+             + work.get("instance_entries", 0) * ENTER_OPS)
+    return bound(n_bytes, n_ops)
+
+
+def hold_to_plain(got, want, label, n_rays, any_hit):
+    """A BVH kernel's result against its plain version's: hit equal on >=
+    99.99% of rays; closest hit: prim equal on >= 99.99%, t (and inst)
+    bit-equal where prim is equal. Returns max |dt| where prim is equal."""
+    import torch
+    torch.cuda.synchronize()
+    hit_p = want["prim"] >= 0
+    hit_agree = (got["hit"] == hit_p).float().mean().item()
+    same = got["prim"] == want["prim"]
+    agree = same.float().mean().item()
+    hit = same & hit_p
+    t_exact = torch.equal(got["t"][hit], want["t"][hit])
+    inst_exact = "inst" not in want or torch.equal(got["inst"][same],
+                                                   want["inst"][same])
+    err = (got["t"][hit] - want["t"][hit]).abs().max().item() \
+        if bool(hit.any()) else 0.0
+    print(f"[{label}] any_hit={any_hit}: hit equal on {hit_agree * 100:.4f}%"
+          f", prim equal on {agree * 100:.4f}% of {n_rays} rays, hit share "
+          f"{hit_p.float().mean().item():.4f}, t bit-equal where prim equal:"
+          f" {t_exact}, inst equal there: {inst_exact}, max |dt| {err:.3g}",
+          flush=True)
+    check(hit_agree >= 0.9999, f"{label}: hit agreement {hit_agree}")
+    if not any_hit:
+        check(agree >= 0.9999, f"{label}: prim agreement {agree}")
+        check(t_exact and inst_exact,
+              f"{label}: t or inst differs where prim is equal")
+    return err
+
+
+def instanced_meshfield(mesh, device, seed=5):
+    """meshfield's triangles as one prototype, instanced on an 8x8 grid
+    spaced by the mesh's extent, each turned about y by a seeded angle,
+    over a ground quad. Returns the scene."""
+    import numpy as np
+    from pbrt_tpu_torch.scene_core import SceneBuilder
+    from pbrt_tpu_torch.utils import transform as tfm
+    tri = mesh.tri_all[:, :9].cpu().numpy().reshape(-1, 3)
+    lo, hi = tri.min(axis=0), tri.max(axis=0)
+    ext = hi - lo
+    b = SceneBuilder()
+    m = b.materials.add_diffuse((0.6, 0.6, 0.6))
+    proto = b.new_prototype()
+    b.add_proto_mesh(proto, tri, np.arange(len(tri)).reshape(-1, 3), m)
+    angles = np.random.default_rng(seed).uniform(0, 360, 64)
+    for k, a in enumerate(angles):
+        gx, gz = k % 8, k // 8
+        b.add_instance(proto, tfm.translate((gx * ext[0], 0, gz * ext[2]))
+                       @ tfm.rotate(a, (0, 1, 0)))
+    y = float(lo[1]) - 0.01
+    b.add_mesh([[lo[0], y, lo[2]], [lo[0] + 8 * ext[0], y, lo[2]],
+                [lo[0] + 8 * ext[0], y, lo[2] + 8 * ext[2]],
+                [lo[0], y, lo[2] + 8 * ext[2]]], [[0, 1, 2], [0, 2, 3]], m)
+    return b.build(device=device)
+
+
+def tlas_box_rays(scene, n, device, seed):
+    """n rays from the TLAS root box (every instance's world bounds) +-1,
+    normally distributed directions."""
+    import numpy as np
+    import torch
+    box = scene.tlas_nodes[scene.tlas_root, :6].cpu().numpy()
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(box[:3] - 1, box[3:] + 1, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(o, device=device),
+            torch.as_tensor(d, device=device))
+
+
 def reset_counts(counters):
     for c in counters:
         c.launches = 0
@@ -174,13 +294,16 @@ def main():
     from pbrt_tpu_torch.integrators import path as path_mod
     from pbrt_tpu_torch.integrators import render
     from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.ops import bvh as bvh_mod
+    from pbrt_tpu_torch.ops import bvh2
     from pbrt_tpu_torch.ops import bvh8
     from pbrt_tpu_torch.ops import megawave
     from pbrt_tpu_torch.ops import tri_intersect as ti
     from pbrt_tpu_torch.scene import parser
     from pbrt_tpu_torch.utils import image
     from pbrt_tpu_torch.utils import spectrum as spc
-    counters = (megawave.counter, ti.counter, bvh8.counter)
+    counters = (megawave.counter, ti.counter, bvh8.counter,
+                bvh2.counter_bvh2, bvh2.counter_two_level)
 
     dev = torch.device("cuda", 0)
 
@@ -289,6 +412,7 @@ def main():
                                flt.make_filter("gaussian"), px, py, si, lam,
                                max_depth=5)
     mw_err = max(mw_err, compare_wave(w6, "6 megakernel 400x400x1"))
+    mw_live = megawave.counter.work["live_lane_depths"]
     mw_ms = cuda_ms(lambda: megawave.wave_full(w6), reps=20, warmup=3)
     mw_plain_ms = cuda_ms(lambda: megawave.wave_full_plain(w6), reps=3)
     o6, d6, _t = seeded_rays(n_pix, dev, seed=8)
@@ -316,6 +440,8 @@ def main():
         t_p, prim_p, _b1, _b2 = bvh8.bvh8_intersect_plain(
             b8, o7, d7, torch.full((n_rays,), t_max, device=dev), any_hit)
         torch.cuda.synchronize()
+        if not any_hit:
+            b8_work = bvh8.counter.work
         hit_agree = (got["hit"] == (prim_p >= 0)).float().mean().item()
         same = got["prim"] == prim_p
         agree = same.float().mean().item()
@@ -394,22 +520,174 @@ def main():
           f"400x400x64 {gstats['paths_per_sec']:.6g} paths/s; cornell "
           f"megakernel {stats['paths_per_sec']:.6g} paths/s", flush=True)
 
+    # ---- 11. the bvh2 library's ptxas report ----
+    # (an empty log: the library was built before this run)
+    entries = [ln.strip() for ln in libs["bvh2"][1].splitlines()
+               if "Function properties" in ln or "stack frame" in ln
+               or "registers" in ln]
+    print(f"[11 bvh2 build] ptxas, single- and two-level entries: {entries}",
+          flush=True)
+    check(not entries or sum("registers" in ln for ln in entries) == 2,
+          "bvh2: ptxas reported other than two entries")
+
+    # ---- 12. single-level bvh2 kernel vs plain, meshfield, 2^20 rays ----
+    mtri = mesh.tri_all[:, :9].cpu().numpy()
+    mp = (mtri[:, 0:3], mtri[:, 3:6], mtri[:, 6:9])
+    mbvh = bvh_mod.build_bvh(np.minimum(np.minimum(*mp[:2]), mp[2]),
+                             np.maximum(np.maximum(*mp[:2]), mp[2]))
+    k7 = dict(nodes=torch.as_tensor(mbvh.nodes, device=dev),
+              tris=torch.as_tensor(bvh_mod.pack_tri_geo(
+                  *mp, order=mbvh.prim_indices), device=dev),
+              depth=bvh_mod.bvh_max_depth(mbvh.nodes))
+    print(f"[12 bvh2] meshfield binary BVH: {len(mbvh.nodes)} nodes, depth "
+          f"{k7['depth']}", flush=True)
+    k7_err, k7_work = 0.0, {}
+    for any_hit, t_max in ((False, 1e30), (True, 30.0)):
+        tv = torch.full((n_rays,), t_max, device=dev)
+        got = bvh2.bvh2_intersect(k7["nodes"], k7["tris"], o7, d7, tv,
+                                  any_hit, depth=k7["depth"])
+        want = dict(zip(("t", "prim"), bvh2.bvh2_intersect_plain(
+            k7["nodes"], k7["tris"], o7, d7, tv, any_hit)))
+        k7_work[any_hit] = bvh2.counter_bvh2.work
+        k7_err = max(k7_err, hold_to_plain(got, want, "12 bvh2", n_rays,
+                                           any_hit))
+    print(f"[12 bvh2] plain-version work, closest / any: {k7_work[False]} / "
+          f"{k7_work[True]}", flush=True)
+
+    # ---- 13. two-level bvh2 kernel vs plain, at scale and on the golden's
+    # tables, 2^20 rays each ----
+    t0 = time.perf_counter()
+    grid = instanced_meshfield(mesh, dev)
+    golden_tables = parser.parse_file(INST_SCENE, device=dev).scene
+    print(f"[13 two_level] 64 instances of meshfield's {mesh.n_tris} "
+          f"triangles ({64 * mesh.n_tris} triangle instances): "
+          f"{grid.tlas_nodes.shape[0]} nodes, {grid.inst_rows.shape[0]} "
+          f"instance rows, stack depth {grid.tlas_depth}, built in "
+          f"{time.perf_counter() - t0:.2f} s; instances golden: "
+          f"{golden_tables.inst_rows.shape[0]} instance rows, stack depth "
+          f"{golden_tables.tlas_depth}", flush=True)
+    k8_err, k8_work, k8_rays = 0.0, {}, {}
+    for label, sc8 in (("grid64", grid), ("golden", golden_tables)):
+        o8, d8 = tlas_box_rays(sc8, n_rays, dev, seed=13)
+        k8_rays[label] = (sc8, o8, d8)
+        tables = (sc8.tlas_nodes, sc8.inst_rows, sc8.tri_geo_tlas,
+                  sc8.tlas_root)
+        for any_hit, t_max in ((False, 1e30), (True, 30.0)):
+            tv = torch.full((n_rays,), t_max, device=dev)
+            got = bvh2.two_level_intersect(*tables, o8, d8, tv, any_hit,
+                                           depth=sc8.tlas_depth)
+            want = dict(zip(("t", "prim", "b1", "b2", "inst"),
+                            bvh2.two_level_plain(*tables, o8, d8, tv,
+                                                 any_hit)))
+            k8_work[label, any_hit] = bvh2.counter_two_level.work
+            k8_err = max(k8_err, hold_to_plain(
+                got, want, f"13 two_level {label}", n_rays, any_hit))
+        print(f"[13 two_level] {label} plain-version work, closest / any: "
+              f"{k8_work[label, False]} / {k8_work[label, True]}",
+              flush=True)
+
+    # ---- 14. the instances path through the entry points ----
+    reset_counts(counters)
+    idesc = parser.parse_file(INST_SCENE)
+    iimg, istats = render.render(idesc.scene, idesc.camera,
+                                 sampler=idesc.sampler, device=dev,
+                                 opts=path_mod.PathOptions(max_depth=3))
+    ilaunch = {"two_level": bvh2.counter_two_level.launches,
+               "bvh2": bvh2.counter_bvh2.launches,
+               "bvh8": bvh8.counter.launches,
+               "tri_intersect": ti.counter.launches,
+               "megawave": megawave.counter.launches}
+    iplain = sum(c.plain for c in counters)
+    print(f"[14 instances] launches {ilaunch}, plain-version runs {iplain}; "
+          f"{istats['seconds']:.3f} s, {istats['paths_per_sec']:.6g} "
+          f"paths/s, {istats['lanes_per_wave']} lanes per wave", flush=True)
+    check(ilaunch["two_level"] >= 1, "instances launched no two-level kernel")
+    check(ilaunch["bvh8"] == 0 and ilaunch["tri_intersect"] == 0
+          and ilaunch["megawave"] == 0 and ilaunch["bvh2"] == 0,
+          "instances left the two-level route")
+    check(iplain == 0, "instances ran a plain version on the card")
+    i_mrse, i_ratio = gate(iimg, INST_GOLDEN, (200, 200, 3), INST_GATE_MRSE,
+                           INST_GATE_MEAN_RATIO, "14 instances golden")
+    image.write_exr(_build.BUILD_DIR / "instances_200_32spp.exr", iimg)
+
+    # ---- 15. times: both bvh2 entries and their plain versions, beside
+    # the BVH8 kernel on the same rays ----
+    k7_ms, k8_ms = {}, {}
+    for any_hit, t_max in ((False, 1e30), (True, 30.0)):
+        tv = torch.full((n_rays,), t_max, device=dev)
+        k7_ms[any_hit] = (
+            cuda_ms(lambda: bvh2.bvh2_intersect(
+                k7["nodes"], k7["tris"], o7, d7, tv, any_hit,
+                depth=k7["depth"]), reps=20, warmup=3),
+            cuda_ms(lambda: bvh2.bvh2_intersect_plain(
+                k7["nodes"], k7["tris"], o7, d7, tv, any_hit), reps=1))
+        print(f"[15 times] card {card}: bvh2 any_hit={any_hit} kernel "
+              f"{k7_ms[any_hit][0]:.4f} ms "
+              f"({n_rays / k7_ms[any_hit][0] / 1e3:.2f} Mrays/s) vs plain "
+              f"{k7_ms[any_hit][1]:.4f} ms; bvh8 kernel on the same rays "
+              f"{b8_ms[any_hit][0]:.4f} ms", flush=True)
+        for label, (sc8, o8, d8) in k8_rays.items():
+            tables = (sc8.tlas_nodes, sc8.inst_rows, sc8.tri_geo_tlas,
+                      sc8.tlas_root)
+            k8_ms[label, any_hit] = (
+                cuda_ms(lambda: bvh2.two_level_intersect(
+                    *tables, o8, d8, tv, any_hit, depth=sc8.tlas_depth),
+                    reps=20, warmup=3),
+                cuda_ms(lambda: bvh2.two_level_plain(
+                    *tables, o8, d8, tv, any_hit), reps=1))
+            k_ms, p_ms = k8_ms[label, any_hit]
+            print(f"[15 times] card {card}: two_level {label} any_hit="
+                  f"{any_hit} kernel {k_ms:.4f} ms ({n_rays / k_ms / 1e3:.2f}"
+                  f" Mrays/s) vs plain {p_ms:.4f} ms "
+                  f"({n_rays / p_ms / 1e3:.3f} Mrays/s)", flush=True)
+    print(f"[15 times] card {card}: instances 200x200x32 depth 3 "
+          f"{istats['paths_per_sec']:.6g} paths/s", flush=True)
+
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]
     check(not bad, f"imported modules of the JAX stack: {bad}")
+    # bounds, from this run's inputs: the megakernel's closest-hit tests of
+    # live lanes only (its shading and shadow tests are not counted), the
+    # triangle kernel's n_rays x n_real tests, the BVH queries' visits
+    n6 = w6.lam.shape[0]
+    mw_bound = bound(n6 * (16 + 16 + 8 + 16 + 4)
+                     + 4 * (w6.tri.numel() + w6.attr.numel()),
+                     mw_live * n_real * TRI_OPS)
+    ti_bound = bound(n_pix * (28 + 16) + 4 * scene.tri_pallas.numel(),
+                     n_pix * n_real * TRI_OPS)
+    b8_bound = traversal_bound(b8_work, n_rays, 16,
+                               (b8.nodes_f, b8.nodes_q, b8.tris,
+                                b8.prim_indices), tri_ops=TRI_OPS,
+                               visit_ops=8 * BVH8_CHILD_OPS)
+    k7_bound = traversal_bound(k7_work[False], n_rays, 16,
+                               (k7["nodes"], k7["tris"]))
+    k8_bound = traversal_bound(k8_work["grid64", False], n_rays, 20,
+                               (grid.tlas_nodes, grid.inst_rows,
+                                grid.tri_geo_tlas))
+    for what, (b_ms, b_by), k_ms in (("megawave", mw_bound, mw_ms),
+                                     ("tri_intersect", ti_bound, ti_ms),
+                                     ("bvh8", b8_bound, b8_ms[False][0]),
+                                     ("bvh2", k7_bound, k7_ms[False][0]),
+                                     ("two_level", k8_bound,
+                                      k8_ms["grid64", False][0])):
+        print(f"[bounds] card {card}: {what} bound {b_ms:.5f} ms by {b_by}, "
+              f"kernel {k_ms:.4f} ms ({b_ms / k_ms * 100:.2f}% of the "
+              "bound)", flush=True)
     kernels = [
         dict(name="megawave", route="cuda",
              source="pbrt_tpu_torch/csrc/megawave.cu",
              replaces="pbrt_tpu/ops/megawave.py:559",
              launches=launches["megawave"], max_abs_err=mw_err,
-             ms=mw_ms, plain_ms=mw_plain_ms),
+             ms=mw_ms, plain_ms=mw_plain_ms, bound_ms=mw_bound[0],
+             bound_by=mw_bound[1], library_ms=None),
         # launches: the general-wave cornell render (phase 9); its test
         # also runs inside every megakernel launch (tri_intersect.cuh)
         dict(name="tri_intersect", route="cuda",
              source="pbrt_tpu_torch/csrc/tri_intersect.cu",
              replaces="pbrt_tpu/ops/pallas_intersect.py:125",
              launches=glaunch["tri_intersect"], max_abs_err=tri_err,
-             ms=ti_ms, plain_ms=ti_plain_ms),
+             ms=ti_ms, plain_ms=ti_plain_ms, bound_ms=ti_bound[0],
+             bound_by=ti_bound[1], library_ms=None),
         # launches: the meshfield render (phase 8); ms: closest hit at
         # 2^20 rays (any hit in any_hit_ms)
         dict(name="bvh8", route="cuda",
@@ -417,7 +695,30 @@ def main():
              replaces="pbrt_tpu/ops/pallas_bvh8.py:793",
              launches=mlaunch["bvh8"], max_abs_err=b8_err,
              ms=b8_ms[False][0], plain_ms=b8_ms[False][1],
+             bound_ms=b8_bound[0], bound_by=b8_bound[1], library_ms=None,
              any_hit_ms=b8_ms[True][0], any_hit_plain_ms=b8_ms[True][1]),
+        # launches: none on a render path (only tests reach the reference's
+        # kernel too); its checks and times: phases 12 and 15, closest hit
+        # on meshfield's binary BVH at 2^20 rays
+        dict(name="bvh2", route="cuda", source="pbrt_tpu_torch/csrc/bvh2.cu",
+             replaces="pbrt_tpu/ops/pallas_bvh.py:167",
+             launches=ilaunch["bvh2"], max_abs_err=k7_err,
+             ms=k7_ms[False][0], plain_ms=k7_ms[False][1],
+             bound_ms=k7_bound[0], bound_by=k7_bound[1], library_ms=None,
+             any_hit_ms=k7_ms[True][0], any_hit_plain_ms=k7_ms[True][1]),
+        # launches: the instances render (phase 14); ms: closest hit on the
+        # 64-instance grid at 2^20 rays (the golden's tables in golden_ms)
+        dict(name="two_level", route="cuda",
+             source="pbrt_tpu_torch/csrc/bvh2.cu",
+             replaces="pbrt_tpu/ops/pallas_bvh.py:521",
+             launches=ilaunch["two_level"], max_abs_err=k8_err,
+             ms=k8_ms["grid64", False][0],
+             plain_ms=k8_ms["grid64", False][1], bound_ms=k8_bound[0],
+             bound_by=k8_bound[1], library_ms=None,
+             any_hit_ms=k8_ms["grid64", True][0],
+             any_hit_plain_ms=k8_ms["grid64", True][1],
+             golden_ms=k8_ms["golden", False][0],
+             golden_plain_ms=k8_ms["golden", False][1]),
     ]
     print(json.dumps(dict(render=dict(
         paths_per_sec=stats["paths_per_sec"], seconds=stats["seconds"],
@@ -425,7 +726,9 @@ def main():
         paths_per_sec=mstats["paths_per_sec"], seconds=mstats["seconds"],
         mrse=m_mrse, mean_ratio_err=m_ratio), cornell_general=dict(
         paths_per_sec=gstats["paths_per_sec"], seconds=gstats["seconds"],
-        mrse=g_mrse, mean_ratio_err=g_ratio))))
+        mrse=g_mrse, mean_ratio_err=g_ratio), instances=dict(
+        paths_per_sec=istats["paths_per_sec"], seconds=istats["seconds"],
+        mrse=i_mrse, mean_ratio_err=i_ratio))))
     print(f"card: {card}")
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,13 @@ arrays: "tri_all" (T, 27); "mat_pool" (M, 22); "lights_packed" (L, 24);
 "spectra_pool" (S, 471); "ls_rows" (L, 4) and "ls_pmf" (L,), the light
 sampler's alias rows and pmf table; "c2w_m" (4, 4); "tan_half_fov" ();
 "tri_pallas" (T'*16,) on the brute-force route; "nodes_f", "nodes_q",
-"tris_b8", "prim_indices" (the BVH8 tables) on the BVH route; "attr",
-"light", "mat" (the reference's megawave.scene_tables) for a megakernel
-scene.
+"tris_b8", "prim_indices" (the BVH8 tables) on the BVH route;
+"tlas_nodes", "inst_rows", "tri_geo_tlas" (the two-level tables) for an
+instanced scene; "attr", "light", "mat" (the reference's
+megawave.scene_tables) for a megakernel scene.
 meta: "ls_kind", "n_lights", "scene_radius", "inf_indices", "light_tags",
-"n_tris"; "bvh8" (n_nodes, n_tris, depth) on the BVH route; "mega" (the
+"n_tris"; "bvh8" (n_nodes, n_tris, depth) on the BVH route; "tlas_root"
+for an instanced scene; "mega" (the
 MegaMeta fields as a dict, or None); "width", "height", "screen_min",
 "screen_max", "has_lens", "seed", "spp", "log2_spp", "n_base4_digits".
 """
@@ -26,12 +28,13 @@ from . import cameras as cam_mod
 from . import device as dev_mod
 from . import lightsamplers as lsamp
 from . import samplers as smp
+from .ops import tlas as tlas_mod
 from .ops.bvh8 import BVH8
 from .ops.megawave import MegaMeta
 from .scene_core import Scene
 
 
-def from_jax_scene(arrays: dict, meta: dict, device="cpu"):
+def from_jax_scene(arrays: dict, meta: dict, device="cuda"):
     device = dev_mod.resolve(device)
 
     def t(name, dtype=np.float32):
@@ -47,6 +50,14 @@ def from_jax_scene(arrays: dict, meta: dict, device="cpu"):
                     prim_indices=t("prim_indices", np.int32),
                     n_nodes=int(n_nodes), n_tris=int(n_tris),
                     depth=int(depth))
+    inst = {}
+    if "tlas_nodes" in arrays:
+        root = int(meta["tlas_root"])
+        inst = dict(tlas_nodes=t("tlas_nodes"), inst_rows=t("inst_rows"),
+                    tri_geo_tlas=t("tri_geo_tlas"), tlas_root=root,
+                    tlas_depth=tlas_mod.stack_depth(
+                        arrays["tlas_nodes"], arrays["inst_rows"], root),
+                    has_instances=True)
     kind = int(meta["ls_kind"])
     ls = lsamp.LightSampler(
         kind=kind, n_lights=int(meta["n_lights"]),
@@ -63,7 +74,8 @@ def from_jax_scene(arrays: dict, meta: dict, device="cpu"):
         inf_indices=tuple(int(i) for i in meta["inf_indices"]),
         light_tags=tuple(int(i) for i in meta["light_tags"]),
         n_tris=int(meta["n_tris"]), attr=t("attr"), light=t("light"),
-        mat=t("mat"), mega=MegaMeta(**mega) if mega is not None else None)
+        mat=t("mat"), mega=MegaMeta(**mega) if mega is not None else None,
+        **inst)
     camera = cam_mod.Camera(
         kind=cam_mod.CAMERA_PERSPECTIVE,
         c2w_m=np.asarray(arrays["c2w_m"], np.float32),

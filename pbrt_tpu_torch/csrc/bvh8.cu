@@ -15,8 +15,7 @@
 // tree in global memory read through the read-only path. No shared-memory
 // pages, no chunking, no ray packets. Semantics are those of
 // pbrt_tpu_torch/ops/bvh8.py (bvh8_intersect_plain), kept operation for
-// operation: slabs as (plane - o) * inv_d with NaN-propagating min/max like
-// torch.minimum/maximum, children dequantised as origin + q * scale,
+// operation: slabs of slab.cuh, children dequantised as origin + q * scale,
 // leaves in slot order with the strict-< triangle test of
 // tri_intersect.cuh (t > 1e-5), interior children pushed by the ray's own
 // direction sign along the node axis. The library builds with -fmad=false,
@@ -24,6 +23,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "slab.cuh"
 #include "tri_intersect.cuh"
 
 namespace {
@@ -37,31 +37,7 @@ constexpr int kTriFloats9 = 9;
 constexpr int kCntEmpty = 255;
 constexpr float kTMin = 1e-5f;
 
-// torch.minimum / torch.maximum: NaN if either operand is NaN
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || b != b) ? a + b : fminf(a, b);
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? a + b : fmaxf(a, b);
-}
-
-__device__ __forceinline__ bool slab(float lox, float loy, float loz,
-                                     float hix, float hiy, float hiz,
-                                     float ox, float oy, float oz, float ix,
-                                     float iy, float iz, float t_best) {
-  const float tx0 = (lox - ox) * ix;
-  const float tx1 = (hix - ox) * ix;
-  const float ty0 = (loy - oy) * iy;
-  const float ty1 = (hiy - oy) * iy;
-  const float tz0 = (loz - oz) * iz;
-  const float tz1 = (hiz - oz) * iz;
-  const float tmin = max_nan(max_nan(min_nan(tx0, tx1), min_nan(ty0, ty1)),
-                             max_nan(min_nan(tz0, tz1), 0.0f));
-  const float tmax = min_nan(min_nan(max_nan(tx0, tx1), max_nan(ty0, ty1)),
-                             min_nan(max_nan(tz0, tz1), t_best));
-  return tmin <= tmax * 1.0000004f;
-}
+using pbrt_tpu_torch::slab;
 
 __global__ void __launch_bounds__(kThreads)
 bvh8_kernel(const float* __restrict__ nodes_f, const int* __restrict__ nodes_q,

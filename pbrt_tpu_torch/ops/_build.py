@@ -52,6 +52,11 @@ SIGNATURES = {
         # b2, n, any_hit, stream
         "bvh8_intersect_launch": [_P] * 11 + [_I] * 2 + [_P],
     },
+    "bvh2": {
+        # nodes, insts, tris, o, d, t_max, t, prim, b1, b2, inst, n,
+        # tlas_root, two_level, any_hit, stream
+        "bvh2_intersect_launch": [_P] * 11 + [_I] * 4 + [_P],
+    },
 }
 
 

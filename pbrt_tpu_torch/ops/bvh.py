@@ -4,8 +4,9 @@ binned-SAH build, the packed triangle rows, and the tree depth.
 The flattened depth-first node rows keep the reference layout:
 [lo(3), hi(3), right_child | prim_offset, n_prims << 2 | axis], the two
 int columns value-encoded as float32. Traversal runs on the BVH8 collapse
-(ops/bvh8.py); the reference's XLA while-loop traversal is a TPU
-workaround and has no counterpart here.
+(ops/bvh8.py) or, for the binary tree itself and for instanced scenes, on
+ops/bvh2.py; the reference's XLA while-loop traversal is a TPU workaround
+and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -45,14 +46,15 @@ def pack_tri_geo(tri_p0, tri_p1, tri_p2, order=None) -> np.ndarray:
                           axis=1)
 
 
-def bvh_max_depth(nodes) -> int:
-    """Largest depth of a flattened tree (root depth 1; left child i + 1,
-    right child at the encoded offset)."""
+def bvh_max_depth(nodes, root: int = 0) -> int:
+    """Largest depth of a flattened tree below `root` (root depth 1; left
+    child i + 1, right child at the encoded offset; a root other than 0
+    walks one tree of a concatenation, ops/tlas.py)."""
     arr = np.asarray(nodes)
     nprim = arr[:, 7].astype(np.int64) >> 2
     n = len(arr)
     best = 0
-    stack = [(0, 1)]
+    stack = [(int(root), 1)]
     while stack:
         i, d = stack.pop()
         if i < 0 or i >= n:

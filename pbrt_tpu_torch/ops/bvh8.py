@@ -39,6 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import device as dev_mod
 from .. import native
 from . import LaunchCounter
 from . import bvh as bvh_mod
@@ -154,10 +155,11 @@ def pack_tris_flat(tri_geo_ordered) -> np.ndarray:
 
 
 def build_bvh8(prim_lo, prim_hi, tri_geo, max_leaf: int = MAX_LEAF,
-               binary_bvh=None, device="cpu") -> BVH8:
+               binary_bvh=None, device="cuda") -> BVH8:
     """Binary SAH (max leaf 4) -> 8-wide collapse -> quantised tables on
     `device`. tri_geo: (T, 10) rows [p0, p1, p2, id] in original order.
     binary_bvh: an ops/bvh.BVH already built over the same boxes."""
+    device = dev_mod.resolve(device)
     b = binary_bvh if binary_bvh is not None \
         else bvh_mod.build_bvh(prim_lo, prim_hi, max_leaf=4)
     order = np.asarray(b.prim_indices)
@@ -226,8 +228,10 @@ def bvh8_intersect_plain(b8: BVH8, o, d, t_max, any_hit: bool):
     """Plain PyTorch traversal. o, d (N, 3) f32; t_max (N,) f32. Returns
     (t (N,) = inf on a miss, prim (N,) int32 original id = -1 on a miss,
     b1, b2 (N,) = 0 on a miss). Each loop pass pops one node on every lane
-    whose stack is not empty."""
+    whose stack is not empty. counter.work: node visits and triangle
+    tests of the run."""
     counter.plain += 1
+    work = dict(node_visits=0, tri_tests=0)
     dev = o.device
     N = o.shape[0]
     frames = b8.nodes_f[8:].view(-1, NF_F)
@@ -248,6 +252,7 @@ def bvh8_intersect_plain(b8: BVH8, o, d, t_max, any_hit: bool):
         n = lanes.numel()
         if n == 0:
             break
+        work["node_visits"] += n
         spl = sp[lanes] - 1
         cur = stack[lanes, spl].to(torch.int64)
         fr = frames[cur]
@@ -267,6 +272,7 @@ def bvh8_intersect_plain(b8: BVH8, o, d, t_max, any_hit: bool):
         cand = leaf[:, :, None] & (ar8[None, None, :] < cnt[:, :, None])
         jj, cc, kk = torch.nonzero(cand, as_tuple=True)
         if jj.numel():
+            work["tri_tests"] += jj.numel()
             s = first[jj, cc].to(torch.int64) + kk
             t, u, v, valid = _tri_test(tris[s], ol[jj], dl[jj])
             ok = valid & (t < tb[jj])
@@ -299,6 +305,7 @@ def bvh8_intersect_plain(b8: BVH8, o, d, t_max, any_hit: bool):
         if any_hit:
             new_sp = torch.where(slot[lanes] >= 0, 0, new_sp)
         sp[lanes] = new_sp
+    counter.work = work
     hit = slot >= 0
     prim = torch.where(hit, b8.prim_indices[slot.clamp(min=0)],
                        -1).to(torch.int32)

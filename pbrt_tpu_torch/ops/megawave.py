@@ -305,8 +305,11 @@ def _camera_rays(w: FullWave, zs: _ZSobol):
 
 def wave_full_plain(w: FullWave):
     """Plain PyTorch version of the megakernel: all lanes, all depths, as
-    masked tensor ops (reference _path_loop). Returns (L (N, 4), fw (N,))."""
+    masked tensor ops (reference _path_loop). Returns (L (N, 4), fw (N,)).
+    counter.work["live_lane_depths"]: the closest-hit queries of lanes
+    still alive, the ones the kernel runs."""
     counter.plain += 1
+    live = 0
     zs = _ZSobol(w.mi, w.seeds, w.B)
     o, d, fw = _camera_rays(w, zs)
     attr_rows = w.attr.reshape(-1, ATTR_COLS)
@@ -322,6 +325,7 @@ def wave_full_plain(w: FullWave):
     t_far = torch.full_like(fw, 1e30)
 
     for depth in range(w.max_depth):
+        live += int(active.sum())
         # --- closest hit over the pool ---
         _t, k, b1, b2 = tri_intersect_plain(
             w.tri, torch.stack(o, -1), torch.stack(d, -1), t_far, w.n_real,
@@ -464,6 +468,7 @@ def wave_full_plain(w: FullWave):
             o = _offset_origin(p, p_err, ng, wi_w)
             d = wi_w
 
+    counter.work = dict(live_lane_depths=live)
     return torch.stack(L, dim=-1), fw
 
 

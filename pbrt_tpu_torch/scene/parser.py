@@ -4,7 +4,8 @@ pbrt_tpu/scene/parser.py).
 The reference's pipeline, kept: regex tokenizer -> typed parameter lists
 (`ParamSet`) -> directive loop over a graphics state -> SceneBuilder ->
 compiled scene on the device the caller names. The directives handled are
-those of scenes/cornell.pbrt and scenes/meshfield.pbrt:
+those of scenes/cornell.pbrt, scenes/meshfield.pbrt and
+scenes/instances.pbrt:
 
     LookAt, Translate, Scale, Rotate, Transform, ConcatTransform
     Camera "perspective" (pinhole), Film "rgb", Sampler "zsobol",
@@ -12,6 +13,7 @@ those of scenes/cornell.pbrt and scenes/meshfield.pbrt:
     Material / MakeNamedMaterial / NamedMaterial, type "diffuse"
     AreaLightSource "diffuse", LightSource "infinite" (an L, no file)
     Shape "trianglemesh"
+    ObjectBegin, ObjectEnd, ObjectInstance (static instances)
 
 Any other directive, type or parameter that changes the image raises
 ParseError with the file location and the ROADMAP item that brings it.
@@ -43,9 +45,6 @@ _TOKEN_RE = re.compile(rb'"[^"]*"|\[|\]|[^\s"\[\]#]+|#[^\n]*')
 # where each refused directive or type is queued (ROADMAP.md)
 _LATER = {
     "Include": "slice 6 (front end)", "Import": "slice 6 (front end)",
-    "ObjectBegin": "slice 3 item 10 (instances)",
-    "ObjectEnd": "slice 3 item 10 (instances)",
-    "ObjectInstance": "slice 3 item 10 (instances)",
     "Texture": "slice 3 item 9 (textures)",
     "MakeNamedMedium": "slice 3 item 13 (volume)",
     "MediumInterface": "slice 4 item 19 (medium interfaces)",
@@ -283,7 +282,7 @@ def parse_file(path, **overrides) -> PbrtSceneDescription:
 
 
 def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
-                 device="cpu") -> PbrtSceneDescription:
+                 device="cuda") -> PbrtSceneDescription:
     """Parse a scene and build it on `device`. light_sampler and force_bvh
     pass to SceneBuilder.build (an Integrator's "string lightsampler"
     overrides light_sampler, as in the reference)."""
@@ -296,6 +295,8 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
     gs = GraphicsState()
     stack = []
     named_materials = {}
+    objects = {}            # ObjectBegin name -> its shapes and base CTM
+    current_object = None
     cam_params = dict(fov=90.0, camera_from_world=tfm.identity())
     film_params = dict(xres=1280, yres=720, filename="out.exr")
     spp = 16
@@ -328,18 +329,21 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
             refl = (0.5, 0.5, 0.5)
         return b.materials.add_diffuse(tuple(np.clip(refl, 0, 1)))
 
-    def add_trianglemesh(ps: ParamSet):
+    def trianglemesh_data(ps: ParamSet):
+        """(P, indices, N, uv) of a trianglemesh, in its own space."""
         P = ps.point3s("P")
         idx = ps.ints("indices")
         if P is None or idx is None:
             raise ParseError(f"{p.loc()}: trianglemesh needs \"point3 P\" "
                              "and \"integer indices\"")
-        idx = idx.reshape(-1, 3)
-        N = ps.point3s("N", None)
-        uv = ps.point2s("uv", ps.point2s("st", None))
         if ps.texture_name("alpha") is not None or \
                 ps.float("alpha", 1.0) != 1.0:
             refuse("shape alpha", "slice 4 item 18 (textured alpha)")
+        return (P, idx.reshape(-1, 3), ps.point3s("N", None),
+                ps.point2s("uv", ps.point2s("st", None)))
+
+    def add_trianglemesh(ps: ParamSet):
+        P, idx, N, uv = trianglemesh_data(ps)
         xf = gs.ctm
         P = np.asarray(xf.apply_point(np.asarray(P, np.float32)))
         if N is not None:
@@ -351,6 +355,30 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
         emission, escale, two_sided = gs.area_light or (None, 1.0, False)
         b.add_mesh(P, idx, gs.material, normals=N, uvs=uv, emission=emission,
                    emission_scale=escale, two_sided=two_sided)
+
+    def instantiate(name):
+        """ObjectInstance (reference parser.py:997-1048): the prototype is
+        built at the first instance, its meshes baked relative to the
+        object's base CTM (base_inv @ shape CTM), so the instance's
+        transform ctm @ base_ctm gives each shape ctm @ shape CTM."""
+        obj = objects.get(name)
+        if obj is None:
+            raise ParseError(f"{p.loc()}: ObjectInstance of unknown object "
+                             f"'{name}'")
+        if obj["proto"] is None:
+            obj["proto"] = b.new_prototype()
+            base_inv = obj["base_ctm"].inverse()
+            for rec in obj["records"]:
+                if rec["emission"] is not None:
+                    raise ParseError(f"{p.loc()}: emissive instanced "
+                                     "geometry is not supported")
+                xf = base_inv @ rec["ctm"]
+                P, idx, N, uv = rec["mesh"]
+                b.add_proto_mesh(
+                    obj["proto"], xf.apply_point(P), idx, rec["mat"],
+                    normals=None if N is None else xf.apply_normal(N),
+                    uvs=uv)
+        b.add_instance(obj["proto"], gs.ctm @ obj["base_ctm"])
 
     while p.peek() is not None:
         dpos = p.pos
@@ -416,10 +444,19 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
             pass
         elif tok in ("AttributeBegin", "TransformBegin"):
             stack.append(copy.copy(gs.__dict__))
-        elif tok in ("AttributeEnd", "TransformEnd"):
+        elif tok in ("AttributeEnd", "TransformEnd", "ObjectEnd"):
             if not stack:
                 raise ParseError(f"{p.loc(dpos)}: unmatched {tok}")
             gs.__dict__.update(stack.pop())
+            if tok == "ObjectEnd":
+                current_object = None
+        elif tok == "ObjectBegin":
+            current_object = p.parse_string()
+            objects[current_object] = dict(records=[], base_ctm=gs.ctm,
+                                           proto=None)
+            stack.append(copy.copy(gs.__dict__))
+        elif tok == "ObjectInstance":
+            instantiate(p.parse_string())
         elif tok == "Material":
             name = p.parse_string()
             gs.material = make_material(name, p.parse_params())
@@ -459,7 +496,12 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
                 refuse(f"shape '{name}'",
                        "slices 3-4 (plymesh with killeroo/plytex, "
                        "bilinearmesh with patches, quadrics, curves)", dpos)
-            add_trianglemesh(ps)
+            if current_object is None:
+                add_trianglemesh(ps)
+            else:
+                objects[current_object]["records"].append(dict(
+                    mesh=trianglemesh_data(ps), ctm=gs.ctm, mat=gs.material,
+                    emission=(gs.area_light or (None,))[0]))
         elif tok in _LATER:
             refuse(f"directive '{tok}'", _LATER[tok], dpos)
         else:

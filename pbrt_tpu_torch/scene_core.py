@@ -5,16 +5,19 @@ points of the general path wave.
 A scene is built on the host in numpy and moved once to the device the
 caller names. It holds triangle meshes (per-vertex normals and uvs when
 given) with diffuse materials, area-triangle emission and uniform infinite
-lights, under a uniform or power light sampler. Other shapes, lights,
-materials, media, textures, instances and alpha are not ported: their
-builders do not exist here, and the parser refuses their directives.
+lights, under a uniform or power light sampler, and static object
+instances of triangle prototypes. Other shapes, lights, materials, media,
+textures, animated instances and alpha are not ported: their builders do
+not exist here, and the parser refuses their directives.
 
-Triangle queries follow the reference's dispatch (_tri_dispatch): above
-4096 triangles, or with force_bvh, every closest and any hit goes through
-the BVH8 kernel (ops/bvh8.py) over the whole scene; otherwise through the
-brute-force triangle kernel (ops/tri_intersect.py). The megakernel's
-eligibility test is the reference's: an eligible scene (cornell class)
-also carries the megakernel's tables and metadata.
+Triangle queries follow the reference's dispatch (_tri_dispatch): a scene
+with instances sends every closest and any hit through the two-level
+kernel (ops/bvh2.py) over its TLAS and BLASes; otherwise, above 4096
+triangles or with force_bvh, through the BVH8 kernel (ops/bvh8.py) over
+the whole scene, and below through the brute-force triangle kernel
+(ops/tri_intersect.py). The megakernel's eligibility test is the
+reference's: an eligible scene (cornell class) also carries the
+megakernel's tables and metadata.
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ from . import lights as lgt
 from . import lightsamplers as lsamp
 from . import materials as mtl
 from .ops import bvh as bvh_mod
+from .ops import bvh2 as bvh2_mod
 from .ops import bvh8 as bvh8_mod
+from .ops import tlas as tlas_mod
 from .ops import tri_intersect as ti
 from .ops.megawave import MegaMeta, ATTR_COLS, LIGHT_COLS
 from .utils import color as pcolor
@@ -45,14 +50,19 @@ class Scene:
     """Device tables.
 
     tri_all (T, 27) triangle rows in original order, [p0, p1, p2, id]
-    then [n0, n1, n2, uv0, uv1, uv2, mat, light]; tri_pallas (T'*16,)
-    the brute-force pool (None on the BVH route); bvh8 the BVH8 tables
-    (None on the brute-force route); mat_pool (M, 22); lights_packed
-    (L, 24); alias_rows (L, 4) alias rows of a power sampler (else None);
-    spectra_pool (S, 471). Host metadata: the light sampler, the scene
-    radius (float32 value), the pool indices of the infinite lights, the
-    light tags present. attr, light, mat and mega: the megakernel's tables
-    and metadata, None unless the scene is eligible."""
+    then [n0, n1, n2, uv0, uv1, uv2, mat, light]: the world triangles,
+    then each prototype's in object space, ids rebased; tri_pallas
+    (T'*16,) the brute-force pool (None on the other routes); bvh8 the
+    BVH8 tables (None off the BVH8 route); mat_pool (M, 22);
+    lights_packed (L, 24); alias_rows (L, 4) alias rows of a power sampler
+    (else None); spectra_pool (S, 471). Host metadata: the light sampler,
+    the scene radius (float32 value), the pool indices of the infinite
+    lights, the light tags present. attr, light, mat and mega: the
+    megakernel's tables and metadata, None unless the scene is eligible.
+    Instanced scenes (ops/tlas.py): tlas_nodes (M, 8) the BLAS nodes then
+    the TLAS from tlas_root on, inst_rows (I, 66), tri_geo_tlas (T, 10)
+    the BLAS-ordered rows with the global id in column 9, tlas_depth the
+    stack the tables need; None (0, False) without instances."""
     tri_all: torch.Tensor
     tri_pallas: torch.Tensor
     bvh8: bvh8_mod.BVH8
@@ -69,6 +79,12 @@ class Scene:
     light: torch.Tensor = None
     mat: torch.Tensor = None
     mega: MegaMeta = None
+    tlas_nodes: torch.Tensor = None
+    inst_rows: torch.Tensor = None
+    tri_geo_tlas: torch.Tensor = None
+    tlas_root: int = 0
+    tlas_depth: int = 0
+    has_instances: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -81,6 +97,30 @@ class Scene:
     @property
     def has_area_lights(self) -> bool:
         return lgt.LIGHT_AREA_TRI in self.light_tags
+
+
+def _mesh_rows(vertices, indices, normals, uvs):
+    """Per-triangle corner attributes of a mesh: (p0, p1, p2, n0, n1, n2,
+    uv0, uv1, uv2), float32 (F, 3) and (F, 2); without normals each corner
+    takes the face normal, without uvs (0, 0), (1, 0), (1, 1)."""
+    vertices = np.asarray(vertices, np.float32)
+    indices = np.asarray(indices, np.int64)
+    p0, p1, p2 = (vertices[indices[:, i]] for i in range(3))
+    if normals is not None:
+        normals = np.asarray(normals, np.float32)
+        n0, n1, n2 = (normals[indices[:, i]] for i in range(3))
+    else:
+        ng = np.cross(p1 - p0, p2 - p0)
+        ng /= np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
+        n0 = n1 = n2 = ng
+    if uvs is not None:
+        uvs = np.asarray(uvs, np.float32)
+        uv0, uv1, uv2 = (uvs[indices[:, i]] for i in range(3))
+    else:
+        uv0 = np.zeros((len(p0), 2), np.float32)
+        uv1 = np.tile(np.array([[1, 0]], np.float32), (len(p0), 1))
+        uv2 = np.tile(np.array([[1, 1]], np.float32), (len(p0), 1))
+    return p0, p1, p2, n0, n1, n2, uv0, uv1, uv2
 
 
 class SceneBuilder:
@@ -97,6 +137,8 @@ class SceneBuilder:
         self.light_rows = []
         self.spectra = []
         self._spec_cache = {}
+        self.protos = []
+        self.instances = []
 
     def add_spectrum(self, s: spc.Spectrum, key=None) -> int:
         """Add a spectrum to the pool, deduplicated by content."""
@@ -118,24 +160,8 @@ class SceneBuilder:
         """vertices (V, 3); indices (F, 3); normals (V, 3) and uvs (V, 2)
         per vertex, optional; emission: host Spectrum making each triangle
         an area light. Returns the light indices created."""
-        vertices = np.asarray(vertices, np.float32)
-        indices = np.asarray(indices, np.int64)
-        p0, p1, p2 = (vertices[indices[:, i]] for i in range(3))
-        if normals is not None:
-            normals = np.asarray(normals, np.float32)
-            n0, n1, n2 = (normals[indices[:, i]] for i in range(3))
-        else:
-            ng = np.cross(p1 - p0, p2 - p0)
-            ng /= np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True),
-                             1e-20)
-            n0 = n1 = n2 = ng
-        if uvs is not None:
-            uvs = np.asarray(uvs, np.float32)
-            uv0, uv1, uv2 = (uvs[indices[:, i]] for i in range(3))
-        else:
-            uv0 = np.zeros((len(p0), 2), np.float32)
-            uv1 = np.tile(np.array([[1, 0]], np.float32), (len(p0), 1))
-            uv2 = np.tile(np.array([[1, 1]], np.float32), (len(p0), 1))
+        p0, p1, p2, n0, n1, n2, uv0, uv1, uv2 = _mesh_rows(
+            vertices, indices, normals, uvs)
         created = []
         for i in range(len(p0)):
             tri = len(self.t_mat)
@@ -164,6 +190,42 @@ class SceneBuilder:
             created.append(li)
         return created
 
+    def new_prototype(self) -> int:
+        """Open an instancing prototype (reference ObjectBegin): geometry
+        added with add_proto_mesh is stored once, in object space."""
+        self.protos.append(dict(p0=[], p1=[], p2=[], n0=[], n1=[], n2=[],
+                                uv0=[], uv1=[], uv2=[], mat=[]))
+        return len(self.protos) - 1
+
+    def add_proto_mesh(self, proto: int, vertices, indices, material: int,
+                       normals=None, uvs=None):
+        """Add a mesh to a prototype, in object space (no area lights:
+        emissive instanced geometry is not supported)."""
+        P = self.protos[proto]
+        rows = _mesh_rows(vertices, indices, normals, uvs)
+        for key, v in zip(("p0", "p1", "p2", "n0", "n1", "n2", "uv0", "uv1",
+                           "uv2"), rows):
+            P[key].extend(v)
+        P["mat"].extend([material] * len(rows[0]))
+
+    def add_instance(self, proto: int, object_to_world,
+                     object_to_world_end=None) -> int:
+        """Instantiate a prototype (reference ObjectInstance).
+        object_to_world: a utils.transform.Transform or a (4, 4) matrix,
+        inverted in float64 and stored as float32 3x4 rows.
+        object_to_world_end makes the instance animated, which build()
+        refuses (ops/tlas.py)."""
+        def mat(x):
+            return np.asarray(x.m if hasattr(x, "m") else x, np.float64)
+        o2w4 = mat(object_to_world)
+        rec = dict(proto=proto, o2w=o2w4[:3, :].astype(np.float32),
+                   w2o=np.linalg.inv(o2w4)[:3, :].astype(np.float32))
+        if object_to_world_end is not None:
+            rec["o2w_end"] = mat(object_to_world_end)[:3, :].astype(
+                np.float32)
+        self.instances.append(rec)
+        return len(self.instances) - 1
+
     def add_uniform_infinite_light(self, spectrum: spc.Spectrum,
                                    scale=1.0) -> int:
         """A constant environment; its power is set at build time from the
@@ -180,7 +242,7 @@ class SceneBuilder:
         the megakernel block); None when the scene is outside it."""
         rows = self.light_rows
         n_tri = len(p0)
-        if (use_bvh or n_tri > MAX_MEGA_TRIS or not rows
+        if (use_bvh or self.instances or n_tri > MAX_MEGA_TRIS or not rows
                 or ls.kind not in (lsamp.LS_UNIFORM, lsamp.LS_POWER)
                 or any(r["tag"] != lgt.LIGHT_AREA_TRI for r in rows)
                 or len({r["spec_idx"] for r in rows}) != 1):
@@ -202,8 +264,79 @@ class SceneBuilder:
                         light_spec=int(rows[0]["spec_idx"]),
                         ls_uniform=bool(ls.kind == lsamp.LS_UNIFORM))
 
+    def _world_bounds(self, lo, hi):
+        """World box of the triangles and of every instance's prototype
+        box corners through its o2w (reference build, :635-648)."""
+        world_lo, world_hi = lo.min(axis=0), hi.max(axis=0)
+        for inst in self.instances:
+            P = self.protos[inst["proto"]]
+            if not P["p0"]:
+                continue
+            plo = np.minimum(np.min(P["p0"], 0), np.minimum(
+                np.min(P["p1"], 0), np.min(P["p2"], 0)))
+            phi = np.maximum(np.max(P["p0"], 0), np.maximum(
+                np.max(P["p1"], 0), np.max(P["p2"], 0)))
+            corners = np.stack(np.meshgrid(*zip(plo, phi), indexing="ij"),
+                               -1).reshape(-1, 3)
+            wc = corners @ inst["o2w"][:, :3].T + inst["o2w"][:, 3]
+            world_lo = np.minimum(world_lo, wc.min(axis=0))
+            world_hi = np.maximum(world_hi, wc.max(axis=0))
+        return world_lo, world_hi
+
+    def _two_level(self, p0, p1, p2, lo, hi):
+        """The instancing tables (reference build, :823-914): the world
+        triangles as BLAS 0 under an identity instance, one BLAS per
+        non-empty prototype, the TLAS. Returns (nodes_all, inst_rows,
+        tri_geo_tlas, tlas_root, stack depth, the prototypes' (T', 10)
+        geometry rows and (T', 17) shading rows, ids rebased past the
+        world's)."""
+        world = bvh_mod.build_bvh(lo, hi)
+        eye = np.eye(4, dtype=np.float32)[:3]
+        blas_list = [(world.nodes, world.prim_indices, lo, hi)]
+        ordered = [bvh_mod.pack_tri_geo(p0, p1, p2, order=world.prim_indices)]
+        inst_list = [dict(proto=0, o2w=eye, w2o=eye)]
+        extra_geo, extra_shade, blas_of = [], [], {}
+        gbase = len(p0)
+        for pi, P in enumerate(self.protos):
+            if not P["p0"]:
+                continue
+            pp0, pp1, pp2 = (np.stack(P[k]) for k in ("p0", "p1", "p2"))
+            plo = np.minimum(np.minimum(pp0, pp1), pp2)
+            phi = np.maximum(np.maximum(pp0, pp1), pp2)
+            pbvh = bvh_mod.build_bvh(plo, phi)
+            # column 9: the global id, past the world's and earlier ones'
+            geo_bvh = bvh_mod.pack_tri_geo(pp0, pp1, pp2,
+                                           order=pbvh.prim_indices)
+            geo_bvh[:, 9] += gbase
+            ordered.append(geo_bvh)
+            geo = bvh_mod.pack_tri_geo(pp0, pp1, pp2)
+            geo[:, 9] += gbase
+            extra_geo.append(geo)
+            extra_shade.append(np.concatenate([
+                np.stack(P["n0"]), np.stack(P["n1"]), np.stack(P["n2"]),
+                np.stack(P["uv0"]), np.stack(P["uv1"]), np.stack(P["uv2"]),
+                np.asarray(P["mat"], np.float32)[:, None],
+                np.full((len(pp0), 1), -1, np.float32)],
+                axis=1).astype(np.float32))
+            blas_of[pi] = len(blas_list)
+            blas_list.append((pbvh.nodes, pbvh.prim_indices, plo, phi))
+            gbase += len(pp0)
+        inst_list += [dict(inst, proto=blas_of[inst["proto"]])
+                      for inst in self.instances if inst["proto"] in blas_of]
+        nodes_all, inst_rows, _pb, tlas_root = tlas_mod.build_two_level(
+            blas_list, inst_list)
+        depth = tlas_mod.stack_depth(nodes_all, inst_rows, tlas_root)
+        if depth > bvh2_mod.MAX_DEPTH_TWO_LEVEL:
+            raise NotImplementedError(
+                f"instance tables need a {depth}-entry traversal stack, "
+                f"over the two-level kernel's {bvh2_mod.MAX_DEPTH_TWO_LEVEL}"
+                "; the fallback traversal is not ported yet (ROADMAP.md "
+                "slice 3 item 10, deep instance trees)")
+        return (nodes_all, inst_rows, np.concatenate(ordered), tlas_root,
+                depth, extra_geo, extra_shade)
+
     def build(self, light_sampler="power", force_bvh=None,
-              device="cpu") -> Scene:
+              device="cuda") -> Scene:
         device = dev_mod.resolve(device)
         if not self.p0:
             # a dummy far-away triangle keeps the triangle pipeline
@@ -215,8 +348,8 @@ class SceneBuilder:
         n_tri = len(p0)
         lo = np.minimum(np.minimum(p0, p1), p2)
         hi = np.maximum(np.maximum(p0, p1), p2)
-        radius = 0.5 * float(np.linalg.norm(hi.max(axis=0) - lo.min(axis=0))) \
-            + 1e-3
+        world_lo, world_hi = self._world_bounds(lo, hi)
+        radius = 0.5 * float(np.linalg.norm(world_hi - world_lo)) + 1e-3
         use_bvh = (n_tri > BVH_MIN_TRIS) if force_bvh is None else \
             bool(force_bvh)
         rows = self.light_rows
@@ -242,7 +375,16 @@ class SceneBuilder:
                                    device=device)
 
         bvh8 = tri_pallas = None
-        if use_bvh:
+        inst = {}
+        if self.instances:
+            (nodes_all, inst_rows, tri_geo_tlas, tlas_root, depth,
+             extra_geo, extra_shade) = self._two_level(p0, p1, p2, lo, hi)
+            tri_geo = np.concatenate([tri_geo] + extra_geo)
+            tri_shade = np.concatenate([tri_shade] + extra_shade)
+            inst = dict(tlas_nodes=t(nodes_all), inst_rows=t(inst_rows),
+                        tri_geo_tlas=t(tri_geo_tlas), tlas_root=tlas_root,
+                        tlas_depth=depth, has_instances=True)
+        elif use_bvh:
             bvh8 = bvh8_mod.build_bvh8(lo, hi, tri_geo, device=device)
         else:
             tri_pallas = t(ti.pad_triangles(tri_geo[:, :9]))
@@ -258,7 +400,7 @@ class SceneBuilder:
             inf_indices=tuple(i for i, r in enumerate(rows)
                               if r["tag"] == lgt.LIGHT_UNIFORM_INFINITE),
             light_tags=tuple(sorted({r["tag"] for r in rows})),
-            n_tris=n_tri)
+            n_tris=len(tri_geo), **inst)
         mega = self._mega_meta(use_bvh, ls, p0, p1, p2)
         if mega is None:
             return scene
@@ -287,9 +429,14 @@ class SceneBuilder:
 
 def _tri_dispatch(scene: Scene, o, d, t_max, any_hit: bool):
     """Closest or any hit through the scene's route. Returns dict(hit, t
-    (inf on a miss), prim (original id, -1 on a miss), b0, b1, b2)."""
+    (inf on a miss), prim (original id, -1 on a miss), b0, b1, b2), and
+    inst (the hit's instance row) on an instanced scene."""
     # the kernels read packed rows: camera origins arrive broadcast
     o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
+    if scene.has_instances:
+        return bvh2_mod.two_level_intersect(
+            scene.tlas_nodes, scene.inst_rows, scene.tri_geo_tlas,
+            scene.tlas_root, o, d, t_max, any_hit, depth=scene.tlas_depth)
     if scene.use_bvh:
         return bvh8_mod.bvh8_intersect(scene.bvh8, o, d, t_max, any_hit)
     t, prim, b1, b2 = ti.tri_intersect(scene.tri_pallas, o, d, t_max,
@@ -297,6 +444,13 @@ def _tri_dispatch(scene: Scene, o, d, t_max, any_hit: bool):
     hit = prim >= 0
     return dict(hit=hit, t=torch.where(hit, t, torch.inf), prim=prim,
                 b0=1.0 - b1 - b2, b1=b1, b2=b2)
+
+
+def _apply_transpose3(a, n):
+    """Normals n (N, 3) through the transpose of the 3x3 part of rows a
+    (N, 12) [3x4 row-major]: out_i = sum_j a[j, i] n_j."""
+    return torch.stack([a[:, i] * n[:, 0] + a[:, 4 + i] * n[:, 1]
+                        + a[:, 8 + i] * n[:, 2] for i in range(3)], dim=1)
 
 
 def intersection_p_error(b0, b1, b2, p0, p1, p2):
@@ -316,6 +470,14 @@ def intersect(scene: Scene, o, d, t_max):
     row = scene.tri_all[prim]
     p0, p1, p2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     n0, n1, n2 = row[:, 10:13], row[:, 13:16], row[:, 16:19]
+    if scene.has_instances:
+        # prototypes are stored in object space: the hit triangle to world
+        # by the instance's o2w, its shading normals by w2o^T
+        irow = scene.inst_rows[torch.clamp(r["inst"], min=0).to(torch.int64)]
+        p0, p1, p2 = (bvh2_mod.transform_rows(irow[:, 12:24], x, points=True)
+                      for x in (p0, p1, p2))
+        n0, n1, n2 = (_apply_transpose3(irow[:, 0:12], x)
+                      for x in (n0, n1, n2))
     uv0, uv1, uv2 = row[:, 19:21], row[:, 21:23], row[:, 23:25]
     p = b0[:, None] * p0 + b1[:, None] * p1 + b2[:, None] * p2
     ng = vm.normalize(vm.cross(p1 - p0, p2 - p0))

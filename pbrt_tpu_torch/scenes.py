@@ -17,7 +17,7 @@ def _quad(builder, corners, material, **kw):
 
 
 def make_cornell_box(width=400, height=400, light_scale=1.0,
-                     device="cpu"):
+                     device="cuda"):
     """The Cornell box (original Cornell measurement data, mm, y up, the
     camera looking down +z). Returns (scene, camera)."""
     b = sc.SceneBuilder()

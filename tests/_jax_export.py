@@ -32,7 +32,12 @@ def export(scene, cam, sampler):
                 has_lens=cam.has_lens, seed=sampler.seed, spp=sampler.spp,
                 log2_spp=sampler.log2_spp,
                 n_base4_digits=sampler.n_base4_digits)
-    if scene.bvh8 is not None:
+    if scene.has_instances:
+        arrays.update(tlas_nodes=np.asarray(scene.tlas_nodes),
+                      inst_rows=np.asarray(scene.inst_rows),
+                      tri_geo_tlas=np.asarray(scene.tri_geo_tlas))
+        meta["tlas_root"] = scene.tlas_root
+    elif scene.bvh8 is not None:
         b8 = scene.bvh8
         arrays.update(nodes_f=np.asarray(b8.nodes_f),
                       nodes_q=np.asarray(b8.nodes_q),

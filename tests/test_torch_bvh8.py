@@ -40,7 +40,8 @@ def _soup(T, seed=0):
 
 
 def _meshfield():
-    tri = parser.parse_file(ROOT / "scenes" / "meshfield.pbrt").scene \
+    tri = parser.parse_file(ROOT / "scenes" / "meshfield.pbrt",
+                             device="cpu").scene \
         .tri_all.numpy()
     return [tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]]
 
@@ -60,7 +61,7 @@ def test_build_matches_reference(tris):
     np.testing.assert_array_equal(tg, np.asarray(jbvh.pack_tri_geo(p0, p1,
                                                                    p2)))
     want = jb8.build_bvh8(lo, hi, tg)
-    got = bvh8.build_bvh8(lo, hi, tg)
+    got = bvh8.build_bvh8(lo, hi, tg, device="cpu")
     for name in ("nodes_f", "nodes_q", "tris", "prim_indices"):
         a, b = np.asarray(getattr(want, name)), getattr(got, name).numpy()
         assert a.dtype == b.dtype and a.shape == b.shape, name
@@ -85,7 +86,7 @@ def soup():
     d = rs.normal(size=(n, 3))
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     return dict(p=(p0, p1, p2), j=jb8.build_bvh8(lo, hi, tg),
-                t=bvh8.build_bvh8(lo, hi, tg), o=o, d=d,
+                t=bvh8.build_bvh8(lo, hi, tg, device="cpu"), o=o, d=d,
                 t_any=rs.uniform(0, 10, n).astype(np.float32))
 
 

@@ -133,3 +133,80 @@ def test_bvh8_kernel_matches_plain(cuda_device, any_hit):
     same = got["prim"] == want["prim"]
     assert same.float().mean().item() >= 0.9999
     assert torch.equal(got["t"][same], want["t"][same])
+
+
+def _box_rays(lo, hi, n, seed, device):
+    rs = np.random.RandomState(seed)
+    o = rs.uniform(lo, hi, (n, 3))
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in (o, d))
+
+
+def _hold_bvh2(got, want, any_hit):
+    """Kernel vs plain: hit equal on >= 99.99% of rays; closest hit: prim
+    equal on >= 99.99%, t (and inst) equal where prim is equal."""
+    hit_p = want["prim"] >= 0
+    assert (got["hit"] == hit_p).float().mean().item() >= 0.9999
+    if any_hit:
+        return
+    same = got["prim"] == want["prim"]
+    assert same.float().mean().item() >= 0.9999
+    assert torch.equal(got["t"][same], want["t"][same])
+    if "inst" in want:
+        assert torch.equal(got["inst"][same], want["inst"][same])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh2_kernel_matches_plain(cuda_device, any_hit):
+    """Single level: meshfield's binary BVH, 2^16 seeded box rays."""
+    from pathlib import Path
+    from pbrt_tpu_torch.ops import bvh as bvh_mod
+    from pbrt_tpu_torch.ops import bvh2
+    root = Path(__file__).resolve().parent.parent
+    tri = parser.parse_file(root / "scenes" / "meshfield.pbrt",
+                            device="cpu").scene.tri_all.numpy()
+    p0, p1, p2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+    b = bvh_mod.build_bvh(np.minimum(np.minimum(p0, p1), p2),
+                          np.maximum(np.maximum(p0, p1), p2))
+    nodes = torch.as_tensor(b.nodes, device=cuda_device)
+    rows = torch.as_tensor(bvh_mod.pack_tri_geo(p0, p1, p2,
+                                                order=b.prim_indices),
+                           device=cuda_device)
+    depth = bvh_mod.bvh_max_depth(b.nodes)
+    o, d = _box_rays(p0.min(axis=0) - 1, p0.max(axis=0) + 1, 1 << 16, 11,
+                     cuda_device)
+    t_max = torch.full((1 << 16,), 30.0 if any_hit else 1e30,
+                       device=cuda_device)
+    before = bvh2.counter_bvh2.launches
+    got = bvh2.bvh2_intersect(nodes, rows, o, d, t_max, any_hit, depth=depth)
+    torch.cuda.synchronize()
+    assert bvh2.counter_bvh2.launches == before + 1
+    want = dict(zip(("t", "prim"), bvh2.bvh2_intersect_plain(
+        nodes, rows, o, d, t_max, any_hit)))
+    _hold_bvh2(got, want, any_hit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_two_level_kernel_matches_plain(cuda_device, any_hit):
+    """Two levels: the instances golden's tables, 2^16 seeded box rays."""
+    from pathlib import Path
+    from pbrt_tpu_torch.ops import bvh2
+    root = Path(__file__).resolve().parent.parent
+    s = parser.parse_file(root / "scenes" / "instances.pbrt",
+                          device=cuda_device).scene
+    o, d = _box_rays((-6, -2, -6), (6, 2, 6), 1 << 16, 12, cuda_device)
+    t_max = torch.full((1 << 16,), 30.0 if any_hit else 1e30,
+                       device=cuda_device)
+    tables = (s.tlas_nodes, s.inst_rows, s.tri_geo_tlas, s.tlas_root)
+    before = bvh2.counter_two_level.launches
+    got = bvh2.two_level_intersect(*tables, o, d, t_max, any_hit,
+                                   depth=s.tlas_depth)
+    torch.cuda.synchronize()
+    assert bvh2.counter_two_level.launches == before + 1
+    want = dict(zip(("t", "prim", "b1", "b2", "inst"), bvh2.two_level_plain(
+        *tables, o, d, t_max, any_hit)))
+    _hold_bvh2(got, want, any_hit)

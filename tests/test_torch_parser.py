@@ -1,11 +1,11 @@
 """Port vs reference: the .pbrt parser subset.
 
-Both golden scene files parse in both packages to the same tokens and the
-same scene tables, array for array and bit for bit: triangle vertices,
-shading rows (normals, uvs, material, light), material rows, light rows,
-the spectrum pool, the camera matrix, and the film, sampler and integrator
-parameters. A directive outside the subset raises ParseError with its
-location and the ROADMAP item that brings it.
+The golden scene files of the ported slices parse in both packages to
+the same tokens and the same scene tables, array for array and bit for
+bit: triangle vertices, shading rows (normals, uvs, material, light),
+material rows, light rows, the spectrum pool, the camera matrix, and the
+film, sampler and integrator parameters. A directive outside the subset
+raises ParseError with its location and the ROADMAP item that brings it.
 """
 import os
 from pathlib import Path
@@ -21,7 +21,7 @@ from pbrt_tpu_torch.scene import parser  # noqa: E402
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
-SCENES = ["cornell", "meshfield"]
+SCENES = ["cornell", "meshfield", "instances"]
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -68,7 +68,8 @@ def _compare(dj, dp):
 @pytest.mark.parametrize("name", SCENES)
 def test_parse_file_matches_reference(name):
     path = ROOT / "scenes" / f"{name}.pbrt"
-    _compare(jparser.parse_file(path), parser.parse_file(path))
+    _compare(jparser.parse_file(path),
+             parser.parse_file(path, device="cpu"))
 
 
 TRANSFORMED = b"""
@@ -104,7 +105,7 @@ Shape "trianglemesh" "integer indices" [0 1 2] "point3 P" [0 0 0 0 1 0 1 0 0]
 
 def test_transforms_normals_and_lights_match_reference():
     _compare(jparser.parse_string(TRANSFORMED),
-             parser.parse_string(TRANSFORMED))
+             parser.parse_string(TRANSFORMED, device="cpu"))
 
 
 @pytest.mark.parametrize("snippet, item", [
@@ -116,13 +117,13 @@ def test_transforms_normals_and_lights_match_reference():
     (b'LightSource "infinite" "string filename" "sky.exr"',
      "slice 3 item 8"),
     (b'Sampler "halton"', "slice 4 item 21"),
-    (b'ObjectBegin "o"', "slice 3 item 10"),
+    (b'TransformTimes 0 1', "slice 3 item 10"),
     (b'Frobnicate 1 2 3', None),
 ])
 def test_unsupported_directive_raises(snippet, item):
     text = b"WorldBegin\n\n" + snippet + b"\n"
     with pytest.raises(parser.ParseError) as err:
-        parser.parse_string(text, fname="x.pbrt")
+        parser.parse_string(text, fname="x.pbrt", device="cpu")
     msg = str(err.value)
     assert msg.startswith("x.pbrt:3:"), msg
     assert (item is None and "unknown directive" in msg) or \

@@ -124,7 +124,8 @@ def bvh_scenes():
     s8 = s.replace(bvh8=jb8.build_bvh8(np.asarray(lo), np.asarray(hi),
                                        np.asarray(s.tri_geo)),
                    use_pallas_bvh8=True)
-    return dj, s, s8, parser.parse_string(SCENE, force_bvh=True)
+    return dj, s, s8, parser.parse_string(SCENE, force_bvh=True,
+                                          device="cpu")
 
 
 def test_bvh_route_matches_reference(bvh_scenes, monkeypatch):

@@ -124,20 +124,27 @@ def test_port_imports_no_jax(tmp_path):
         "from pbrt_tpu_torch import scenes\n"
         "from pbrt_tpu_torch.integrators import render, path\n"
         "from pbrt_tpu_torch import convert, native\n"
-        "from pbrt_tpu_torch.ops import bvh8\n"
+        "from pbrt_tpu_torch.ops import bvh2, bvh8, tlas\n"
         "from pbrt_tpu_torch.scene import parser\n"
         "from pbrt_tpu_torch.utils import image\n"
         "scene, cam = scenes.make_cornell_box(8, 8, device='cpu')\n"
         "img, _ = render.render(scene, cam, spp=1, device='cpu',\n"
         "                       opts=path.PathOptions(max_depth=2))\n"
         f"image.write_exr({str(tmp_path / 'x.exr')!r}, img)\n"
-        "desc = parser.parse_file('scenes/cornell.pbrt', force_bvh=True)\n"
+        "desc = parser.parse_file('scenes/cornell.pbrt', force_bvh=True,\n"
+        "                         device='cpu')\n"
         "import dataclasses\n"
         "desc.camera = dataclasses.replace(desc.camera, width=4, height=4)\n"
         "img2, _ = render.render(desc.scene, desc.camera, spp=1,\n"
         "                        device='cpu',\n"
         "                        opts=path.PathOptions(max_depth=2))\n"
         "assert bvh8.counter.plain == 4 and img2.shape == (4, 4, 3)\n"
+        "desc = parser.parse_file('scenes/instances.pbrt', device='cpu')\n"
+        "desc.camera = dataclasses.replace(desc.camera, width=4, height=4)\n"
+        "img3, _ = render.render(desc.scene, desc.camera, spp=1,\n"
+        "                        device='cpu',\n"
+        "                        opts=path.PathOptions(max_depth=2))\n"
+        "assert bvh2.counter_two_level.plain == 4 and img3.mean() > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'pbrt_tpu')]\n"
         "assert not bad, bad\n"

@@ -129,15 +129,15 @@ def test_builder_refuses_scenes_outside_the_closed_world():
     b = sc.SceneBuilder()
     m = b.materials.add_diffuse((0.5, 0.5, 0.5))
     b.add_mesh(quad, [[0, 1, 2], [0, 2, 3]], m)
-    no_light = b.build()
+    no_light = b.build(device="cpu")
     assert no_light.mega is None and no_light.light_tags == ()
     b.add_mesh(quad, [[0, 1, 2]], m,
                emission=pcolor.RGBIlluminantSpectrum((1.0, 1.0, 1.0)))
     with pytest.raises(NotImplementedError, match="light sampler"):
-        b.build(light_sampler="bvh")
-    assert b.build().mega.n_tris == 3
-    assert b.build(force_bvh=True).mega is None
+        b.build(light_sampler="bvh", device="cpu")
+    assert b.build(device="cpu").mega.n_tris == 3
+    assert b.build(force_bvh=True, device="cpu").mega is None
     for _ in range(31):
         b.add_mesh(quad, [[0, 1, 2], [0, 2, 3]], m)
-    big = b.build()
+    big = b.build(device="cpu")
     assert big.mega is None and big.n_tris == 65 and not big.use_bvh

@@ -2,17 +2,21 @@
 """Where one wave of the PyTorch + CUDA port spends its time.
 
 Run from the repository root on a machine with an NVIDIA GPU:
-    python3 tools/torch_wave_profile.py [--scene cornell|meshfield|both]
+    python3 tools/torch_wave_profile.py [--scene NAME]  (NAME: cornell,
+    meshfield, instances or all, the default)
 
 cornell: the main path, 400x400, 64 spp, max depth 5, on the megakernel.
 meshfield: scenes/meshfield.pbrt, 200x200, 32 spp, max depth 4, on the
-general wave and the BVH8 kernel. (pbrt_tpu_torch only; no jax.)
+general wave and the BVH8 kernel. instances: scenes/instances.pbrt,
+200x200, 32 spp, max depth 3, on the general wave and the two-level
+kernel. (pbrt_tpu_torch only; no jax.)
 Prints the card's name and power limit, then for each scene
   1. the stages of one wave (160,000 lanes), each timed with a synchronize
      around it, median of --reps waves after one warm-up. cornell: the
      wavelength sample at zsobol dim 5, sample_visible_wavelengths,
      megawave.prepare_full, the megakernel, the sensor projection and the
-     film add. meshfield: the host-launched sampler dimensions, the camera
+     film add. meshfield and instances: the host-launched sampler
+     dimensions, the camera
      (filter sample and pinhole rays), the closest-hit queries
      (scene_core.intersect), the NEE shadow queries (intersect_p), the
      rest of the wave (shading: emission, lights, BSDF, roulette), and
@@ -94,8 +98,9 @@ class StageTimers:
         self._saved.clear()
 
 
-def profile_meshfield(args, dev):
-    """Stage times, renders and busy share of the meshfield general wave."""
+def profile_parsed(args, dev, name, max_depth):
+    """Stage times, renders and busy share of a parsed scene's general
+    wave (scenes/<name>.pbrt at its own size and spp)."""
     import torch
     from pbrt_tpu_torch import cameras as cam_mod
     from pbrt_tpu_torch import film as film_mod
@@ -107,9 +112,9 @@ def profile_meshfield(args, dev):
     from pbrt_tpu_torch.scene import parser
 
     root = Path(__file__).resolve().parent.parent
-    desc = parser.parse_file(root / "scenes" / "meshfield.pbrt", device=dev)
+    desc = parser.parse_file(root / "scenes" / f"{name}.pbrt", device=dev)
     scene, cam, sampler = desc.scene, desc.camera, desc.sampler
-    opts = path_mod.PathOptions(max_depth=4)
+    opts = path_mod.PathOptions(max_depth=max_depth)
     W, H = cam.width, cam.height
     render.render(scene, cam, sampler=sampler, device=dev, opts=opts)
     filt = flt.make_filter("gaussian")
@@ -150,19 +155,20 @@ def profile_meshfield(args, dev):
             for k in names:
                 per_wave[k].append(timers.ms.get(k, 0.0))
     stage_ms = {k: statistics.median(v) for k, v in per_wave.items()}
-    print(f"meshfield stage ms, median of {args.reps} waves of {W * H * m} "
+    print(f"{name} stage ms, median of {args.reps} waves of {W * H * m} "
           f"lanes: {json.dumps(stage_ms)}", flush=True)
     renders = [render.render(scene, cam, sampler=sampler, device=dev,
                              opts=opts)[1]["paths_per_sec"]
                for _ in range(args.renders)]
-    print(f"meshfield renders, 32 spp, paths/s: {renders}", flush=True)
+    print(f"{name} renders, {sampler.spp} spp, paths/s: {renders}",
+          flush=True)
     wall_ms, dev_ms = profiled_share(
         lambda: render.render(scene, cam, spp=args.profiled_spp,
                               sampler=smp.make_sampler(
                                   "zsobol", spp=args.profiled_spp,
                                   full_resolution=(W, H)),
                               device=dev, opts=opts),
-        f"meshfield, {args.profiled_spp} spp")
+        f"{name}, {args.profiled_spp} spp")
     return dict(stage_ms=stage_ms, render_paths_per_sec=renders,
                 profiled_wall_ms=wall_ms, device_ms=dev_ms,
                 busy_share=dev_ms / wall_ms)
@@ -170,8 +176,8 @@ def profile_meshfield(args, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scene", choices=("cornell", "meshfield", "both"),
-                    default="both")
+    ap.add_argument("--scene", choices=("cornell", "meshfield", "instances",
+                                        "all"), default="all")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--renders", type=int, default=5)
     ap.add_argument("--profiled-spp", type=int, default=8)
@@ -189,10 +195,11 @@ def main():
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
     out = dict(card=card)
-    if args.scene in ("cornell", "both"):
+    if args.scene in ("cornell", "all"):
         out["cornell"] = profile_cornell(args, dev)
-    if args.scene in ("meshfield", "both"):
-        out["meshfield"] = profile_meshfield(args, dev)
+    for name, depth in (("meshfield", 4), ("instances", 3)):
+        if args.scene in (name, "all"):
+            out[name] = profile_parsed(args, dev, name, depth)
     print(json.dumps(out))
     return 0
 
