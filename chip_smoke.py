@@ -47,7 +47,26 @@ Phases, each of which raises on failure (exit code 1):
      pbrt_tpu_torch/_build/;
  15. times with CUDA events: both bvh2 entries and their plain versions
      beside the BVH8 kernel on the same rays, and the instances render in
-     paths/s.
+     paths/s;
+ 16. the curves library's ptxas report: registers, stack frame, spills;
+ 17. the curve kernel against its plain version on the card: the "hair"
+     scene (tools/hair_scene.py: 8,192 strands, 65,536 curve spans,
+     524,288 sub-segments), generated into pbrt_tpu_torch/_build/ and
+     parsed with scene.parser.parse_file, 2^20 seeded rays from the fur
+     patch's box +-1, closest hit (t_max 1e30: t and segment bit for bit,
+     and u, v, n, curve id through intersect_curves) and any hit (t_max
+     30: the hit flag);
+ 18. the hair path through the user entry points (parse_file -> render):
+     400x400, 16 spp, max depth 5, every closest and shadow query through
+     the curve kernel and the triangle kernel, launch counts read around
+     it, the image finite and non-zero, written to pbrt_tpu_torch/_build/;
+ 19. "hair-ref" (512 strands, 128x128, 16 spp) through the same entry
+     points, gated against the JAX package's CPU render of the same scene
+     (tests/data/torch_hair_ref_128_16spp.exr, made by
+     tools/make_hair_reference.py) with the instances gates;
+ 20. times with CUDA events: the curve kernel and its plain version at
+     2^20 rays, closest and any hit, and the hair render in paths/s with
+     its set-up (generate, parse, split, build) apart.
 Phase 2 builds every kernel (one nvcc per source, all started together)
 and the host BVH builder (g++). The line before the last is a JSON object
 with one entry per kernel, each with its bound: the larger of the bytes it
@@ -74,6 +93,12 @@ INST_SCENE = ROOT / "scenes" / "instances.pbrt"
 INST_GOLDEN = ROOT / "goldens" / "instances_200_32spp.exr"
 INST_GATE_MRSE = 0.05   # tools/golden.py CONFIGS, instances
 INST_GATE_MEAN_RATIO = 0.02
+# hair_scene_text arguments (strands, seed, width, height, spp)
+HAIR = (8192, 0, 400, 400, 16)
+HAIR_REF_SCENE = (512, 1, 128, 128, 16)
+HAIR_REF = ROOT / "tests" / "data" / "torch_hair_ref_128_16spp.exr"
+HAIR_GATE_MRSE = 0.05   # the instances gates
+HAIR_GATE_MEAN_RATIO = 0.02
 # the bound's peaks (H100 SXM data sheet) and the f32 operations of one
 # unit of work, counted from the kernels' sources
 PEAK_BYTES_PER_S = 3.35e12
@@ -83,6 +108,11 @@ TRI_OPS = 60            # Moeller-Trumbore on rows with precomputed edges
 TRI_RAW_OPS = 64        # on raw vertices: 6 edge subtractions, no tolerance
 BVH8_CHILD_OPS = 12 + SLAB_OPS   # dequantise a child box, then its slab
 ENTER_OPS = 39          # a ray through w2o (33) and its 3 inverse dirs
+# csrc/curves.cu segment_test: 6 sub (ends - o), 30 for the two ends in the
+# ray frame, 2 sub, 4 for |e|^2, 7 for w, 4 for c, 3 for dist^2, 3 for the
+# width, 2 for hw^2/4, 1 test, 3 for z, 3 for the edge, 2 for z_hit, 2 for
+# t, 3 tests
+SEG_OPS = 75
 
 
 def check(cond, what):
@@ -280,6 +310,190 @@ def box_rays(scene, n, device, seed=0):
             torch.as_tensor(d, device=device))
 
 
+def curves_phases(dev, card, build_log, counters, n_rays):
+    """Phases 16-20, the hair path: the curve kernel's ptxas report, the
+    kernel against its plain version, the hair and hair-ref renders
+    through parse_file -> render, times. Returns what the kernels line and
+    the summary line need."""
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.ops import bvh8
+    from pbrt_tpu_torch.ops import curves
+    from pbrt_tpu_torch.ops import megawave
+    from pbrt_tpu_torch.ops import tri_intersect as ti
+    from pbrt_tpu_torch.scene import parser
+    from pbrt_tpu_torch.utils import image
+    # ---- 16. the curves library's ptxas report ----
+    entries = [ln.strip() for ln in build_log.splitlines()
+               if "Function properties" in ln or "stack frame" in ln
+               or "registers" in ln]
+    print(f"[16 curves build] ptxas: {entries}", flush=True)
+    check(not entries or sum("registers" in ln for ln in entries) == 1,
+          "curves: ptxas reported other than one entry")
+
+    # ---- 17. curve kernel vs plain on the "hair" tables, 2^20 rays ----
+    sys.path.insert(0, str(ROOT / "tools"))
+    from hair_scene import hair_scene_text
+    t0 = time.perf_counter()
+    hair_path = _build.BUILD_DIR / "hair.pbrt"
+    hair_path.write_text(hair_scene_text(*HAIR))
+    t_gen = time.perf_counter() - t0
+    hdesc = parser.parse_file(hair_path, device=dev)
+    hair = hdesc.scene
+    hair_setup = time.perf_counter() - t0
+    ctab = (hair.curve_nodes, hair.curve_segs)
+    print(f"[17 curves] hair: {hair.curve_mats.shape[0]} spans, "
+          f"{hair.curve_segs.shape[0]} sub-segments "
+          f"({4 * hair.curve_segs.numel() / 2**20:.1f} MiB of rows), "
+          f"{hair.curve_nodes.shape[0]} nodes, depth {hair.curve_depth}, "
+          f"{hair.n_tris} triangles; set-up {hair_setup:.2f} s (text "
+          f"{t_gen:.2f} s, parse and build {hair_setup - t_gen:.2f} s)",
+          flush=True)
+    box = hair.curve_nodes[0, :6].cpu().numpy()
+    rng = np.random.default_rng(17)
+    o17 = torch.as_tensor(rng.uniform(box[:3] - 1, box[3:] + 1, (n_rays, 3))
+                          .astype(np.float32), device=dev)
+    d17 = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d17 = torch.as_tensor(d17 / np.linalg.norm(d17, axis=1, keepdims=True),
+                          device=dev)
+    crv_work, crv_err = {}, 0.0
+    for any_hit, t_max in ((False, 1e30), (True, 30.0)):
+        tv = torch.full((n_rays,), t_max, device=dev)
+        t_k, seg_k = curves.curves_intersect(*ctab, o17, d17, tv, any_hit,
+                                             depth=hair.curve_depth)
+        t_p, seg_p = curves.curves_intersect_plain(*ctab, o17, d17, tv,
+                                                   any_hit)
+        torch.cuda.synchronize()
+        crv_work[any_hit] = curves.counter.work
+        hit_p = seg_p >= 0
+        hit_eq = torch.equal(seg_k >= 0, hit_p)
+        exact = torch.equal(seg_k, seg_p) and torch.equal(t_k, t_p)
+        print(f"[17 curves] any_hit={any_hit}: hit share "
+              f"{hit_p.float().mean().item():.4f} of {n_rays} rays, hit "
+              f"equal {hit_eq}, t and segment bit-equal {exact}; plain "
+              f"work {crv_work[any_hit]}", flush=True)
+        check(hit_eq, "curves: the hit flag differs from the plain version")
+        if not any_hit:
+            check(exact, "curves: t or segment differs from the plain "
+                  "version")
+            crv_err = (t_k[hit_p] - t_p[hit_p]).abs().max().item() \
+                if bool(hit_p.any()) else 0.0
+            got = curves.intersect_curves(*ctab, o17, d17, tv,
+                                          depth=hair.curve_depth)
+            rows = hair.curve_segs[seg_p.clamp(min=0).long()]
+            want = curves.segment_test(o17, d17, torch.where(
+                hit_p, t_p * 1.0001 + 1e-5, 0.0), rows)
+            attrs = all(torch.equal(got[k], want[k]) for k in ("u", "v", "n"))
+            cid = torch.equal(got["curve_id"], torch.where(
+                hit_p, rows[:, 14].round().long(), -1))
+            print(f"[17 curves] u, v, n bit-equal {attrs}, curve id equal "
+                  f"{cid}", flush=True)
+            check(attrs and cid, "curves: u, v, n or curve id differ")
+
+    # tri_intersect on the hair scene's own pool (ground and light), the
+    # same rays, phase 3's gates
+    hair_tri_err = 0.0
+    for any_hit, t_max in ((False, 1e30), (True, 30.0)):
+        tv = torch.full((n_rays,), t_max, device=dev)
+        got = ti.tri_intersect(hair.tri_pallas, o17, d17, tv, hair.n_tris,
+                               any_hit)
+        want = ti.tri_intersect_plain(hair.tri_pallas, o17, d17, tv,
+                                      hair.n_tris, any_hit)
+        torch.cuda.synchronize()
+        same = got[1] == want[1]
+        agree = same.float().mean().item()
+        hit = same & (want[1] >= 0)
+        ok = torch.allclose(got[0][hit], want[0][hit], rtol=1e-5, atol=0)
+        err = (got[0][hit] - want[0][hit]).abs().max().item() \
+            if bool(hit.any()) else 0.0
+        hair_tri_err = max(hair_tri_err, err)
+        print(f"[17 tri_intersect] hair's {hair.n_tris} triangles, any_hit="
+              f"{any_hit}: prim equal on {agree * 100:.4f}% of {n_rays} "
+              f"rays, hit share {(want[1] >= 0).float().mean().item():.4f}, "
+              f"t within rel 1e-5 {ok}, max |dt| {err:.3g} where prim equal",
+              flush=True)
+        check(agree >= 0.9999,
+              f"hair tri_intersect prim agreement {agree}")
+        check(ok, "hair tri_intersect t differs beyond rtol 1e-5")
+
+    # ---- 18. the hair path through the entry points ----
+    reset_counts(counters)
+    himg, hstats = render.render(hair, hdesc.camera, sampler=hdesc.sampler,
+                                 device=dev,
+                                 opts=path_mod.PathOptions(max_depth=5))
+    hlaunch = {"curves": curves.counter.launches,
+               "tri_intersect": ti.counter.launches,
+               "megawave": megawave.counter.launches,
+               "bvh8": bvh8.counter.launches}
+    hplain = sum(c.plain for c in counters)
+    print(f"[18 hair] launches {hlaunch}, plain-version runs {hplain}; "
+          f"{hstats['seconds']:.3f} s, {hstats['paths_per_sec']:.6g} "
+          f"paths/s, {hstats['lanes_per_wave']} lanes per wave; image mean "
+          f"{float(himg.mean()):.6g}", flush=True)
+    check(hlaunch["curves"] >= 1 and hlaunch["tri_intersect"] >= 1,
+          "hair launched no curve or no triangle kernel")
+    check(hlaunch["megawave"] == 0, "hair ran the megakernel")
+    check(hplain == 0, "hair ran a plain version on the card")
+    check(himg.shape == (HAIR[3], HAIR[2], 3) and bool(np.isfinite(himg).all())
+          and float(himg.mean()) > 0, "hair: render output shape or values")
+    image.write_exr(_build.BUILD_DIR / "hair_400_16spp.exr", himg)
+
+    # ---- 19. hair-ref against the JAX package's image ----
+    ref_path = _build.BUILD_DIR / "hair_ref.pbrt"
+    ref_path.write_text(hair_scene_text(*HAIR_REF_SCENE))
+    rdesc = parser.parse_file(ref_path, device=dev)
+    rimg, rstats = render.render(rdesc.scene, rdesc.camera,
+                                 sampler=rdesc.sampler, device=dev,
+                                 opts=path_mod.PathOptions(max_depth=5))
+    r_mrse, r_ratio = gate(rimg, HAIR_REF, (HAIR_REF_SCENE[3],
+                                            HAIR_REF_SCENE[2], 3),
+                           HAIR_GATE_MRSE,
+                           HAIR_GATE_MEAN_RATIO, "19 hair-ref vs JAX")
+    print(f"[19 hair-ref vs JAX] margin: mrse {r_mrse:.6g} is "
+          f"{r_mrse / HAIR_GATE_MRSE:.4f} of its gate, mean ratio err "
+          f"{r_ratio:.6g} {r_ratio / HAIR_GATE_MEAN_RATIO:.4f} of its gate",
+          flush=True)
+    image.write_exr(_build.BUILD_DIR / "hair_ref_128_16spp.exr", rimg)
+
+    # ---- 20. times: the curve kernel and its plain version ----
+    crv_ms = {}
+    for any_hit, t_max in ((False, 1e30), (True, 30.0)):
+        tv = torch.full((n_rays,), t_max, device=dev)
+        crv_ms[any_hit] = (
+            cuda_ms(lambda: curves.curves_intersect(
+                *ctab, o17, d17, tv, any_hit, depth=hair.curve_depth),
+                reps=20, warmup=3),
+            cuda_ms(lambda: curves.curves_intersect_plain(
+                *ctab, o17, d17, tv, any_hit), reps=1))
+        k_ms, p_ms = crv_ms[any_hit]
+        print(f"[20 times] card {card}: curves any_hit={any_hit} kernel "
+              f"{k_ms:.4f} ms ({n_rays / k_ms / 1e3:.2f} Mrays/s) vs plain "
+              f"{p_ms:.4f} ms ({n_rays / p_ms / 1e3:.3f} Mrays/s)",
+              flush=True)
+    print(f"[20 times] card {card}: hair {HAIR[2]}x{HAIR[3]}x{HAIR[4]} "
+          f"depth 5 {hstats['paths_per_sec']:.6g} paths/s "
+          f"({hstats['seconds']:.3f} s), set-up {hair_setup:.2f} s apart; "
+          f"hair-ref {rstats['paths_per_sec']:.6g} paths/s", flush=True)
+
+    crv_bound = bound(n_rays * (28 + 8)
+                      + 4 * (hair.curve_nodes.numel()
+                             + hair.curve_segs.numel()),
+                      crv_work[False]["node_visits"] * SLAB_OPS
+                      + crv_work[False]["seg_tests"] * SEG_OPS)
+    return dict(launches=hlaunch["curves"], err=crv_err, ms=crv_ms,
+                bound=crv_bound, tri_launches=hlaunch["tri_intersect"],
+                tri_err=hair_tri_err,
+                hair=dict(paths_per_sec=hstats["paths_per_sec"],
+                          seconds=hstats["seconds"],
+                          setup_seconds=hair_setup),
+                hair_ref=dict(paths_per_sec=rstats["paths_per_sec"],
+                              seconds=rstats["seconds"], mrse=r_mrse,
+                              mean_ratio_err=r_ratio))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -297,13 +511,14 @@ def main():
     from pbrt_tpu_torch.ops import bvh as bvh_mod
     from pbrt_tpu_torch.ops import bvh2
     from pbrt_tpu_torch.ops import bvh8
+    from pbrt_tpu_torch.ops import curves
     from pbrt_tpu_torch.ops import megawave
     from pbrt_tpu_torch.ops import tri_intersect as ti
     from pbrt_tpu_torch.scene import parser
     from pbrt_tpu_torch.utils import image
     from pbrt_tpu_torch.utils import spectrum as spc
     counters = (megawave.counter, ti.counter, bvh8.counter,
-                bvh2.counter_bvh2, bvh2.counter_two_level)
+                bvh2.counter_bvh2, bvh2.counter_two_level, curves.counter)
 
     dev = torch.device("cuda", 0)
 
@@ -331,7 +546,7 @@ def main():
     native_path, _log = native.build()
     native.load_library()
     print(f"[2 build] host BVH builder {native_path.name} (g++ "
-          f"{' '.join(native.GXX_FLAGS)}, pbrt_tpu/native/*.cpp) in "
+          f"{' '.join(native.GXX_FLAGS)}, pbrt_tpu_torch/csrc/host/*.cpp) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 3. tri_intersect kernel vs plain, 1M rays ----
@@ -643,6 +858,8 @@ def main():
     print(f"[15 times] card {card}: instances 200x200x32 depth 3 "
           f"{istats['paths_per_sec']:.6g} paths/s", flush=True)
 
+    cr = curves_phases(dev, card, libs["curves"][1], counters, n_rays)
+
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]
     check(not bad, f"imported modules of the JAX stack: {bad}")
@@ -669,7 +886,9 @@ def main():
                                      ("bvh8", b8_bound, b8_ms[False][0]),
                                      ("bvh2", k7_bound, k7_ms[False][0]),
                                      ("two_level", k8_bound,
-                                      k8_ms["grid64", False][0])):
+                                      k8_ms["grid64", False][0]),
+                                     ("curves", cr["bound"],
+                                      cr["ms"][False][0])):
         print(f"[bounds] card {card}: {what} bound {b_ms:.5f} ms by {b_by}, "
               f"kernel {k_ms:.4f} ms ({b_ms / k_ms * 100:.2f}% of the "
               "bound)", flush=True)
@@ -680,14 +899,18 @@ def main():
              launches=launches["megawave"], max_abs_err=mw_err,
              ms=mw_ms, plain_ms=mw_plain_ms, bound_ms=mw_bound[0],
              bound_by=mw_bound[1], library_ms=None),
-        # launches: the general-wave cornell render (phase 9); its test
-        # also runs inside every megakernel launch (tri_intersect.cuh)
+        # launches: the general-wave cornell render (phase 9), the hair
+        # render's in hair_launches (phase 18); max_abs_err: cornell's pool
+        # (phase 3), the hair pool's in hair_max_abs_err (phase 17); its
+        # test also runs inside every megakernel launch (tri_intersect.cuh)
         dict(name="tri_intersect", route="cuda",
              source="pbrt_tpu_torch/csrc/tri_intersect.cu",
              replaces="pbrt_tpu/ops/pallas_intersect.py:125",
              launches=glaunch["tri_intersect"], max_abs_err=tri_err,
              ms=ti_ms, plain_ms=ti_plain_ms, bound_ms=ti_bound[0],
-             bound_by=ti_bound[1], library_ms=None),
+             bound_by=ti_bound[1], library_ms=None,
+             hair_launches=cr["tri_launches"],
+             hair_max_abs_err=cr["tri_err"]),
         # launches: the meshfield render (phase 8); ms: closest hit at
         # 2^20 rays (any hit in any_hit_ms)
         dict(name="bvh8", route="cuda",
@@ -719,6 +942,17 @@ def main():
              any_hit_plain_ms=k8_ms["grid64", True][1],
              golden_ms=k8_ms["golden", False][0],
              golden_plain_ms=k8_ms["golden", False][1]),
+        # launches: the hair render (phase 18); ms: closest hit on the hair
+        # tables at 2^20 rays (any hit in any_hit_ms); max_abs_err: t of
+        # the kernel against the plain version
+        dict(name="curves", route="cuda",
+             source="pbrt_tpu_torch/csrc/curves.cu",
+             replaces="pbrt_tpu/ops/curves.py:380",
+             launches=cr["launches"], max_abs_err=cr["err"],
+             ms=cr["ms"][False][0], plain_ms=cr["ms"][False][1],
+             bound_ms=cr["bound"][0], bound_by=cr["bound"][1],
+             library_ms=None, any_hit_ms=cr["ms"][True][0],
+             any_hit_plain_ms=cr["ms"][True][1]),
     ]
     print(json.dumps(dict(render=dict(
         paths_per_sec=stats["paths_per_sec"], seconds=stats["seconds"],
@@ -728,7 +962,8 @@ def main():
         paths_per_sec=gstats["paths_per_sec"], seconds=gstats["seconds"],
         mrse=g_mrse, mean_ratio_err=g_ratio), instances=dict(
         paths_per_sec=istats["paths_per_sec"], seconds=istats["seconds"],
-        mrse=i_mrse, mean_ratio_err=i_ratio))))
+        mrse=i_mrse, mean_ratio_err=i_ratio), hair=cr["hair"],
+        hair_ref=cr["hair_ref"])))
     print(f"card: {card}")
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,9 @@ it. Conventions:
   lacks shifts, adds and comparisons on the CPU.
 
 This package imports no module of the JAX package (nor ``jax`` or
-``flax``): it reads the shared data tables under ``pbrt_tpu/data`` and
-compiles the C++ BVH builders under ``pbrt_tpu/native`` by path, and
-carries its own EXR codec (``utils/image.py``).
+``flax``): it reads the shared data tables under ``pbrt_tpu/data`` by
+path, and carries its own copies of the C++ BVH builders
+(``csrc/host/``) and its own EXR codec (``utils/image.py``).
 """
 
 __version__ = "0.1.0"

@@ -11,11 +11,13 @@ sampler's alias rows and pmf table; "c2w_m" (4, 4); "tan_half_fov" ();
 "tri_pallas" (T'*16,) on the brute-force route; "nodes_f", "nodes_q",
 "tris_b8", "prim_indices" (the BVH8 tables) on the BVH route;
 "tlas_nodes", "inst_rows", "tri_geo_tlas" (the two-level tables) for an
-instanced scene; "attr", "light", "mat" (the reference's
+instanced scene; "curve_nodes", "curve_segs", "curve_mats" (the curve
+tables) for a scene with curves; "attr", "light", "mat" (the reference's
 megawave.scene_tables) for a megakernel scene.
 meta: "ls_kind", "n_lights", "scene_radius", "inf_indices", "light_tags",
-"n_tris"; "bvh8" (n_nodes, n_tris, depth) on the BVH route; "tlas_root"
-for an instanced scene; "mega" (the
+"n_tris", "bxdf_tags" (the material pool's tag set); "bvh8" (n_nodes,
+n_tris, depth) on the BVH route; "tlas_root" for an instanced scene;
+"mega" (the
 MegaMeta fields as a dict, or None); "width", "height", "screen_min",
 "screen_max", "has_lens", "seed", "spp", "log2_spp", "n_base4_digits".
 """
@@ -28,6 +30,7 @@ from . import cameras as cam_mod
 from . import device as dev_mod
 from . import lightsamplers as lsamp
 from . import samplers as smp
+from .ops import bvh as bvh_mod
 from .ops import tlas as tlas_mod
 from .ops.bvh8 import BVH8
 from .ops.megawave import MegaMeta
@@ -50,14 +53,20 @@ def from_jax_scene(arrays: dict, meta: dict, device="cuda"):
                     prim_indices=t("prim_indices", np.int32),
                     n_nodes=int(n_nodes), n_tris=int(n_tris),
                     depth=int(depth))
-    inst = {}
+    extra = {}
     if "tlas_nodes" in arrays:
         root = int(meta["tlas_root"])
-        inst = dict(tlas_nodes=t("tlas_nodes"), inst_rows=t("inst_rows"),
-                    tri_geo_tlas=t("tri_geo_tlas"), tlas_root=root,
-                    tlas_depth=tlas_mod.stack_depth(
-                        arrays["tlas_nodes"], arrays["inst_rows"], root),
-                    has_instances=True)
+        extra = dict(tlas_nodes=t("tlas_nodes"), inst_rows=t("inst_rows"),
+                     tri_geo_tlas=t("tri_geo_tlas"), tlas_root=root,
+                     tlas_depth=tlas_mod.stack_depth(
+                         arrays["tlas_nodes"], arrays["inst_rows"], root),
+                     has_instances=True)
+    if "curve_nodes" in arrays:
+        extra.update(
+            curve_nodes=t("curve_nodes"), curve_segs=t("curve_segs"),
+            curve_mats=t("curve_mats", np.int64),
+            curve_depth=bvh_mod.bvh_max_depth(arrays["curve_nodes"]),
+            has_curves=True)
     kind = int(meta["ls_kind"])
     ls = lsamp.LightSampler(
         kind=kind, n_lights=int(meta["n_lights"]),
@@ -73,9 +82,11 @@ def from_jax_scene(arrays: dict, meta: dict, device="cuda"):
         scene_radius=float(np.float32(meta["scene_radius"])),
         inf_indices=tuple(int(i) for i in meta["inf_indices"]),
         light_tags=tuple(int(i) for i in meta["light_tags"]),
-        n_tris=int(meta["n_tris"]), attr=t("attr"), light=t("light"),
+        n_tris=int(meta["n_tris"]),
+        bxdf_tags=tuple(int(i) for i in meta["bxdf_tags"]),
+        attr=t("attr"), light=t("light"),
         mat=t("mat"), mega=MegaMeta(**mega) if mega is not None else None,
-        **inst)
+        **extra)
     camera = cam_mod.Camera(
         kind=cam_mod.CAMERA_PERSPECTIVE,
         c2w_m=np.asarray(arrays["c2w_m"], np.float32),

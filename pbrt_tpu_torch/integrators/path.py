@@ -4,11 +4,14 @@ of camera paths, through the megakernel or the general wave.
 The general wave (`trace_paths`) keeps every lane's state in tensors and
 runs one depth at a time: the closest hit, emission with MIS at area-light
 hits, escaped rays to the uniform infinite lights, next-event estimation
-with an any-hit shadow ray, the diffuse BSDF sample and Russian roulette,
-with the reference's sampler dimension layout (camera dims 0-5, then 11
-per bounce: light pick +0, light point +1/+2, BSDF +3/+4/+5, roulette
-+6). Dead lanes are masked, and their rays are queried with t_max = -1,
-which the triangle queries answer with a miss at no cost. The reference's
+with an any-hit shadow ray, the BSDF sample (diffuse or hair) and Russian
+roulette, with the reference's sampler dimension layout (camera dims 0-5,
+then 11 per bounce: light pick +0, light point +1/+2, BSDF lobe choice +3
+and direction +4/+5, roulette +6; the lobe choice is drawn only where a
+lobe of the scene reads it, hair). The shading frame's +x follows the
+hit's dpdu, a curve's chord on a curve hit, as the hair BxDF needs. Dead
+lanes are masked, and their rays are queried with t_max = -1, which the
+triangle and curve queries answer with a miss at no cost. The reference's
 lane compaction and morton ray sort are TPU workarounds and are left out.
 """
 from __future__ import annotations
@@ -150,7 +153,8 @@ def trace_paths(scene, sampler, px, py, sample_index, o, d,
         ns, ng = isect["ns"], isect["ng"]
         t1, t2 = _shading_frame(ns, isect["dpdu"])
         wo_local = _to_local(ns, t1, t2, isect["wo"])
-        bp = mtl.get_bsdf_params(scene.mat_pool, isect["mat"], lam)
+        bp = mtl.get_bsdf_params(scene.mat_pool, isect["mat"], lam,
+                                 scene.bxdf_tags, uv=isect["uv"])
 
         # --- next-event estimation ---
         if ls.n_lights > 0:
@@ -162,8 +166,10 @@ def trace_paths(scene, sampler, px, py, sample_index, o, d,
 
         # --- BSDF sample for the next bounce ---
         base = CAM_DIMS + depth * DIMS_PER_BOUNCE
+        uc = smp.sample_1d(sampler, px, py, sample_index, base + 3) \
+            if bxdfs.BXDF_HAIR in scene.bxdf_tags else None
         u2 = smp.sample_2d(sampler, px, py, sample_index, base + 4)
-        bs = bxdfs.bsdf_sample(bp, wo_local, u2)
+        bs = bxdfs.bsdf_sample(bp, wo_local, uc, u2)
         wi_world = _to_world(ns, t1, t2, bs["wi"])
         throughput = bs["f"] * safe_div(torch.abs(bs["wi"][:, 2]),
                                         bs["pdf"])[:, None]

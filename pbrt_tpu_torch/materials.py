@@ -1,15 +1,14 @@
-"""Materials (counterpart of pbrt_tpu/materials.py): the material pool and
-the diffuse material, its albedo packed as sigmoid-polynomial
-coefficients.
+"""Materials (counterpart of pbrt_tpu/materials.py): the material pool, the
+diffuse material (its albedo packed as sigmoid-polynomial coefficients) and
+the hair material.
 
 The pool keeps the reference's packed row layout, (M, 22):
 [tag, albedo_coeffs(3), trans_coeffs(3), ur, vr, eta_const,
 eta_spec_idx, k_spec_idx, albedo_tex, remap, rough_tex, bump_tex,
 bump_scale, normal_tex, mix_other, mix_amount, coat_alpha, coat_eta],
-so the two builders can be compared array for array. Only the diffuse
-material without textures is ported: `get_bsdf_params` reads the tag and
-the albedo coefficients; Mix resolution and bump or normal mapping are the
-identity on such a pool.
+so the two builders can be compared array for array. Diffuse and hair
+materials without textures are ported; Mix resolution and bump or normal
+mapping are the identity on such a pool.
 """
 from __future__ import annotations
 
@@ -29,16 +28,43 @@ class MaterialBuilder:
         self.cs = cs
         self.rows = []   # dicts of the packed columns
 
-    def add_diffuse(self, reflectance=(0.5, 0.5, 0.5)) -> int:
-        self.rows.append(dict(
-            bxdf_tag=bxdfs.BXDF_DIFFUSE,
-            albedo_coeffs=self.cs.to_spectrum_coeffs(np.asarray(reflectance)),
+    def _add(self, **kw) -> int:
+        row = dict(
+            bxdf_tag=bxdfs.BXDF_DIFFUSE, albedo_coeffs=np.zeros(3, np.float32),
             trans_coeffs=np.zeros(3, np.float32), uroughness=0.0,
             vroughness=0.0, eta_const=1.5, eta_spec_idx=-1, k_spec_idx=-1,
             albedo_tex=-1, remap_roughness=True, rough_tex=-1, bump_tex=-1,
             bump_scale=1.0, normal_tex=-1, mix_other=-1, mix_amount=0.5,
-            coat_alpha=0.0, coat_eta=1.5))
+            coat_alpha=0.0, coat_eta=1.5)
+        row.update(kw)
+        self.rows.append(row)
         return len(self.rows) - 1
+
+    def add_diffuse(self, reflectance=(0.5, 0.5, 0.5)) -> int:
+        return self._add(albedo_coeffs=self.cs.to_spectrum_coeffs(
+            np.asarray(reflectance)))
+
+    def add_hair(self, sigma_a=(0.06, 0.1, 0.2), beta_m=0.3, beta_n=0.3,
+                 eta=1.55) -> int:
+        """Hair fiber (reference "hair" material, HairBxDF). sigma_a: the
+        absorption per unit width (RGB, unbounded), stored as trans
+        coefficients of sigma_a / scale with the scale in the mix_amount
+        column; beta_m, beta_n: the longitudinal and azimuthal roughness,
+        clipped to [1e-3, 1] and not remapped; eta: the fiber's IOR."""
+        sa = np.asarray(sigma_a, np.float32)
+        m = max(float(sa.max()), 1e-6)
+        scale = 2.0 * m if m > 1.0 else 1.0
+        return self._add(bxdf_tag=bxdfs.BXDF_HAIR,
+                         trans_coeffs=self.cs.to_spectrum_coeffs(sa / scale),
+                         mix_amount=scale,
+                         uroughness=float(np.clip(beta_m, 1e-3, 1.0)),
+                         vroughness=float(np.clip(beta_n, 1e-3, 1.0)),
+                         eta_const=eta, remap_roughness=False)
+
+    def tags(self) -> tuple:
+        """The sorted set of BxDF tags in the pool."""
+        return tuple(sorted({int(r["bxdf_tag"]) for r in self.rows})) or \
+            (bxdfs.BXDF_DIFFUSE,)
 
     def packed(self) -> np.ndarray:
         """(M, 22) float32 pool rows (a default diffuse row if empty)."""
@@ -71,12 +97,31 @@ def sigmoid_polynomial(c0, c1, c2, lam):
 
 
 def get_bsdf_params(pool: torch.Tensor, mat_idx, lam,
-                    tags_present=(bxdfs.BXDF_DIFFUSE,)) -> bxdfs.BSDFParams:
+                    tags_present=(bxdfs.BXDF_DIFFUSE,),
+                    uv=None) -> bxdfs.BSDFParams:
     """Material rows (M, 22) at mat_idx (N,) and wavelengths (N, 4) ->
-    per-lane BSDF parameters."""
+    per-lane BSDF parameters. tags_present: the pool's tag set
+    (MaterialBuilder.tags); uv (N, 2): the hit's uv, whose v gives hair its
+    azimuthal offset h = 2 v - 1."""
     rows = pool[mat_idx.to(torch.int64)]
-    return bxdfs.BSDFParams(tag=rows[:, 0].round().to(torch.int32),
-                            albedo=sigmoid_polynomial(
-                                rows[:, 1:2], rows[:, 2:3], rows[:, 3:4],
-                                lam),
+    tag = rows[:, 0].round().to(torch.int32)
+    albedo = sigmoid_polynomial(rows[:, 1:2], rows[:, 2:3], rows[:, 3:4], lam)
+    alpha_x = alpha_y = eta = h = None
+    if bxdfs.BXDF_HAIR in tags_present:
+        # only hair reads these, so a diffuse-only pool skips them
+        # spectral sigma_a: the trans coefficients times the stored scale
+        sigma_a = sigmoid_polynomial(rows[:, 4:5], rows[:, 5:6], rows[:, 6:7],
+                                     lam) * rows[:, 19:20]
+        albedo = torch.where((tag == bxdfs.BXDF_HAIR)[:, None], sigma_a,
+                             albedo)
+        ur, vr = rows[:, 7], rows[:, 8]
+        remap = rows[:, 13] > 0.5
+        # roughness_to_alpha (sqrt) where the row asks for the remap
+        alpha_x = torch.where(remap, torch.sqrt(torch.clamp(ur, min=0.0)), ur)
+        alpha_y = torch.where(remap, torch.sqrt(torch.clamp(vr, min=0.0)), vr)
+        eta = rows[:, 9:10] * torch.ones_like(lam)
+        if uv is not None:
+            h = torch.clamp(-1.0 + 2.0 * uv[:, 1], -1.0, 1.0)
+    return bxdfs.BSDFParams(tag=tag, albedo=albedo, alpha_x=alpha_x,
+                            alpha_y=alpha_y, eta=eta, h=h,
                             tags_present=tuple(tags_present))

@@ -1,9 +1,10 @@
 """The host BVH builders in C++ (counterpart of pbrt_tpu/native/__init__.py):
 the binned-SAH binary build and its collapse into 8-wide nodes.
 
-The sources are the JAX package's own (pbrt_tpu/native/bvh_builder.cpp and
-bvh8_collapse.cpp), read by path and compiled with g++ at first use into
-pbrt_tpu_torch/_build/, with the reference's flags, so both packages build
+The sources are the port's copies of the JAX package's own
+(csrc/host/bvh_builder.cpp and bvh8_collapse.cpp, held byte for byte to
+pbrt_tpu/native/ by the tests), compiled with g++ at first use into
+pbrt_tpu_torch/_build/ with the reference's flags, so both packages build
 bit-identical trees. The library is named by a hash of the sources, the
 flags and the host CPU's features (-march=native ties it to them). There
 is no Python fallback: if g++ is missing or the build fails, the builder
@@ -25,7 +26,7 @@ import numpy as np
 
 PKG = Path(__file__).resolve().parent
 BUILD_DIR = PKG / "_build"
-NATIVE_DIR = PKG.parent / "pbrt_tpu" / "native"
+NATIVE_DIR = PKG / "csrc" / "host"
 SOURCES = ("bvh_builder.cpp", "bvh8_collapse.cpp")
 # the reference's flags (pbrt_tpu/native/__init__.py): the same code
 # generation, so a tie in the SAH costs breaks the same way in both builds
@@ -74,7 +75,7 @@ def build() -> tuple[Path, str]:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the host BVH builder is compiled "
-                           "from pbrt_tpu/native/*.cpp at first use")
+                           "from pbrt_tpu_torch/csrc/host/*.cpp at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)

@@ -57,6 +57,10 @@ SIGNATURES = {
         # tlas_root, two_level, any_hit, stream
         "bvh2_intersect_launch": [_P] * 11 + [_I] * 4 + [_P],
     },
+    "curves": {
+        # nodes, segs, o, d, t_max, t, seg, n, any_hit, stream
+        "curves_intersect_launch": [_P] * 7 + [_I] * 2 + [_P],
+    },
 }
 
 

@@ -10,9 +10,9 @@ scenes/instances.pbrt:
     LookAt, Translate, Scale, Rotate, Transform, ConcatTransform
     Camera "perspective" (pinhole), Film "rgb", Sampler "zsobol",
     Integrator "path", WorldBegin, AttributeBegin, AttributeEnd
-    Material / MakeNamedMaterial / NamedMaterial, type "diffuse"
+    Material / MakeNamedMaterial / NamedMaterial, types "diffuse", "hair"
     AreaLightSource "diffuse", LightSource "infinite" (an L, no file)
-    Shape "trianglemesh"
+    Shape "trianglemesh", Shape "curve" (cubic Bezier, the hair scene)
     ObjectBegin, ObjectEnd, ObjectInstance (static instances)
 
 Any other directive, type or parameter that changes the image raises
@@ -314,6 +314,15 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
         return s
 
     def make_material(name, ps: ParamSet) -> int:
+        if name == "hair":
+            sig = ps.rgb("sigma_a", None)
+            if sig is None:
+                # the reference's default (eumelanin concentration 1.3)
+                sig = (0.227, 0.419, 0.805)
+            return b.materials.add_hair(sigma_a=sig,
+                                        beta_m=ps.float("beta_m", 0.3),
+                                        beta_n=ps.float("beta_n", 0.3),
+                                        eta=ps.float("eta", 1.55))
         if name not in ("diffuse", "matte"):
             refuse(f"material '{name}'",
                    "slice 3 (envlit: conductor, dielectric; killeroo/plytex: "
@@ -355,6 +364,39 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
         emission, escale, two_sided = gs.area_light or (None, 1.0, False)
         b.add_mesh(P, idx, gs.material, normals=N, uvs=uv, emission=emission,
                    emission_scale=escale, two_sided=two_sided)
+
+    def add_curve(ps: ParamSet):
+        """Shape "curve" (reference parser): bezier only, degree 3, chained
+        spans of 3k + 1 points, the width lerped per span, type flat,
+        cylinder or ribbon (N: the ribbon's two normals)."""
+        if gs.area_light is not None:
+            raise ParseError(f"{p.loc()}: emissive curves are not supported")
+        cp = np.asarray(ps.point3s("P"), np.float32)
+        basis = ps.string("basis", "bezier")
+        if basis != "bezier":
+            raise ParseError(f"{p.loc()}: curve basis '{basis}' is not "
+                             "supported (bezier only; convert b-splines "
+                             "upstream)")
+        degree = int(ps.float("degree", 3))
+        if degree != 3 or cp.shape[0] < 4:
+            raise ParseError(f"{p.loc()}: only degree-3 bezier curves with "
+                             "4+ control points are supported")
+        w = ps.float("width", 1.0)
+        w0 = ps.float("width0", w)
+        w1 = ps.float("width1", w)
+        ctype = ps.string("type", "flat")
+        nrm = ps.point3s("N", None)
+        cp_w = np.asarray(gs.ctm.apply_point(cp.reshape(-1, 3)), np.float32)
+        n_spans = max((cp_w.shape[0] - 1) // 3, 1)
+        for si in range(n_spans):
+            a = si * 3
+            span = cp_w[a:a + 4] if cp_w.shape[0] >= a + 4 else cp_w[-4:]
+            u0 = si / n_spans
+            u1 = (si + 1) / n_spans
+            normals = (nrm[0], nrm[1]) if nrm is not None and len(nrm) >= 2 \
+                else None
+            b.add_curve(span, w0 + (w1 - w0) * u0, w0 + (w1 - w0) * u1,
+                        gs.material, curve_type=ctype, normals=normals)
 
     def instantiate(name):
         """ObjectInstance (reference parser.py:997-1048): the prototype is
@@ -492,10 +534,15 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
         elif tok == "Shape":
             name = p.parse_string()
             ps = p.parse_params()
+            if name == "curve" and current_object is None:
+                add_curve(ps)
+                continue
             if name != "trianglemesh":
-                refuse(f"shape '{name}'",
+                refuse(f"shape '{name}'" + (" in an object" if name ==
+                                            "curve" else ""),
                        "slices 3-4 (plymesh with killeroo/plytex, "
-                       "bilinearmesh with patches, quadrics, curves)", dpos)
+                       "bilinearmesh with patches, quadrics, instanced "
+                       "curves)", dpos)
             if current_object is None:
                 add_trianglemesh(ps)
             else:

@@ -4,20 +4,23 @@ points of the general path wave.
 
 A scene is built on the host in numpy and moved once to the device the
 caller names. It holds triangle meshes (per-vertex normals and uvs when
-given) with diffuse materials, area-triangle emission and uniform infinite
-lights, under a uniform or power light sampler, and static object
-instances of triangle prototypes. Other shapes, lights, materials, media,
-textures, animated instances and alpha are not ported: their builders do
-not exist here, and the parser refuses their directives.
+given) with diffuse and hair materials, cubic Bezier curves, area-triangle
+emission and uniform infinite lights, under a uniform or power light
+sampler, and static object instances of triangle prototypes. Other shapes,
+lights, materials, media, textures, animated instances and alpha are not
+ported: their builders do not exist here, and the parser refuses their
+directives.
 
 Triangle queries follow the reference's dispatch (_tri_dispatch): a scene
 with instances sends every closest and any hit through the two-level
 kernel (ops/bvh2.py) over its TLAS and BLASes; otherwise, above 4096
 triangles or with force_bvh, through the BVH8 kernel (ops/bvh8.py) over
 the whole scene, and below through the brute-force triangle kernel
-(ops/tri_intersect.py). The megakernel's eligibility test is the
-reference's: an eligible scene (cornell class) also carries the
-megakernel's tables and metadata.
+(ops/tri_intersect.py). A scene with curves then sends every query
+through the curve kernel (ops/curves.py) as well, over the curves' own
+BVH, and merges its hits as the reference does. The megakernel's
+eligibility test is the reference's: an eligible scene (cornell class)
+also carries the megakernel's tables and metadata.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import bxdfs
 from . import device as dev_mod
 from . import lights as lgt
 from . import lightsamplers as lsamp
@@ -33,6 +37,7 @@ from . import materials as mtl
 from .ops import bvh as bvh_mod
 from .ops import bvh2 as bvh2_mod
 from .ops import bvh8 as bvh8_mod
+from .ops import curves as crv
 from .ops import tlas as tlas_mod
 from .ops import tri_intersect as ti
 from .ops.megawave import MegaMeta, ATTR_COLS, LIGHT_COLS
@@ -62,7 +67,12 @@ class Scene:
     Instanced scenes (ops/tlas.py): tlas_nodes (M, 8) the BLAS nodes then
     the TLAS from tlas_root on, inst_rows (I, 66), tri_geo_tlas (T, 10)
     the BLAS-ordered rows with the global id in column 9, tlas_depth the
-    stack the tables need; None (0, False) without instances."""
+    stack the tables need; None (0, False) without instances. Scenes with
+    curves (ops/curves.py): curve_nodes (M, 8) the curve BVH, curve_segs
+    (S, 16) its sub-segment rows in leaf order, curve_mats (C,) int64 the
+    material of each curve id, curve_depth the tree's depth; None (0,
+    False) without curves. bxdf_tags: the BxDF tags of the material
+    pool."""
     tri_all: torch.Tensor
     tri_pallas: torch.Tensor
     bvh8: bvh8_mod.BVH8
@@ -85,6 +95,12 @@ class Scene:
     tlas_root: int = 0
     tlas_depth: int = 0
     has_instances: bool = False
+    curve_nodes: torch.Tensor = None
+    curve_segs: torch.Tensor = None
+    curve_mats: torch.Tensor = None
+    curve_depth: int = 0
+    has_curves: bool = False
+    bxdf_tags: tuple = (bxdfs.BXDF_DIFFUSE,)
 
     @property
     def device(self) -> torch.device:
@@ -139,6 +155,9 @@ class SceneBuilder:
         self._spec_cache = {}
         self.protos = []
         self.instances = []
+        self.curve_seg_rows = []     # (2^crv.SUBDIV, 16) rows of each curve
+        self.curve_seg_bounds = []   # (lo, hi) of its sub-segments
+        self.curve_mat_list = []     # material of each curve id
 
     def add_spectrum(self, s: spc.Spectrum, key=None) -> int:
         """Add a spectrum to the pool, deduplicated by content."""
@@ -226,6 +245,24 @@ class SceneBuilder:
         self.instances.append(rec)
         return len(self.instances) - 1
 
+    def add_curve(self, control_points, width0, width1, material: int,
+                  curve_type="flat", normals=None) -> int:
+        """A cubic Bezier curve (reference Shape "curve"). control_points
+        (4, 3); width0 and width1 the widths at u = 0 and 1; curve_type
+        flat | cylinder | ribbon (a ribbon takes normals = (n0, n1));
+        split into 2^crv.SUBDIV linear sub-segments. Returns the curve id."""
+        ctype = {"flat": crv.CURVE_FLAT, "cylinder": crv.CURVE_CYLINDER,
+                 "ribbon": crv.CURVE_RIBBON}[curve_type]
+        cid = len(self.curve_mat_list)
+        n0, n1 = normals if normals is not None else (None, None)
+        rows, lo, hi = crv.split_curve(control_points, width0, width1,
+                                       crv.SUBDIV, ctype=ctype, normal0=n0,
+                                       normal1=n1, curve_id=cid)
+        self.curve_seg_rows.append(rows)
+        self.curve_seg_bounds.append((lo, hi))
+        self.curve_mat_list.append(material)
+        return cid
+
     def add_uniform_infinite_light(self, spectrum: spc.Spectrum,
                                    scale=1.0) -> int:
         """A constant environment; its power is set at build time from the
@@ -242,7 +279,9 @@ class SceneBuilder:
         the megakernel block); None when the scene is outside it."""
         rows = self.light_rows
         n_tri = len(p0)
-        if (use_bvh or self.instances or n_tri > MAX_MEGA_TRIS or not rows
+        if (use_bvh or self.instances or self.curve_seg_rows
+                or n_tri > MAX_MEGA_TRIS or not rows
+                or self.materials.tags() != (bxdfs.BXDF_DIFFUSE,)
                 or ls.kind not in (lsamp.LS_UNIFORM, lsamp.LS_POWER)
                 or any(r["tag"] != lgt.LIGHT_AREA_TRI for r in rows)
                 or len({r["spec_idx"] for r in rows}) != 1):
@@ -265,9 +304,15 @@ class SceneBuilder:
                         ls_uniform=bool(ls.kind == lsamp.LS_UNIFORM))
 
     def _world_bounds(self, lo, hi):
-        """World box of the triangles and of every instance's prototype
-        box corners through its o2w (reference build, :635-648)."""
+        """World box of the triangles, the curves' sub-segment boxes and
+        every instance's prototype box corners through its o2w (reference
+        build, :632-648)."""
         world_lo, world_hi = lo.min(axis=0), hi.max(axis=0)
+        if self.curve_seg_bounds:
+            world_lo = np.minimum(world_lo, np.concatenate(
+                [b[0] for b in self.curve_seg_bounds]).min(axis=0))
+            world_hi = np.maximum(world_hi, np.concatenate(
+                [b[1] for b in self.curve_seg_bounds]).max(axis=0))
         for inst in self.instances:
             P = self.protos[inst["proto"]]
             if not P["p0"]:
@@ -335,6 +380,21 @@ class SceneBuilder:
         return (nodes_all, inst_rows, np.concatenate(ordered), tlas_root,
                 depth, extra_geo, extra_shade)
 
+    def _curve_pool(self):
+        """The curve tables (reference build, :915-935): the native SAH
+        build over the sub-segment boxes, the rows in leaf order, each
+        curve's material, the tree depth."""
+        rows = np.concatenate(self.curve_seg_rows)
+        cbvh = bvh_mod.build_bvh(
+            np.concatenate([b[0] for b in self.curve_seg_bounds]),
+            np.concatenate([b[1] for b in self.curve_seg_bounds]))
+        depth = bvh_mod.bvh_max_depth(cbvh.nodes)
+        if depth > crv.MAX_DEPTH:
+            raise NotImplementedError(
+                f"the curve BVH is {depth} deep, over the curve kernel's "
+                f"{crv.MAX_DEPTH} (its {crv.STACK}-entry stack)")
+        return cbvh.nodes, rows[cbvh.prim_indices], depth
+
     def build(self, light_sampler="power", force_bvh=None,
               device="cuda") -> Scene:
         device = dev_mod.resolve(device)
@@ -375,19 +435,26 @@ class SceneBuilder:
                                    device=device)
 
         bvh8 = tri_pallas = None
-        inst = {}
+        extra = {}
         if self.instances:
             (nodes_all, inst_rows, tri_geo_tlas, tlas_root, depth,
              extra_geo, extra_shade) = self._two_level(p0, p1, p2, lo, hi)
             tri_geo = np.concatenate([tri_geo] + extra_geo)
             tri_shade = np.concatenate([tri_shade] + extra_shade)
-            inst = dict(tlas_nodes=t(nodes_all), inst_rows=t(inst_rows),
-                        tri_geo_tlas=t(tri_geo_tlas), tlas_root=tlas_root,
-                        tlas_depth=depth, has_instances=True)
+            extra = dict(tlas_nodes=t(nodes_all), inst_rows=t(inst_rows),
+                         tri_geo_tlas=t(tri_geo_tlas), tlas_root=tlas_root,
+                         tlas_depth=depth, has_instances=True)
         elif use_bvh:
             bvh8 = bvh8_mod.build_bvh8(lo, hi, tri_geo, device=device)
         else:
             tri_pallas = t(ti.pad_triangles(tri_geo[:, :9]))
+        if self.curve_seg_rows:
+            nodes, segs, depth = self._curve_pool()
+            extra.update(curve_nodes=t(nodes), curve_segs=t(segs),
+                         curve_mats=torch.as_tensor(
+                             np.asarray(self.curve_mat_list, np.int64),
+                             device=device),
+                         curve_depth=depth, has_curves=True)
         scene = Scene(
             tri_all=t(np.concatenate([tri_geo, tri_shade], axis=1)),
             tri_pallas=tri_pallas, bvh8=bvh8,
@@ -400,7 +467,7 @@ class SceneBuilder:
             inf_indices=tuple(i for i, r in enumerate(rows)
                               if r["tag"] == lgt.LIGHT_UNIFORM_INFINITE),
             light_tags=tuple(sorted({r["tag"] for r in rows})),
-            n_tris=len(tri_geo), **inst)
+            n_tris=len(tri_geo), bxdf_tags=self.materials.tags(), **extra)
         mega = self._mega_meta(use_bvh, ls, p0, p1, p2)
         if mega is None:
             return scene
@@ -425,14 +492,12 @@ class SceneBuilder:
 
 
 # ---------------------------------------------------------------------------
-# Intersection entry points (triangles only)
+# Intersection entry points
 
 def _tri_dispatch(scene: Scene, o, d, t_max, any_hit: bool):
     """Closest or any hit through the scene's route. Returns dict(hit, t
     (inf on a miss), prim (original id, -1 on a miss), b0, b1, b2), and
     inst (the hit's instance row) on an instanced scene."""
-    # the kernels read packed rows: camera origins arrive broadcast
-    o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
     if scene.has_instances:
         return bvh2_mod.two_level_intersect(
             scene.tlas_nodes, scene.inst_rows, scene.tri_geo_tlas,
@@ -464,6 +529,8 @@ def intersect(scene: Scene, o, d, t_max):
     """Closest hit of rays o, d (N, 3) below t_max (N,). Returns dict(hit,
     t, prim, p, ng, ns, uv, mat, light, wo, p0, p1, p2, dpdu, dpdv,
     p_err); ng is turned to the side of the shading normal ns."""
+    # the kernels read packed rows: camera origins arrive broadcast
+    o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
     r = _tri_dispatch(scene, o, d, t_max, any_hit=False)
     prim = torch.clamp(r["prim"], min=0).to(torch.int64)
     b0, b1, b2 = r["b0"], r["b1"], r["b2"]
@@ -498,17 +565,62 @@ def intersect(scene: Scene, o, d, t_max):
     t1f, t2f = vm.coordinate_system(ng)
     dpdu = torch.where(degen[:, None], t1f, dpdu)
     dpdv = torch.where(degen[:, None], t2f, dpdv)
-    p_err = torch.maximum(intersection_p_error(b0, b1, b2, p0, p1, p2),
-                          gamma_bound(7) * torch.abs(p))
-    return dict(hit=r["hit"], t=r["t"], prim=prim, p=p, ng=ng, ns=ns, uv=uv,
-                mat=row[:, 25].round().to(torch.int64),
-                light=row[:, 26].round().to(torch.int64), wo=-d, p0=p0,
-                p1=p1, p2=p2, dpdu=dpdu, dpdv=dpdv, p_err=p_err)
+    out = dict(hit=r["hit"], t=r["t"], prim=prim, p=p, ng=ng, ns=ns, uv=uv,
+               mat=row[:, 25].round().to(torch.int64),
+               light=row[:, 26].round().to(torch.int64), wo=-d, p0=p0,
+               p1=p1, p2=p2, dpdu=dpdu, dpdv=dpdv,
+               p_err=intersection_p_error(b0, b1, b2, p0, p1, p2))
+    if scene.has_curves:
+        out = _merge_curve_hits(scene, o, d, t_max, out)
+    # the reference's order: a curve hit keeps the triangle query's p_err
+    # under this floor
+    out["p_err"] = torch.maximum(out["p_err"], gamma_bound(7)
+                                 * torch.abs(out["p"]))
+    return out
+
+
+def _merge_curve_hits(scene: Scene, o, d, t_max, out):
+    """Merge the closest curve hit below the triangle hit (reference
+    _merge_curve_hits): the position on the ray, the normal turned against
+    the ray (curves are two-sided), uv = (u along, v across), dpdu the
+    segment's chord (the hair frame's +x), prim -1000000 - curve id, the
+    curve's material, no light."""
+    t_best = torch.where(out["hit"], out["t"], t_max)
+    rc = crv.intersect_curves(scene.curve_nodes, scene.curve_segs, o, d,
+                              t_best, depth=scene.curve_depth)
+    hit_c = rc["hit"] & (rc["t"] < t_best)
+    h = hit_c[:, None]
+    n_c = rc["n"]
+    n_c = torch.where((vm.dot(n_c, d) > 0)[:, None], -n_c, n_c)
+    cid = torch.clamp(rc["curve_id"], min=0)
+    dpdu_c = rc["axis"]
+    return dict(out,
+                hit=out["hit"] | hit_c,
+                t=torch.where(hit_c, rc["t"], out["t"]),
+                prim=torch.where(hit_c, -1000000 - cid, out["prim"]),
+                p=torch.where(h, o + rc["t"][:, None] * d, out["p"]),
+                ng=torch.where(h, n_c, out["ng"]),
+                ns=torch.where(h, n_c, out["ns"]),
+                uv=torch.where(h, torch.stack([rc["u"], rc["v"]], dim=-1),
+                               out["uv"]),
+                dpdu=torch.where(h, dpdu_c, out["dpdu"]),
+                dpdv=torch.where(h, vm.normalize(vm.cross(n_c, dpdu_c)),
+                                 out["dpdv"]),
+                mat=torch.where(hit_c, scene.curve_mats[torch.clamp(
+                    cid, max=scene.curve_mats.shape[0] - 1)], out["mat"]),
+                light=torch.where(hit_c, -1, out["light"]))
 
 
 def intersect_p(scene: Scene, o, d, t_max):
     """Any-hit (shadow) query. Returns bool occluded (N,)."""
-    return _tri_dispatch(scene, o, d, t_max, any_hit=True)["hit"]
+    o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
+    occluded = _tri_dispatch(scene, o, d, t_max, any_hit=True)["hit"]
+    if scene.has_curves:
+        _t, seg = crv.curves_intersect(scene.curve_nodes, scene.curve_segs,
+                                       o, d, t_max, True,
+                                       depth=scene.curve_depth)
+        occluded = occluded | (seg >= 0)
+    return occluded
 
 
 def offset_ray_origin_exact(p, p_err, ng, w):

@@ -1,5 +1,5 @@
 """Scalar math on tensors (counterpart of pbrt_tpu/utils/math.py), the
-subset the cornell main path uses."""
+subset the ported paths use."""
 from __future__ import annotations
 
 import numpy as np
@@ -18,6 +18,15 @@ _ERFINV_P1 = (3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
               0.246640727, 1.50140941)
 _ERFINV_P2 = (0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
               -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def sqr(x):
+    return x * x
+
+
+def safe_sqrt(x):
+    """sqrt(max(x, 0))."""
+    return torch.sqrt(torch.clamp(x, min=0.0))
 
 
 def safe_div(a, b):

@@ -27,11 +27,16 @@ def export(scene, cam, sampler):
                 light_tags=tuple(t for t in scene.lights.tags_present
                                  if t != jlgt.LIGHT_NONE),
                 n_tris=int(scene.tri_geo.shape[0]), mega=None,
+                bxdf_tags=tuple(scene.materials.bxdf_tags_present),
                 width=cam.width, height=cam.height,
                 screen_min=cam.screen_min, screen_max=cam.screen_max,
                 has_lens=cam.has_lens, seed=sampler.seed, spp=sampler.spp,
                 log2_spp=sampler.log2_spp,
                 n_base4_digits=sampler.n_base4_digits)
+    if scene.has_curves:
+        arrays.update(curve_nodes=np.asarray(scene.curve_nodes),
+                      curve_segs=np.asarray(scene.curve_segs),
+                      curve_mats=np.asarray(scene.curve_mats))
     if scene.has_instances:
         arrays.update(tlas_nodes=np.asarray(scene.tlas_nodes),
                       inst_rows=np.asarray(scene.inst_rows),

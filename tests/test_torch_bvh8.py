@@ -8,6 +8,8 @@ round a few products differently), prim equal except where two prims tie
 in t; any hit -> hit equal (which prim an any-hit query reports depends on
 the traversal order: per ray in the port, per ray block in the reference).
 Closest hits are also held to a brute-force scan of the same triangles.
+The port's copies of the native builder's sources are held byte for byte
+to the reference's.
 """
 import os
 import shutil
@@ -159,3 +161,14 @@ def test_native_build_raises_without_gxx(monkeypatch, tmp_path):
             native.build_bvh(np.zeros((1, 3)), np.ones((1, 3)))
     finally:
         native.load_library.cache_clear()
+
+
+@pytest.mark.parametrize("name", native.SOURCES)
+def test_native_sources_are_the_references(name):
+    """The port builds its own copies of the reference's C++ builders, byte
+    for byte the same, so both packages build bit-identical trees; it no
+    longer reads pbrt_tpu/native/."""
+    root = Path(__file__).resolve().parent.parent
+    assert native.NATIVE_DIR == root / "pbrt_tpu_torch" / "csrc" / "host"
+    assert (native.NATIVE_DIR / name).read_bytes() == \
+        (root / "pbrt_tpu" / "native" / name).read_bytes()

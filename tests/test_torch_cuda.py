@@ -210,3 +210,44 @@ def test_two_level_kernel_matches_plain(cuda_device, any_hit):
     want = dict(zip(("t", "prim", "b1", "b2", "inst"), bvh2.two_level_plain(
         *tables, o, d, t_max, any_hit)))
     _hold_bvh2(got, want, any_hit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_curve_kernel_matches_plain(cuda_device, any_hit):
+    """The curve kernel on a 512-strand fur patch (32,768 segments), 2^16
+    seeded rays from its box: t and seg bit-equal to the plain version in
+    closest-hit mode, the hit flag in any-hit mode; u, v, n and the curve id
+    through intersect_curves."""
+    import sys
+    from pathlib import Path
+    from pbrt_tpu_torch.ops import curves
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root / "tools"))
+    from hair_scene import hair_scene_text
+    s = parser.parse_string(hair_scene_text(512, 1, 8, 8, 1),
+                            device=cuda_device).scene
+    o, d = _box_rays((-1.2, -0.1, -1.2), (1.2, 1.0, 1.2), 1 << 16, 14,
+                     cuda_device)
+    t_max = torch.full((1 << 16,), 0.5 if any_hit else 1e30,
+                       device=cuda_device)
+    tables = (s.curve_nodes, s.curve_segs)
+    before = curves.counter.launches
+    t, seg = curves.curves_intersect(*tables, o, d, t_max, any_hit,
+                                     depth=s.curve_depth)
+    torch.cuda.synchronize()
+    assert curves.counter.launches == before + 1
+    t_p, seg_p = curves.curves_intersect_plain(*tables, o, d, t_max, any_hit)
+    assert (seg_p >= 0).float().mean().item() > 0.01
+    assert torch.equal(seg >= 0, seg_p >= 0)
+    if any_hit:
+        return
+    assert torch.equal(seg, seg_p) and torch.equal(t, t_p)
+    got = curves.intersect_curves(*tables, o, d, t_max, depth=s.curve_depth)
+    rows = s.curve_segs[seg_p.clamp(min=0).long()]
+    want = curves.segment_test(o, d, torch.where(
+        seg_p >= 0, t_p * 1.0001 + 1e-5, 0.0), rows)
+    for k in ("u", "v", "n"):
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["curve_id"], torch.where(
+        seg_p >= 0, rows[:, 14].round().long(), -1))

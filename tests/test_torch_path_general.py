@@ -320,7 +320,8 @@ def test_bsdf_matches_reference(bvh_scenes):
                                rtol=1e-6)
     bs_j = jbxdfs.bsdf_sample(bp_j, jnp.asarray(wo), jnp.zeros(n),
                               jnp.asarray(u2))
-    bs = bxdfs.bsdf_sample(bp, torch.as_tensor(wo), torch.as_tensor(u2))
+    bs = bxdfs.bsdf_sample(bp, torch.as_tensor(wo), torch.zeros(n),
+                           torch.as_tensor(u2))
     for k in ("wi", "f", "pdf"):
         np.testing.assert_allclose(bs[k].numpy(), np.asarray(bs_j[k]),
                                    rtol=1e-5, atol=1e-6, err_msg=k)

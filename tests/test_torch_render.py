@@ -119,12 +119,17 @@ def test_exr_codec_matches_reference(tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     code = (
-        "import sys, torch\n"
+        "import sys\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import hair_scene\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        "            ('torch', 'jax', 'pbrt_tpu', 'pbrt_tpu_torch')]\n"
+        "import torch\n"
         "torch.set_num_threads(1)\n"
         "from pbrt_tpu_torch import scenes\n"
         "from pbrt_tpu_torch.integrators import render, path\n"
         "from pbrt_tpu_torch import convert, native\n"
-        "from pbrt_tpu_torch.ops import bvh2, bvh8, tlas\n"
+        "from pbrt_tpu_torch.ops import bvh2, bvh8, curves, tlas\n"
         "from pbrt_tpu_torch.scene import parser\n"
         "from pbrt_tpu_torch.utils import image\n"
         "scene, cam = scenes.make_cornell_box(8, 8, device='cpu')\n"
@@ -145,6 +150,14 @@ def test_port_imports_no_jax(tmp_path):
         "                        device='cpu',\n"
         "                        opts=path.PathOptions(max_depth=2))\n"
         "assert bvh2.counter_two_level.plain == 4 and img3.mean() > 0\n"
+        "desc = parser.parse_string(hair_scene.hair_scene_text(\n"
+        "    8, 0, 4, 4, 1), device='cpu')\n"
+        "img4, _ = render.render(desc.scene, desc.camera, spp=1,\n"
+        "                        device='cpu',\n"
+        "                        opts=path.PathOptions(max_depth=2))\n"
+        "assert curves.counter.plain == 4 and img4.mean() > 0\n"
+        "assert native.NATIVE_DIR.parts[-3:] == ('pbrt_tpu_torch', 'csrc',\n"
+        "                                        'host')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'pbrt_tpu')]\n"
         "assert not bad, bad\n"

@@ -3,13 +3,16 @@
 
 Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/torch_wave_profile.py [--scene NAME]  (NAME: cornell,
-    meshfield, instances or all, the default)
+    meshfield, instances, hair or all, the default)
 
 cornell: the main path, 400x400, 64 spp, max depth 5, on the megakernel.
 meshfield: scenes/meshfield.pbrt, 200x200, 32 spp, max depth 4, on the
 general wave and the BVH8 kernel. instances: scenes/instances.pbrt,
 200x200, 32 spp, max depth 3, on the general wave and the two-level
-kernel. (pbrt_tpu_torch only; no jax.)
+kernel. hair: tools/hair_scene.py's 8,192-strand fur patch (524,288 curve
+sub-segments, the hair material, 4 triangles), 400x400, 16 spp, max depth
+5, on the general wave, the curve kernel and the triangle kernel.
+(pbrt_tpu_torch only; no jax.)
 Prints the card's name and power limit, then for each scene
   1. the stages of one wave (160,000 lanes), each timed with a synchronize
      around it, median of --reps waves after one warm-up. cornell: the
@@ -20,7 +23,8 @@ Prints the card's name and power limit, then for each scene
      (filter sample and pinhole rays), the closest-hit queries
      (scene_core.intersect), the NEE shadow queries (intersect_p), the
      rest of the wave (shading: emission, lights, BSDF, roulette), and
-     the film (sensor projection and add);
+     the film (sensor projection and add); hair also times the hair
+     BxDF's evaluations and samples (part of shading) on their own;
   2. --renders full renders, unprofiled: paths/s of each;
   3. a render of --profiled-spp samples under torch.profiler: wall time,
      the sum of device self times and their ratio (the device busy share;
@@ -73,8 +77,10 @@ class StageTimers:
         self._saved = []
 
     def wrap(self, module, name, stage):
+        """Time module.name, or the entry module[name] of a dict."""
         import torch
-        fn = getattr(module, name)
+        table = isinstance(module, dict)
+        fn = module[name] if table else getattr(module, name)
 
         def timed(*a, **k):
             if self._depth:
@@ -90,18 +96,26 @@ class StageTimers:
                     (time.perf_counter() - t) * 1e3
                 self._depth -= 1
         self._saved.append((module, name, fn))
-        setattr(module, name, timed)
+        self._set(module, name, timed)
+
+    @staticmethod
+    def _set(module, name, fn):
+        if isinstance(module, dict):
+            module[name] = fn
+        else:
+            setattr(module, name, fn)
 
     def restore(self):
         for module, name, fn in reversed(self._saved):
-            setattr(module, name, fn)
+            self._set(module, name, fn)
         self._saved.clear()
 
 
-def profile_parsed(args, dev, name, max_depth):
+def profile_parsed(args, dev, name, max_depth, path=None):
     """Stage times, renders and busy share of a parsed scene's general
-    wave (scenes/<name>.pbrt at its own size and spp)."""
+    wave (path, by default scenes/<name>.pbrt, at its own size and spp)."""
     import torch
+    from pbrt_tpu_torch import bxdfs
     from pbrt_tpu_torch import cameras as cam_mod
     from pbrt_tpu_torch import film as film_mod
     from pbrt_tpu_torch import filters as flt
@@ -112,7 +126,10 @@ def profile_parsed(args, dev, name, max_depth):
     from pbrt_tpu_torch.scene import parser
 
     root = Path(__file__).resolve().parent.parent
-    desc = parser.parse_file(root / "scenes" / f"{name}.pbrt", device=dev)
+    t = time.perf_counter()
+    desc = parser.parse_file(path or root / "scenes" / f"{name}.pbrt",
+                             device=dev)
+    setup_s = time.perf_counter() - t
     scene, cam, sampler = desc.scene, desc.camera, desc.sampler
     opts = path_mod.PathOptions(max_depth=max_depth)
     W, H = cam.width, cam.height
@@ -120,11 +137,15 @@ def profile_parsed(args, dev, name, max_depth):
     filt = flt.make_filter("gaussian")
     sensor = film_mod.make_pixel_sensor()
     film = film_mod.make_film(W, H, dev)
-    m = 4     # sample indices per 160k-lane wave (render.py's rule)
+    m = 1     # sample indices per wave (render.py's rule)
+    while m * 2 * W * H <= render.MAX_WAVE_LANES and \
+            sampler.spp % (m * 2) == 0:
+        m *= 2
     pix = torch.arange(W * H, device=dev).repeat(m)
     si = torch.arange(W * H * m, device=dev) // (W * H)
+    hair = bxdfs.BXDF_HAIR in scene.bxdf_tags
     names = ("sampler dims", "camera", "intersect", "NEE shadow", "shading",
-             "film")
+             "film") + (("hair BxDF",) if hair else ())
     per_wave = {k: [] for k in names}
     for rep in range(args.reps + 1):
         timers = StageTimers()
@@ -134,11 +155,15 @@ def profile_parsed(args, dev, name, max_depth):
         timers.wrap(cam_mod, "generate_ray_weighted", "camera")
         timers.wrap(sc, "intersect", "intersect")
         timers.wrap(sc, "intersect_p", "NEE shadow")
+        if hair:
+            timers.wrap(bxdfs._F_PDF_FNS, bxdfs.BXDF_HAIR, "hair BxDF")
+            timers.wrap(bxdfs, "_hair_sample", "hair BxDF")
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
             L, swl, fw = path_mod.render_wave(scene, cam, sampler, filt, pix,
-                                              si + 4 * rep, opts)
+                                              si + (m * rep) % sampler.spp,
+                                              opts)
             torch.cuda.synchronize()
             wave_ms = (time.perf_counter() - t) * 1e3
         finally:
@@ -156,7 +181,13 @@ def profile_parsed(args, dev, name, max_depth):
                 per_wave[k].append(timers.ms.get(k, 0.0))
     stage_ms = {k: statistics.median(v) for k, v in per_wave.items()}
     print(f"{name} stage ms, median of {args.reps} waves of {W * H * m} "
-          f"lanes: {json.dumps(stage_ms)}", flush=True)
+          f"lanes: {json.dumps(stage_ms)}; set-up {setup_s:.2f} s",
+          flush=True)
+    if hair:
+        share = stage_ms["hair BxDF"] / (stage_ms["hair BxDF"]
+                                         + stage_ms["shading"])
+        print(f"{name}: the hair BxDF is {share:.4f} of shading",
+              flush=True)
     renders = [render.render(scene, cam, sampler=sampler, device=dev,
                              opts=opts)[1]["paths_per_sec"]
                for _ in range(args.renders)]
@@ -171,13 +202,13 @@ def profile_parsed(args, dev, name, max_depth):
         f"{name}, {args.profiled_spp} spp")
     return dict(stage_ms=stage_ms, render_paths_per_sec=renders,
                 profiled_wall_ms=wall_ms, device_ms=dev_ms,
-                busy_share=dev_ms / wall_ms)
+                busy_share=dev_ms / wall_ms, setup_s=setup_s)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", choices=("cornell", "meshfield", "instances",
-                                        "all"), default="all")
+                                        "hair", "all"), default="all")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--renders", type=int, default=5)
     ap.add_argument("--profiled-spp", type=int, default=8)
@@ -200,6 +231,14 @@ def main():
     for name, depth in (("meshfield", 4), ("instances", 3)):
         if args.scene in (name, "all"):
             out[name] = profile_parsed(args, dev, name, depth)
+    if args.scene in ("hair", "all"):
+        from pbrt_tpu_torch.ops import _build
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        from hair_scene import hair_scene_text
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path = _build.BUILD_DIR / "hair.pbrt"
+        path.write_text(hair_scene_text(8192, 0, 400, 400, 16))
+        out["hair"] = profile_parsed(args, dev, "hair", 5, path)
     print(json.dumps(out))
     return 0
 
