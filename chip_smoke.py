@@ -66,7 +66,35 @@ Phases, each of which raises on failure (exit code 1):
      tools/make_hair_reference.py) with the instances gates;
  20. times with CUDA events: the curve kernel and its plain version at
      2^20 rays, closest and any hit, and the hair render in paths/s with
-     its set-up (generate, parse, split, build) apart.
+     its set-up (generate, parse, split, build) apart;
+ 21. the ptxas report of the bvh8_forest and bvh8_binned libraries and of
+     the rebuilt megawave library: registers, stack frame, spills;
+ 22. the rays-in megakernel (megakernel v1) against its plain version:
+     160,000 cornell lanes at depth 5 (the main path's wave, sample index
+     37), camera rays from the general wave's front end (path.camera_rays);
+     L bit for bit; against the in-kernel-camera megakernel on the same
+     lanes and that kernel's own camera rays: within rel 1e-4 on every
+     lane and bit for bit; on the front end's rays, which round apart from
+     the in-kernel camera's, within rel 1e-4 on >= 99.9% of lanes (phase
+     4's gate);
+ 23. the rays-in megakernel's path at full width: cornell 400x400, 64 spp,
+     depth 5, 64 waves of path.camera_lanes and path.camera_rays ->
+     path.trace_paths(PathOptions(megakernel=True)) -> film.add_samples,
+     launch counts read around it, the image gated like phase 5;
+ 24. the paged big-mesh traversal on tools/terrain_rays.py's terrain
+     (999,698 triangles): forest, chunked and whole-tree BVH8 builds from
+     one binary tree; 2^20 raster and 2^20 bounce rays, closest hit (t_max
+     1e30) and any hit (t_max 30), through the forest kernel, the binned
+     rounds and the whole-tree kernel, launch counts read around them;
+     each paged kernel against its plain version on every ray set (t,
+     triangle, b1, b2 bit for bit at closest hit, the hit flag at any hit;
+     all rays or a middle slice of whole blocks, TERRAIN_PLAIN), and both
+     against the whole-tree kernel on all rays;
+ 25. times with CUDA events: the forest kernel, the binned query (each
+     round's kernel, the pre-pass and the schedule apart), the whole-tree
+     kernel on the same rays, each plain version, the rays-in megakernel
+     beside the in-kernel-camera one, and the page bytes staged beside the
+     tables' bytes.
 Phase 2 builds every kernel (one nvcc per source, all started together)
 and the host BVH builder (g++). The line before the last is a JSON object
 with one entry per kernel, each with its bound: the larger of the bytes it
@@ -108,6 +136,17 @@ TRI_OPS = 60            # Moeller-Trumbore on rows with precomputed edges
 TRI_RAW_OPS = 64        # on raw vertices: 6 edge subtractions, no tolerance
 BVH8_CHILD_OPS = 12 + SLAB_OPS   # dequantise a child box, then its slab
 ENTER_OPS = 39          # a ray through w2o (33) and its 3 inverse dirs
+FOREST_CHILD_OPS = SLAB_OPS      # the forest's children are not quantised
+TERRAIN_N = 708                 # tools/exp_1m.py's terrain: 999,698 tris
+TERRAIN_RAYS = 1 << 20
+# The paged plain versions' rays per set. On all 2^20 rays of every set
+# they took 170 s on the H100, and their chunk loop costs nearly as much
+# on 2^16 bounce rays as on 2^20: they run on all raster rays at closest
+# hit (the kernels line's times and bounds) and on the middle 2^16 rays of
+# the other three sets (the first raster rows see only sky), whole
+# 1,024-ray blocks, whose results do not depend on the other blocks' rays.
+TERRAIN_PLAIN = {("raster", False): 1 << 20, ("raster", True): 1 << 16,
+                 ("bounce", False): 1 << 16, ("bounce", True): 1 << 16}
 # csrc/curves.cu segment_test: 6 sub (ends - o), 30 for the two ends in the
 # ray frame, 2 sub, 4 for |e|^2, 7 for w, 4 for c, 3 for dist^2, 3 for the
 # width, 2 for hw^2/4, 1 test, 3 for z, 3 for the edge, 2 for z_hit, 2 for
@@ -493,6 +532,350 @@ def curves_phases(dev, card, build_log, counters, n_rays):
                               seconds=rstats["seconds"], mrse=r_mrse,
                               mean_ratio_err=r_ratio))
 
+def ptxas_entries(log):
+    return [ln.strip() for ln in log.splitlines()
+            if "Function properties" in ln or "stack frame" in ln
+            or "registers" in ln]
+
+
+def rays_in_phases(dev, card, libs, counters, scene, cam, w6, stats):
+    """Phases 21-23 and the megakernel times of 25: the ptxas reports, the
+    rays-in megakernel against its plain version and against the
+    in-kernel-camera megakernel, and its path at full width. Returns what
+    the kernels line needs."""
+    import torch
+    from pbrt_tpu_torch import film as film_mod
+    from pbrt_tpu_torch import filters as flt
+    from pbrt_tpu_torch import samplers as smp
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.ops import megawave
+    from pbrt_tpu_torch.utils import image
+    # ---- 21. ptxas reports ----
+    for name in ("bvh8_forest", "bvh8_binned", "megawave"):
+        entries = ptxas_entries(libs[name][1])
+        print(f"[21 build] {name} ptxas: {entries}", flush=True)
+        check(not entries or sum("registers" in ln for ln in entries) == 1,
+              f"{name}: ptxas reported other than one entry")
+
+    # ---- 22. rays-in megakernel vs plain and vs the full megakernel ----
+    filt = flt.make_filter("gaussian")
+    sampler = smp.make_sampler("zsobol", spp=64, full_resolution=(400, 400))
+    pix = torch.arange(400 * 400, device=dev)
+    si = torch.full_like(pix, 37)
+    px, py, swl = path_mod.camera_lanes(cam, sampler, pix, si)
+    o, d, _wt = path_mod.camera_rays(cam, sampler, filt, px, py, si)
+    check(torch.equal(swl.lam, w6.lam), "phase 22 lanes differ from phase 6")
+    w22 = megawave.prepare_rays(scene, sampler, px, py, si, o, d, swl.lam,
+                                max_depth=5)
+    L3, fw3 = megawave.wave_full(w22)
+    t0 = time.perf_counter()
+    L3p, _ = megawave.wave_full_plain(w22)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    live = megawave.counter.work["live_lane_depths"]
+    L2, _fw2 = megawave.wave_full(w6)
+    # the in-kernel camera's own rays (the plain version's camera, which
+    # phase 6 holds to the kernel's bit for bit) through the rays-in entry
+    o2, d2, _fw = megawave._camera_rays(w6, megawave._ZSobol(w6.mi, w6.seeds,
+                                                            w6.B))
+    L3c, _ = megawave.wave_full(megawave.prepare_rays(
+        scene, sampler, px, py, si, torch.stack(o2, -1), torch.stack(d2, -1),
+        swl.lam, max_depth=5))
+    torch.cuda.synchronize()
+    exact = (L3 == L3p).all(dim=1).float().mean().item()
+    err = (L3 - L3p).abs().max().item()
+
+    def rel_to_v2(L):
+        return ((L - L2).abs() / L2.abs().clamp(min=1e-3)).amax(dim=1)
+    rel_same = rel_to_v2(L3c)
+    rel = rel_to_v2(L3)
+    within = (rel <= 1e-4).float().mean().item()
+    v2_exact = (L3 == L2).all(dim=1).float().mean().item()
+    print(f"[22 megakernel v1] {L3.shape[0]} lanes, depth 5: bit-equal to "
+          f"its plain version on {exact * 100:.4f}% of lanes (max |dL| "
+          f"{err:.3g}, plain {plain_s:.3f} s); against the in-kernel-camera "
+          f"megakernel on the same lanes and its own camera rays: max rel "
+          f"{rel_same.max().item():.3g} (floor 1e-3), bit-equal "
+          f"{torch.equal(L3c, L2)}; on the front end's rays, which round "
+          f"apart from the in-kernel camera's: {within * 100:.4f}% of lanes "
+          f"within rel 1e-4, max rel {rel.max().item():.3g}, bit-equal on "
+          f"{v2_exact * 100:.4f}%", flush=True)
+    check(fw3 is None and bool(torch.isfinite(L3).all()),
+          "megakernel v1 output")
+    check(torch.equal(L3, L3p), "megakernel v1 differs from its plain "
+          "version")
+    check(bool((rel_same <= 1e-4).all()) and torch.equal(L3c, L2),
+          "megakernel v1 on the in-kernel camera's rays: not within rel "
+          "1e-4 of the in-kernel-camera megakernel on every lane, or not "
+          "bit-equal")
+    # the front end's rays differ from the in-kernel camera's by ulps,
+    # and a few paths then diverge (ROADMAP section 3)
+    check(within >= 0.999, "megakernel v1 on the front end's rays: lanes "
+          f"within rel 1e-4 of the in-kernel-camera megakernel {within}")
+
+    # ---- 23. the rays-in path at full width ----
+    sensor = film_mod.make_pixel_sensor()
+    film = film_mod.make_film(400, 400, dev)
+    opts = path_mod.PathOptions(max_depth=5, megakernel=True)
+    reset_counts(counters.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(64):
+        s_idx = torch.full_like(pix, s)
+        px, py, swl = path_mod.camera_lanes(cam, sampler, pix, s_idx)
+        o, d, wt = path_mod.camera_rays(cam, sampler, filt, px, py, s_idx)
+        L = path_mod.trace_paths(scene, sampler, px, py, s_idx, o, d, swl,
+                                 opts)
+        film_mod.add_samples(film, pix, film_mod.sensor_to_sensor_rgb(
+            sensor, L, swl), wt, identity=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    img = film_mod.get_image(film, sensor)
+    launches = {c: k.launches for c, k in counters.items()}
+    plain = sum(k.plain for k in counters.values())
+    pps = 400 * 400 * 64 / dt
+    print(f"[23 rays-in path] launches {launches}, plain-version runs "
+          f"{plain}; {dt:.3f} s, {pps:.6g} paths/s (phase 5, in-kernel "
+          f"camera: {stats['paths_per_sec']:.6g})", flush=True)
+    check(launches["megawave"] == 64 and sum(launches.values()) == 64,
+          "the rays-in path launched other than 64 megakernels")
+    check(plain == 0, "the rays-in path ran a plain version on the card")
+    m, ratio = gate(img, GOLDEN, (400, 400, 3), GATE_MRSE, GATE_MEAN_RATIO,
+                    "23 rays-in path golden")
+    image.write_exr(_build.BUILD_DIR / "cornell_rays_in_400_64spp.exr", img)
+
+    # ---- 25 (megakernels). times at the main path's wave ----
+    k3_ms = cuda_ms(lambda: megawave.wave_full(w22), reps=20, warmup=3)
+    k2_ms = cuda_ms(lambda: megawave.wave_full(w6), reps=20, warmup=3)
+    k3_plain_ms = cuda_ms(lambda: megawave.wave_full_plain(w22), reps=2)
+    print(f"[25 times] card {card}: megakernel v1 (rays in) {k3_ms:.4f} ms "
+          f"vs v2 (in-kernel camera) {k2_ms:.4f} ms vs plain "
+          f"{k3_plain_ms:.4f} ms per 160,000-lane wave", flush=True)
+    n = w22.lam.shape[0]
+    # lam, le, mi, o, d in; L out; the pool and its attributes once
+    k3_bound = bound(n * (16 + 16 + 4 + 24 + 16)
+                     + 4 * (w22.tri.numel() + w22.attr.numel()),
+                     live * w22.n_real * TRI_OPS)
+    return dict(launches=launches["megawave"], err=err, ms=k3_ms,
+                plain_ms=k3_plain_ms, full_camera_ms=k2_ms, bound=k3_bound,
+                render=dict(paths_per_sec=pps, seconds=dt, mrse=m,
+                            mean_ratio_err=ratio))
+
+
+def terrain_phases(dev, card):
+    """Phases 24 and 25, the paged big-mesh traversal on the terrain.
+    Returns what the kernels line needs."""
+    import torch
+    from pbrt_tpu_torch.ops import bvh as bvh_mod
+    from pbrt_tpu_torch.ops import bvh8
+    from pbrt_tpu_torch.ops import bvh8_pages as bp
+    sys.path.insert(0, str(ROOT / "tools"))
+    import terrain_rays
+    # ---- 24. the three builds from one binary tree ----
+    t0 = time.perf_counter()
+    lo, hi, tri = terrain_rays.terrain_triangles(TERRAIN_N)
+    t1 = time.perf_counter()
+    b = bvh_mod.build_bvh(lo, hi)
+    t2 = time.perf_counter()
+    forest = bvh8.build_bvh8_forest(lo, hi, tri, binary_bvh=b, device=dev)
+    t3 = time.perf_counter()
+    chunked = bvh8.build_bvh8_chunked(lo, hi, tri, binary_bvh=b, device=dev)
+    t4 = time.perf_counter()
+    whole = bvh8.build_bvh8(lo, hi, tri, binary_bvh=b, device=dev)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+
+    def nbytes(*xs):
+        return sum(4 * x.numel() for x in xs)
+    f_tables = nbytes(forest.meta, forest.pages, forest.prim_indices)
+    c_tables = nbytes(chunked.nodes_f, chunked.nodes_q, chunked.tris,
+                      chunked.page_start, chunked.prim_indices)
+    w_tables = nbytes(whole.nodes_f, whole.nodes_q, whole.tris,
+                      whole.prim_indices)
+    print(f"[24 terrain] {len(tri)} triangles (n = {TERRAIN_N}); mesh "
+          f"{t1 - t0:.2f} s, binary SAH {t2 - t1:.2f} s; forest {t3 - t2:.2f}"
+          f" s: K {forest.n_chunks}, page {forest.page_bytes} B, tables "
+          f"{f_tables} B; chunked {t4 - t3:.2f} s: K {chunked.n_chunks}, "
+          f"page {chunked.page_bytes} B, tables {c_tables} B; whole-tree "
+          f"BVH8 {t5 - t4:.2f} s: {whole.n_nodes} nodes, depth {whole.depth},"
+          f" tables {w_tables} B", flush=True)
+    V, _F = terrain_rays.make_terrain(TERRAIN_N)
+    rays = {kind: tuple(torch.as_tensor(a, device=dev) for a in
+                        terrain_rays.gen_rays(V, kind, TERRAIN_RAYS))
+            for kind in ("raster", "bounce")}
+    modes = ((False, 1e30), (True, 30.0))
+
+    # the kernels on every ray set, counts read around them
+    counts = (bp.counter_forest, bp.counter_binned, bvh8.counter)
+    reset_counts(counts)
+    got, stages = {}, []
+    for kind, (o, d) in rays.items():
+        for any_hit, t_max in modes:
+            tv = torch.full((TERRAIN_RAYS,), t_max, device=dev)
+            got[kind, any_hit] = (
+                bp.forest_intersect(forest, o, d, tv, any_hit),
+                bp.binned_intersect(chunked, o, d, tv, any_hit,
+                                    stages=stages if (kind, any_hit) ==
+                                    ("raster", False) else None),
+                bvh8.bvh8_intersect(whole, o, d, tv, any_hit))
+    torch.cuda.synchronize()
+    launches = dict(forest=bp.counter_forest.launches,
+                    binned=bp.counter_binned.launches,
+                    bvh8=bvh8.counter.launches)
+    plain = sum(c.plain for c in counts)
+    rounds = {k: v[1]["rounds"] for k, v in got.items()}
+    print(f"[24 terrain] launches {launches}, plain-version runs {plain}; "
+          f"binned rounds {rounds}; plain versions on (set: rays) "
+          f"{TERRAIN_PLAIN}", flush=True)
+    check(launches["forest"] == 4 and launches["bvh8"] == 4
+          and launches["binned"] == sum(rounds.values()) and plain == 0,
+          "terrain: launch counts")
+
+    # each paged kernel against its plain version
+    work, plain_ms, errs = {}, {}, {"forest": [0.0], "binned": [0.0]}
+    for (kind, any_hit), n in TERRAIN_PLAIN.items():
+        sub = slice((TERRAIN_RAYS - n) // 2, (TERRAIN_RAYS + n) // 2)
+        o, d = rays[kind][0][sub], rays[kind][1][sub]
+        tv = torch.full((n,), 30.0 if any_hit else 1e30, device=dev)
+        gf, gb, _gw = ({k: v[sub] if torch.is_tensor(v) else v
+                        for k, v in g.items()}
+                       for g in got[kind, any_hit])
+        for name, fn in (
+                ("forest", lambda: bp.forest_intersect_plain(
+                    forest, o, d, tv, any_hit)),
+                ("binned", lambda: bp.binned_intersect_plain(
+                    chunked, o, d, tv, any_hit)[:4]),
+                ("bvh8", lambda: bvh8.bvh8_intersect_plain(
+                    whole, o, d, tv, any_hit))):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            want = fn()
+            ev[1].record()
+            ev[1].synchronize()
+            plain_ms[name, kind, any_hit] = ev[0].elapsed_time(ev[1])
+            work[name, kind, any_hit] = dict(
+                {"forest": bp.counter_forest, "binned": bp.counter_binned,
+                 "bvh8": bvh8.counter}[name].work)
+            if name == "bvh8":
+                continue
+            k = gf if name == "forest" else gb
+            hit_eq = torch.equal(k["hit"], want[1] >= 0)
+            exact = all(torch.equal(k[key], v) for key, v in
+                        zip(("t", "prim", "b1", "b2"), want))
+            hit_w = want[1] >= 0
+            if bool(hit_w.any()):
+                errs[name].append((k["t"][hit_w] - want[0][hit_w])
+                                  .abs().max().item())
+            print(f"[24 {name}] {kind} any_hit={any_hit}: kernel vs "
+                  f"plain on {n} rays: hit equal {hit_eq}, t, triangle, "
+                  f"b1, b2 bit-equal {exact}; hit share "
+                  f"{hit_w.float().mean().item():.4f}; plain "
+                  f"{plain_ms[name, kind, any_hit]:.1f} ms, work "
+                  f"{work[name, kind, any_hit]}", flush=True)
+            check(hit_eq, f"{name}: the hit flag differs from the plain "
+                  "version")
+            if not any_hit:
+                check(exact, f"{name}: t, triangle or barycentrics "
+                      "differ from the plain version")
+
+    # both against the whole-tree kernel on all rays
+    for (kind, any_hit), (gf, gb, gw) in got.items():
+        for name, k in (("forest", gf), ("binned", gb)):
+            hit_eq = (k["hit"] == gw["hit"]).float().mean().item()
+            same = k["prim"] == gw["prim"]
+            agree = same.float().mean().item()
+            h = same & gw["hit"]
+            t_eq = torch.equal(k["t"][h], gw["t"][h])
+            print(f"[24 {name} vs bvh8] {kind} any_hit={any_hit}: hit equal"
+                  f" on {hit_eq * 100:.4f}% of {TERRAIN_RAYS} rays (hit share"
+                  f" {gw['hit'].float().mean().item():.4f}), triangle equal "
+                  f"on {agree * 100:.4f}%, t equal where the triangle is "
+                  f"equal {t_eq}", flush=True)
+            check(hit_eq == 1.0, f"{name}: hit flag differs from bvh8")
+            if not any_hit:
+                check(agree >= 0.9999 and t_eq,
+                      f"{name}: triangle or t differs from bvh8")
+
+    # ---- 25 (paged). times ----
+    ms = {}
+    for kind, (o, d) in rays.items():
+        for any_hit, t_max in modes:
+            tv = torch.full((TERRAIN_RAYS,), t_max, device=dev)
+            ms["forest", kind, any_hit] = cuda_ms(
+                lambda: bp.forest_intersect(forest, o, d, tv, any_hit),
+                reps=3)
+            # (phase 24 ran it once already: no warm-up)
+            ms["binned", kind, any_hit] = cuda_ms(
+                lambda: bp.binned_intersect(chunked, o, d, tv, any_hit),
+                reps=1, warmup=0)
+            ms["bvh8", kind, any_hit] = cuda_ms(
+                lambda: bvh8.bvh8_intersect(whole, o, d, tv, any_hit),
+                reps=10, warmup=2)
+            p_ms = ", ".join(
+                f"{name} {plain_ms[name, kind, any_hit]:.1f}"
+                for name in ("forest", "binned", "bvh8")) \
+                if (kind, any_hit) in TERRAIN_PLAIN else "not run"
+            print(f"[25 times] card {card}: terrain {kind} any_hit="
+                  f"{any_hit}, {TERRAIN_RAYS} rays: forest kernel "
+                  f"{ms['forest', kind, any_hit]:.4f} ms, binned query "
+                  f"{ms['binned', kind, any_hit]:.4f} ms ("
+                  f"{got[kind, any_hit][1]['rounds']} rounds), whole-tree "
+                  f"bvh8 {ms['bvh8', kind, any_hit]:.4f} ms; plain on "
+                  f"{TERRAIN_PLAIN.get((kind, any_hit), 0)} rays: {p_ms} "
+                  "ms", flush=True)
+    per = {}
+    for name, a, z in stages:
+        per.setdefault(name, []).append(a.elapsed_time(z))
+    f_copies = work["forest", "raster", False]["page_copies"]
+    b_copies = got["raster", False][1]["page_copies"]
+    print(f"[25 times] card {card}: binned raster closest: "
+          f"{len(per['round'])} rounds x 1 launch, round kernels "
+          f"{[round(x, 4) for x in per['round']]} ms (sum "
+          f"{sum(per['round']):.4f}), pre-pass {sum(per['entries']):.4f} ms "
+          f"in {len(per['entries'])} runs, schedule "
+          f"{sum(per['schedule']):.4f} ms", flush=True)
+    print(f"[25 times] card {card}: page bytes staged, raster closest: "
+          f"forest {f_copies} copies x {forest.page_bytes} B = "
+          f"{f_copies * forest.page_bytes} B (tables {f_tables} B); binned "
+          f"{b_copies} copies x {chunked.page_bytes} B = "
+          f"{b_copies * chunked.page_bytes} B (tables {c_tables} B)",
+          flush=True)
+    # bounds of the raster closest-hit query: rays in (o, d, t_max) and
+    # hits out (t, prim, b1, b2) once, tables once; the work the plain
+    # versions counted on all of its rays
+    wf, wb = work["forest", "raster", False], work["binned", "raster", False]
+    f_bound = bound(TERRAIN_RAYS * 44 + nbytes(forest.meta, forest.pages),
+                    wf["root_tests"] * SLAB_OPS + wf["node_visits"] * 8
+                    * FOREST_CHILD_OPS + wf["tri_tests"] * TRI_OPS)
+    b_bound = bound(TERRAIN_RAYS * 44
+                    + nbytes(chunked.nodes_f, chunked.nodes_q, chunked.tris,
+                             chunked.page_start),
+                    wb["root_tests"] * SLAB_OPS + wb["node_visits"] * 8
+                    * BVH8_CHILD_OPS + wb["tri_tests"] * TRI_OPS)
+    return dict(
+        forest=dict(launches=launches["forest"], err=max(errs["forest"]),
+                    ms=ms["forest", "raster", False],
+                    plain_ms=plain_ms["forest", "raster", False],
+                    bound=f_bound, ms_all={f"{k}_{'any' if a else 'closest'}":
+                                           ms["forest", k, a]
+                                           for k, _ in rays.items()
+                                           for a, _t in modes},
+                    page_copies=f_copies),
+        binned=dict(launches=launches["binned"], err=max(errs["binned"]),
+                    ms=sum(per["round"]),
+                    query_ms=ms["binned", "raster", False],
+                    plain_ms=plain_ms["binned", "raster", False],
+                    bound=b_bound, rounds=len(per["round"]),
+                    entries_ms=sum(per["entries"]),
+                    schedule_ms=sum(per["schedule"]),
+                    ms_all={f"{k}_{'any' if a else 'closest'}":
+                            ms["binned", k, a] for k, _ in rays.items()
+                            for a, _t in modes},
+                    page_copies=b_copies),
+        bvh8_ms={f"{k}_{'any' if a else 'closest'}": ms["bvh8", k, a]
+                 for k, _ in rays.items() for a, _t in modes})
+
 
 def main():
     import torch
@@ -511,14 +894,19 @@ def main():
     from pbrt_tpu_torch.ops import bvh as bvh_mod
     from pbrt_tpu_torch.ops import bvh2
     from pbrt_tpu_torch.ops import bvh8
+    from pbrt_tpu_torch.ops import bvh8_pages as bp
     from pbrt_tpu_torch.ops import curves
     from pbrt_tpu_torch.ops import megawave
     from pbrt_tpu_torch.ops import tri_intersect as ti
     from pbrt_tpu_torch.scene import parser
     from pbrt_tpu_torch.utils import image
     from pbrt_tpu_torch.utils import spectrum as spc
-    counters = (megawave.counter, ti.counter, bvh8.counter,
-                bvh2.counter_bvh2, bvh2.counter_two_level, curves.counter)
+    named = {"megawave": megawave.counter, "tri_intersect": ti.counter,
+             "bvh8": bvh8.counter, "bvh2": bvh2.counter_bvh2,
+             "two_level": bvh2.counter_two_level, "curves": curves.counter,
+             "bvh8_forest": bp.counter_forest,
+             "bvh8_binned": bp.counter_binned}
+    counters = tuple(named.values())
 
     dev = torch.device("cuda", 0)
 
@@ -859,6 +1247,11 @@ def main():
           f"{istats['paths_per_sec']:.6g} paths/s", flush=True)
 
     cr = curves_phases(dev, card, libs["curves"][1], counters, n_rays)
+    t_new = time.perf_counter()
+    ri = rays_in_phases(dev, card, libs, named, scene, cam, w6, stats)
+    tr = terrain_phases(dev, card)
+    print(f"[25 times] phases 21-25 took {time.perf_counter() - t_new:.1f} "
+          "s", flush=True)
 
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]
@@ -888,7 +1281,13 @@ def main():
                                      ("two_level", k8_bound,
                                       k8_ms["grid64", False][0]),
                                      ("curves", cr["bound"],
-                                      cr["ms"][False][0])):
+                                      cr["ms"][False][0]),
+                                     ("megawave_rays", ri["bound"],
+                                      ri["ms"]),
+                                     ("bvh8_forest", tr["forest"]["bound"],
+                                      tr["forest"]["ms"]),
+                                     ("bvh8_binned", tr["binned"]["bound"],
+                                      tr["binned"]["ms"])):
         print(f"[bounds] card {card}: {what} bound {b_ms:.5f} ms by {b_by}, "
               f"kernel {k_ms:.4f} ms ({b_ms / k_ms * 100:.2f}% of the "
               "bound)", flush=True)
@@ -953,6 +1352,47 @@ def main():
              bound_ms=cr["bound"][0], bound_by=cr["bound"][1],
              library_ms=None, any_hit_ms=cr["ms"][True][0],
              any_hit_plain_ms=cr["ms"][True][1]),
+        # the rays-in entry of megawave.cu; launches: the 64 waves of phase
+        # 23; ms: one 160,000-lane wave at depth 5 (the in-kernel-camera
+        # entry on the same lanes in full_camera_ms); max_abs_err: against
+        # its plain version (phase 22)
+        dict(name="megawave_rays", route="cuda",
+             source="pbrt_tpu_torch/csrc/megawave.cu",
+             replaces="pbrt_tpu/ops/megawave.py:531",
+             launches=ri["launches"], max_abs_err=ri["err"], ms=ri["ms"],
+             plain_ms=ri["plain_ms"], bound_ms=ri["bound"][0],
+             bound_by=ri["bound"][1], library_ms=None,
+             full_camera_ms=ri["full_camera_ms"]),
+        # launches: phase 24's four queries; ms and plain_ms: 2^20 raster
+        # rays, closest hit, on the terrain (every set's kernel in ms_all)
+        dict(name="bvh8_forest", route="cuda",
+             source="pbrt_tpu_torch/csrc/bvh8_forest.cu",
+             replaces="pbrt_tpu/ops/pallas_bvh8.py:830",
+             launches=tr["forest"]["launches"],
+             max_abs_err=tr["forest"]["err"], ms=tr["forest"]["ms"],
+             plain_ms=tr["forest"]["plain_ms"],
+             bound_ms=tr["forest"]["bound"][0],
+             bound_by=tr["forest"]["bound"][1], library_ms=None,
+             ms_all=tr["forest"]["ms_all"],
+             page_copies=tr["forest"]["page_copies"]),
+        # launches: the rounds of phase 24's four queries; ms: the round
+        # kernels of the 2^20 raster closest-hit query (the whole query,
+        # with the pre-pass and the schedule, in query_ms; every set's in
+        # ms_all)
+        dict(name="bvh8_binned", route="cuda",
+             source="pbrt_tpu_torch/csrc/bvh8_binned.cu",
+             replaces="pbrt_tpu/ops/pallas_bvh8.py:1052",
+             launches=tr["binned"]["launches"],
+             max_abs_err=tr["binned"]["err"], ms=tr["binned"]["ms"],
+             plain_ms=tr["binned"]["plain_ms"],
+             bound_ms=tr["binned"]["bound"][0],
+             bound_by=tr["binned"]["bound"][1], library_ms=None,
+             query_ms=tr["binned"]["query_ms"],
+             rounds=tr["binned"]["rounds"],
+             entries_ms=tr["binned"]["entries_ms"],
+             schedule_ms=tr["binned"]["schedule_ms"],
+             ms_all=tr["binned"]["ms_all"],
+             page_copies=tr["binned"]["page_copies"]),
     ]
     print(json.dumps(dict(render=dict(
         paths_per_sec=stats["paths_per_sec"], seconds=stats["seconds"],
@@ -963,7 +1403,8 @@ def main():
         mrse=g_mrse, mean_ratio_err=g_ratio), instances=dict(
         paths_per_sec=istats["paths_per_sec"], seconds=istats["seconds"],
         mrse=i_mrse, mean_ratio_err=i_ratio), hair=cr["hair"],
-        hair_ref=cr["hair_ref"])))
+        hair_ref=cr["hair_ref"], rays_in=ri["render"],
+        terrain_bvh8_ms=tr["bvh8_ms"])))
     print(f"card: {card}")
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps({"ok": True, "device": {

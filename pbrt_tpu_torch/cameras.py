@@ -58,8 +58,8 @@ def generate_ray(cam: Camera, p_film: torch.Tensor):
     (N, 3) world space (reference cameras.generate_ray without a lens)."""
     if cam.has_lens:
         raise NotImplementedError(
-            "thin-lens camera: not ported (ROADMAP.md, kernel queue: "
-            "megakernel v1 as a flag of the megakernel)")
+            "thin-lens camera: not ported (ROADMAP.md, slice 4 item 21, "
+            "the other cameras)")
     sx = cam.screen_min[0] + (p_film[..., 0] / cam.width) * \
         (cam.screen_max[0] - cam.screen_min[0])
     sy = cam.screen_max[1] - (p_film[..., 1] / cam.height) * \

@@ -1,13 +1,18 @@
 // Whole-path megakernel for diffuse / area-light scenes on Hopper (sm_90a).
 //
-// Replaces the TPU kernel pbrt_tpu/ops/megawave.py::_wave_kernel_full (with
-// its body _path_loop; launched by _run_full, entry trace_full). Semantics
-// and operation order follow the plain PyTorch version in
+// Replaces two TPU kernels with one: pbrt_tpu/ops/megawave.py::
+// _wave_kernel_full (megakernel v2, camera rays made in the kernel;
+// launched by _run_full, entry trace_full) and ::_wave_kernel (megakernel
+// v1, camera rays given; launched by _run, entry trace), both with the body
+// _path_loop. A run-time switch picks the mode: with o_in and d_in set the
+// camera section is skipped and fw is not written. Semantics and operation
+// order follow the plain PyTorch version in
 // pbrt_tpu_torch/ops/megawave.py::wave_full_plain, lane for lane: pixel
 // decode from the morton|spp index, ZSobol camera dims, gaussian filter
-// importance sample (Giles erf^-1), pinhole ray, then per depth the closest
-// hit, emission with power-heuristic MIS, next-event estimation with an
-// any-hit shadow ray, the diffuse cosine BSDF sample and Russian roulette.
+// importance sample (Giles erf^-1), pinhole ray (or the given ray), then
+// per depth the closest hit, emission with power-heuristic MIS, next-event
+// estimation with an any-hit shadow ray, the diffuse cosine BSDF sample and
+// Russian roulette.
 //
 // What bounds it on this card: about 120 B of I/O per path (index,
 // wavelengths, light spectrum in; radiance and filter weight out) against
@@ -217,11 +222,12 @@ megawave_kernel(const float* __restrict__ g_cam, const float* __restrict__ g_tri
                 const uint32_t* __restrict__ g_seeds,
                 const uint32_t* __restrict__ mi_in,
                 const float4* __restrict__ lam_in,
-                const float4* __restrict__ le_in, float4* __restrict__ L_out,
-                float* __restrict__ fw_out, int n, int n_tris, int n_real,
-                int n_mats, int n_lights, int n_dims, int max_depth,
-                int rr_start, int B, int log2_spp, int ls_uniform,
-                FilterConst fc) {
+                const float4* __restrict__ le_in,
+                const float* __restrict__ o_in, const float* __restrict__ d_in,
+                float4* __restrict__ L_out, float* __restrict__ fw_out,
+                int n, int n_tris, int n_real, int n_mats, int n_lights,
+                int n_dims, int max_depth, int rr_start, int B, int log2_spp,
+                int ls_uniform, FilterConst fc) {
   // ---- block-wide copy of the read-only tables into shared memory ----
   extern __shared__ float smem[];
   float* s_tri = smem;
@@ -238,7 +244,10 @@ megawave_kernel(const float* __restrict__ g_cam, const float* __restrict__ g_tri
     s_light[i] = g_light[i];
   for (int i = threadIdx.x; i < n_mats * 3; i += blockDim.x)
     s_mat[i] = g_mat[i];
-  for (int i = threadIdx.x; i < kCamCols; i += blockDim.x) s_cam[i] = g_cam[i];
+  if (o_in == nullptr) {
+    for (int i = threadIdx.x; i < kCamCols; i += blockDim.x)
+      s_cam[i] = g_cam[i];
+  }
   for (int i = threadIdx.x; i < n_dims * 3; i += blockDim.x)
     s_seed[i] = g_seeds[i];
   __syncthreads();
@@ -253,32 +262,41 @@ megawave_kernel(const float* __restrict__ g_cam, const float* __restrict__ g_tri
   const ZSobol zs{mi, 32 - B, s_seed};
   const float* cam = s_cam;
 
-  // ---- camera ray: pixel decode, filter sample, pinhole ----
-  const uint32_t pm = mi >> log2_spp;
-  const float pxf = static_cast<float>(compact_bits_2(pm));
-  const float pyf = static_cast<float>(compact_bits_2(pm >> 1));
-  float u0, u1;
-  zs.d2(0, u0, u1);
-  float fx = fc.s2 * erf_inv(fminf(fmaxf((2.0f * u0 - 1.0f) * fc.zx,
-                                         -0.999999f), 0.999999f));
-  fx = fminf(fmaxf(fx, -fc.rx), fc.rx);
-  const float pdf_x = expf(-fx * fx * fc.inv_2s2) * fc.norm / fc.zx;
-  float fy = fc.s2 * erf_inv(fminf(fmaxf((2.0f * u1 - 1.0f) * fc.zy,
-                                         -0.999999f), 0.999999f));
-  fy = fminf(fmaxf(fy, -fc.ry), fc.ry);
-  const float pdf_y = expf(-fy * fy * fc.inv_2s2) * fc.norm / fc.zy;
-  const float gx = fmaxf(expf(-fx * fx * fc.inv_2s2) - fc.ex, 0.0f);
-  const float gy = fmaxf(expf(-fy * fy * fc.inv_2s2) - fc.ey, 0.0f);
-  fw_out[lane] = (gx * gy) / fmaxf(pdf_x * pdf_y, 1e-12f);
+  F3 o, d;
+  if (o_in != nullptr) {
+    // ---- camera ray given (megakernel v1) ----
+    o = F3{o_in[3 * lane], o_in[3 * lane + 1], o_in[3 * lane + 2]};
+    d = F3{d_in[3 * lane], d_in[3 * lane + 1], d_in[3 * lane + 2]};
+  } else {
+    // ---- camera ray: pixel decode, filter sample, pinhole ----
+    const uint32_t pm = mi >> log2_spp;
+    const float pxf = static_cast<float>(compact_bits_2(pm));
+    const float pyf = static_cast<float>(compact_bits_2(pm >> 1));
+    float u0, u1;
+    zs.d2(0, u0, u1);
+    float fx = fc.s2 * erf_inv(fminf(fmaxf((2.0f * u0 - 1.0f) * fc.zx,
+                                           -0.999999f), 0.999999f));
+    fx = fminf(fmaxf(fx, -fc.rx), fc.rx);
+    const float pdf_x = expf(-fx * fx * fc.inv_2s2) * fc.norm / fc.zx;
+    float fy = fc.s2 * erf_inv(fminf(fmaxf((2.0f * u1 - 1.0f) * fc.zy,
+                                           -0.999999f), 0.999999f));
+    fy = fminf(fmaxf(fy, -fc.ry), fc.ry);
+    const float pdf_y = expf(-fy * fy * fc.inv_2s2) * fc.norm / fc.zy;
+    const float gx = fmaxf(expf(-fx * fx * fc.inv_2s2) - fc.ex, 0.0f);
+    const float gy = fmaxf(expf(-fy * fy * fc.inv_2s2) - fc.ey, 0.0f);
+    fw_out[lane] = (gx * gy) / fmaxf(pdf_x * pdf_y, 1e-12f);
 
-  const float sx = cam[12] + ((pxf + 0.5f + fx) / cam[17]) * (cam[14] - cam[12]);
-  const float sy = cam[15] - ((pyf + 0.5f + fy) / cam[18]) * (cam[15] - cam[13]);
-  const float dcx = sx * cam[16];
-  const float dcy = sy * cam[16];
-  F3 d = normalize3(F3{cam[0] * dcx + cam[1] * dcy + cam[2],
-                       cam[4] * dcx + cam[5] * dcy + cam[6],
-                       cam[8] * dcx + cam[9] * dcy + cam[10]}, nullptr);
-  F3 o{cam[3], cam[7], cam[11]};
+    const float sx =
+        cam[12] + ((pxf + 0.5f + fx) / cam[17]) * (cam[14] - cam[12]);
+    const float sy =
+        cam[15] - ((pyf + 0.5f + fy) / cam[18]) * (cam[15] - cam[13]);
+    const float dcx = sx * cam[16];
+    const float dcy = sy * cam[16];
+    d = normalize3(F3{cam[0] * dcx + cam[1] * dcy + cam[2],
+                      cam[4] * dcx + cam[5] * dcy + cam[6],
+                      cam[8] * dcx + cam[9] * dcy + cam[10]}, nullptr);
+    o = F3{cam[3], cam[7], cam[11]};
+  }
 
   float beta[4] = {1.0f, 1.0f, 1.0f, 1.0f};
   float L[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -473,18 +491,21 @@ megawave_kernel(const float* __restrict__ g_cam, const float* __restrict__ g_tri
 
 // cam (19,), tri (n_tris*16,), attr (n_real*11,), light (n_lights*16,),
 // mat (n_mats*3,) float32; seeds (n_dims*3,) and sobol01 (64,) uint32;
-// mi (n,) uint32; lam, le, L (n, 4) float32, 16-byte aligned; fw (n,)
-// float32. Runs on the calling thread's current device, which the caller
-// sets to the one the tensors live on. Returns cudaGetLastError() after
-// the launch.
+// mi (n,) uint32; lam, le, L (n, 4) float32, 16-byte aligned; o, d (n, 3)
+// float32 camera rays, or both null for rays made in the kernel from cam;
+// fw (n,) float32, written only when o is null (cam may then be null).
+// Runs on the calling thread's current device, which the caller sets to
+// the one the tensors live on. Returns cudaGetLastError() after the
+// launch.
 extern "C" int megawave_launch(
     const float* cam, const float* tri, const float* attr, const float* light,
     const float* mat, const uint32_t* seeds, const uint32_t* sobol01,
-    const uint32_t* mi, const float* lam, const float* le, float* L,
-    float* fw, int n, int n_tris, int n_real, int n_mats, int n_lights,
-    int n_dims, int max_depth, int rr_start, int B, int log2_spp,
-    int ls_uniform, float s2, float inv_2s2, float norm, float zx, float zy,
-    float ex, float ey, float rx, float ry, void* stream) {
+    const uint32_t* mi, const float* lam, const float* le, const float* o,
+    const float* d, float* L, float* fw, int n, int n_tris, int n_real,
+    int n_mats, int n_lights, int n_dims, int max_depth, int rr_start, int B,
+    int log2_spp, int ls_uniform, float s2, float inv_2s2, float norm,
+    float zx, float zy, float ex, float ey, float rx, float ry,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemcpyToSymbolAsync(c_sobol, sobol01,
                                             64 * sizeof(uint32_t), 0,
@@ -499,7 +520,7 @@ extern "C" int megawave_launch(
   megawave_kernel<<<blocks, kThreads, smem, st>>>(
       cam, tri, attr, light, mat, seeds, mi,
       reinterpret_cast<const float4*>(lam), reinterpret_cast<const float4*>(le),
-      reinterpret_cast<float4*>(L), fw, n, n_tris, n_real, n_mats, n_lights,
-      n_dims, max_depth, rr_start, B, log2_spp, ls_uniform, fc);
+      o, d, reinterpret_cast<float4*>(L), fw, n, n_tris, n_real, n_mats,
+      n_lights, n_dims, max_depth, rr_start, B, log2_spp, ls_uniform, fc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,16 @@
 """Path integrator (counterpart of pbrt_tpu/integrators/path.py): one wave
 of camera paths, through the megakernel or the general wave.
 
-The general wave (`trace_paths`) keeps every lane's state in tensors and
+`trace_paths` takes camera rays. As in the reference, it hands an eligible
+scene's wave to the megakernel with the rays given (`megawave.trace`)
+unless `PathOptions.megakernel` is False or the rays carry a `time`; the
+reference does so on its chip only, the port wherever it runs.
+`render_wave` makes the rays itself: the megakernel with in-kernel camera
+rays (`megawave.trace_full`) where that is eligible, else the general
+wave, never the rays-in megakernel (the reference passes the camera's
+time for that).
+
+The general wave keeps every lane's state in tensors and
 runs one depth at a time: the closest hit, emission with MIS at area-light
 hits, escaped rays to the uniform infinite lights, next-event estimation
 with an any-hit shadow ray, the BSDF sample (diffuse or hair) and Russian
@@ -42,18 +51,26 @@ DIMS_PER_BOUNCE = megawave.DIMS_PER_BOUNCE
 class PathOptions:
     max_depth: int = 5
     rr_start_depth: int = 1
-    # the megakernel for eligible scenes: "auto" (used whenever the scene,
-    # sampler, camera and filter are eligible) or False (the general wave)
+    # the megakernel for eligible scenes: "auto" or True (used whenever the
+    # scene and sampler, and for render_wave the camera and filter, are
+    # eligible) or False (the general wave)
     megakernel: object = "auto"
 
 
-def _use_megawave(scene, sampler, camera, filt, opts) -> bool:
-    if opts.megakernel is False:
+def _megakernel_allowed(opts) -> bool:
+    mk = opts.megakernel
+    if mk is False:
         return False
-    if opts.megakernel != "auto":
-        raise ValueError(f"PathOptions.megakernel must be False or 'auto', "
-                         f"not {opts.megakernel!r}")
-    return megawave.eligible_full(scene, sampler, camera, filt)
+    if mk is not True and mk != "auto":
+        raise ValueError(f"PathOptions.megakernel must be False, True or "
+                         f"'auto', not {mk!r}")
+    return True
+
+
+def _use_megawave(scene, sampler, opts, time=None) -> bool:
+    """The reference's routing of trace_paths to the rays-in megakernel."""
+    return (time is None and _megakernel_allowed(opts)
+            and megawave.eligible(scene, sampler))
 
 
 def _to_local(ns, t1, t2, w):
@@ -104,9 +121,21 @@ def _nee(scene, sampler, px, py, si, lam, spec_cache, isect, ns, ng, t1, t2,
 
 
 def trace_paths(scene, sampler, px, py, sample_index, o, d,
-                swl: spc.SampledWavelengths, opts: PathOptions):
+                swl: spc.SampledWavelengths, opts: PathOptions, time=None):
     """Trace one wave of paths from camera rays o, d (N, 3). Returns L
-    (N, 4) spectral radiance (the film divides by swl.pdf)."""
+    (N, 4) spectral radiance (the film divides by swl.pdf). time: the
+    rays' time, if they have one (it keeps them off the megakernel, as in
+    the reference)."""
+    if _use_megawave(scene, sampler, opts, time):
+        return megawave.trace(scene, sampler, px, py, sample_index, o, d,
+                              swl.lam, max_depth=opts.max_depth,
+                              rr_start=opts.rr_start_depth)
+    return _general_wave(scene, sampler, px, py, sample_index, o, d, swl,
+                         opts)
+
+
+def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
+    """The general wave of trace_paths."""
     N = o.shape[0]
     lam = swl.lam
     spec_cache = None
@@ -195,24 +224,38 @@ def trace_paths(scene, sampler, px, py, sample_index, o, d,
     return L
 
 
-def render_wave(scene, camera, sampler, filt, pixel_idx: torch.Tensor,
-                sample_index: torch.Tensor, opts: PathOptions):
-    """One wave over flat pixel ids (N,) and per-lane sample indices (N,).
-    Returns (spectral L (N, 4), wavelengths, filter weight (N,))."""
+def camera_lanes(camera, sampler, pixel_idx, sample_index):
+    """A wave's lanes from flat pixel ids (N,) and sample indices (N,):
+    (px, py, the sampled wavelengths)."""
     px = pixel_idx % camera.width
     py = pixel_idx // camera.width
     u_lam = smp.sample_1d(sampler, px, py, sample_index, 5)
-    swl = spc.sample_visible_wavelengths(u_lam)
-    if _use_megawave(scene, sampler, camera, filt, opts):
-        L, fw = megawave.trace_full(scene, sampler, camera, filt, px, py,
-                                    sample_index, swl.lam,
-                                    max_depth=opts.max_depth,
-                                    rr_start=opts.rr_start_depth)
-        return L, swl, fw
+    return px, py, spc.sample_visible_wavelengths(u_lam)
+
+
+def camera_rays(camera, sampler, filt, px, py, sample_index):
+    """The general wave's camera front end: each lane's filter sample and
+    pinhole ray. Returns (o, d (N, 3), filter weight (N,))."""
     u_pix = smp.sample_pixel_2d(sampler, px, py, sample_index, 0)
     f_off, f_weight = flt.sample(filt, u_pix)
     p_film = torch.stack([px.to(torch.float32) + 0.5 + f_off[:, 0],
                           py.to(torch.float32) + 0.5 + f_off[:, 1]], dim=-1)
     o, d, cam_wt = cam_mod.generate_ray_weighted(camera, p_film)
-    L = trace_paths(scene, sampler, px, py, sample_index, o, d, swl, opts)
-    return L, swl, f_weight * cam_wt
+    return o, d, f_weight * cam_wt
+
+
+def render_wave(scene, camera, sampler, filt, pixel_idx: torch.Tensor,
+                sample_index: torch.Tensor, opts: PathOptions):
+    """One wave over flat pixel ids (N,) and per-lane sample indices (N,).
+    Returns (spectral L (N, 4), wavelengths, filter weight (N,))."""
+    px, py, swl = camera_lanes(camera, sampler, pixel_idx, sample_index)
+    if _megakernel_allowed(opts) and megawave.eligible_full(scene, sampler,
+                                                             camera, filt):
+        L, fw = megawave.trace_full(scene, sampler, camera, filt, px, py,
+                                    sample_index, swl.lam,
+                                    max_depth=opts.max_depth,
+                                    rr_start=opts.rr_start_depth)
+        return L, swl, fw
+    o, d, weight = camera_rays(camera, sampler, filt, px, py, sample_index)
+    L = _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts)
+    return L, swl, weight

@@ -1,5 +1,6 @@
 """The host BVH builders in C++ (counterpart of pbrt_tpu/native/__init__.py):
-the binned-SAH binary build and its collapse into 8-wide nodes.
+the binned-SAH binary build, its collapse into 8-wide nodes (whole or from
+a subtree root) and the subtree primitive ranges.
 
 The sources are the port's copies of the JAX package's own
 (csrc/host/bvh_builder.cpp and bvh8_collapse.cpp, held byte for byte to
@@ -41,6 +42,8 @@ SIGNATURES = {
     # nodes_bin, m, max_leaf, root, prim_base, out, cap, n_out, depth_out
     "collapse_bvh8": [_FP, ctypes.c_long, ctypes.c_int, ctypes.c_long,
                       ctypes.c_long, _FP, ctypes.c_long, _LP, _IP],
+    # nodes_bin, m, start_out, count_out
+    "bvh_subtree_ranges": [_FP, ctypes.c_long, _LP, _LP],
 }
 
 
@@ -101,7 +104,7 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = None if name == "bvh_subtree_ranges" else ctypes.c_int
     return lib
 
 
@@ -125,19 +128,34 @@ def build_bvh(prim_lo, prim_hi, max_leaf: int = 4):
     return nodes[:n_nodes.value].copy(), order
 
 
-def collapse_bvh8(nodes_bin, max_leaf: int = 8):
-    """Collapse a flattened binary BVH (M, 8) into 8-wide nodes from the
-    root. Returns (node_data (n, 72) float32, depth)."""
+def collapse_bvh8(nodes_bin, max_leaf: int = 8, root: int = 0,
+                  prim_base: int = 0):
+    """Collapse a flattened binary BVH (M, 8) into 8-wide nodes from binary
+    node `root`; leaf starts are given relative to `prim_base` (a
+    subtree's first primitive, for chunk-local indices). Returns
+    (node_data (n, 72) float32, depth)."""
     nb = np.ascontiguousarray(nodes_bin, np.float32)
     m = nb.shape[0]
-    cap = m + 1          # a collapse never has more nodes than its input
+    cap = m + 1     # a collapse never has more nodes than its input
     out = np.zeros((cap, 72), np.float32)
     n_out = ctypes.c_long(0)
     depth = ctypes.c_int(0)
     rc = load_library().collapse_bvh8(
-        nb.ctypes.data_as(_FP), m, int(max_leaf), 0, 0,
-        out.ctypes.data_as(_FP), cap, ctypes.byref(n_out),
-        ctypes.byref(depth))
+        nb.ctypes.data_as(_FP), m, int(max_leaf), int(root), int(prim_base),
+        out.ctypes.data_as(_FP), cap, ctypes.byref(n_out), ctypes.byref(depth))
     if rc != 0:
         raise RuntimeError(f"collapse_bvh8 failed with code {rc}")
     return out[:n_out.value].copy(), depth.value
+
+
+def subtree_ranges(nodes_bin):
+    """(start, count) int64 (M,): the first primitive and the primitive
+    count of every node's subtree in a flattened binary BVH (M, 8)."""
+    nb = np.ascontiguousarray(nodes_bin, np.float32)
+    m = nb.shape[0]
+    start = np.zeros(m, np.int64)
+    count = np.zeros(m, np.int64)
+    load_library().bvh_subtree_ranges(
+        nb.ctypes.data_as(_FP), m, start.ctypes.data_as(_LP),
+        count.ctypes.data_as(_LP))
+    return start, count

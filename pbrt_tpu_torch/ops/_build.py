@@ -42,15 +42,25 @@ SIGNATURES = {
         "tri_intersect_launch": [_P] * 8 + [_I] * 4 + [_P],
     },
     "megawave": {
-        # cam, tri, attr, light, mat, seeds, sobol01, mi, lam, le, L, fw,
-        # n, n_tris, n_real, n_mats, n_lights, n_dims, max_depth, rr_start,
-        # B, log2_spp, ls_uniform, 9 filter constants, stream
-        "megawave_launch": [_P] * 12 + [_I] * 11 + [_F] * 9 + [_P],
+        # cam, tri, attr, light, mat, seeds, sobol01, mi, lam, le, o, d, L,
+        # fw, n, n_tris, n_real, n_mats, n_lights, n_dims, max_depth,
+        # rr_start, B, log2_spp, ls_uniform, 9 filter constants, stream
+        "megawave_launch": [_P] * 14 + [_I] * 11 + [_F] * 9 + [_P],
     },
     "bvh8": {
         # nodes_f, nodes_q, tris, prim_indices, o, d, t_max, t, prim, b1,
         # b2, n, any_hit, stream
         "bvh8_intersect_launch": [_P] * 11 + [_I] * 2 + [_P],
+    },
+    "bvh8_forest": {
+        # meta, pages, o, d, t_max, t, prim, b1, b2, n, n_chunks,
+        # page_floats, any_hit, stream
+        "bvh8_forest_launch": [_P] * 9 + [_I] * 4 + [_P],
+    },
+    "bvh8_binned": {
+        # nodes_f, nodes_q, tris, page_start, sched, valid, o, d, t, slot,
+        # b1, b2, n, P, nfl, nql, tl, any_hit, stream
+        "bvh8_binned_launch": [_P] * 12 + [_I] * 6 + [_P],
     },
     "bvh2": {
         # nodes, insts, tris, o, d, t_max, t, prim, b1, b2, inst, n,

@@ -133,10 +133,13 @@ def quantize_nodes(node_data: np.ndarray):
     return nodes_f, nodes_q
 
 
-def collapse_to_bvh8(nodes_bin: np.ndarray, max_leaf: int = MAX_LEAF):
-    """Collapse a flattened binary SAH BVH into 8-wide nodes (native).
-    Returns (node_data (n, 72) f32, depth)."""
-    node_data, depth = native.collapse_bvh8(nodes_bin, max_leaf)
+def collapse_to_bvh8(nodes_bin: np.ndarray, max_leaf: int = MAX_LEAF,
+                     prim_base: int = 0):
+    """Collapse a flattened binary SAH BVH into 8-wide nodes (native) from
+    its root, leaf starts relative to `prim_base`. Returns (node_data (n,
+    72) f32, depth)."""
+    node_data, depth = native.collapse_bvh8(nodes_bin, max_leaf,
+                                            prim_base=prim_base)
     if depth * (WIDTH - 1) + 1 > STACK:
         raise ValueError(f"BVH8 depth {depth} overflows the {STACK}-entry "
                          "traversal stack")
@@ -151,6 +154,18 @@ def pack_tris_flat(tri_geo_ordered) -> np.ndarray:
     out[:, 0:3] = t[:, 0:3]
     out[:, 3:6] = t[:, 3:6] - t[:, 0:3]
     out[:, 6:9] = t[:, 6:9] - t[:, 0:3]
+    return out.reshape(-1)
+
+
+def pack_tris_flat10(tri_geo_ordered) -> np.ndarray:
+    """(T, 10) [p0, p1, p2, orig_id] -> flat (T*10,) [p0, e1, e2, orig_id]
+    (the forest's triangle rows)."""
+    t = np.asarray(tri_geo_ordered, np.float32)
+    out = np.empty_like(t)
+    out[:, 0:3] = t[:, 0:3]
+    out[:, 3:6] = t[:, 3:6] - t[:, 0:3]
+    out[:, 6:9] = t[:, 6:9] - t[:, 0:3]
+    out[:, 9] = t[:, 9]
     return out.reshape(-1)
 
 
@@ -173,6 +188,188 @@ def build_bvh8(prim_lo, prim_hi, tri_geo, max_leaf: int = MAX_LEAF,
                                              device=device),
                 n_nodes=node_data.shape[0], n_tris=tg.shape[0],
                 depth=int(depth))
+
+
+# ---------------------------------------------------------------------------
+# Paged builds (reference BVH8Chunked / BVH8Forest): the binary SAH tree cut
+# into subtree chunks whose pages fit a block's shared memory; each chunk
+# is a BVH8 of its own. Traversed by ops/bvh8_pages.py.
+
+SMEM_BYTES = 232448       # the most dynamic shared memory an H100 block has
+LANES = 128               # page rows of the reference's (rows, 128) layout
+
+
+@dataclasses.dataclass
+class BVH8Chunked:
+    """Quantised BVH8 pages (reference BVH8Chunked): nodes_f (K, NFL) f32,
+    nodes_q (K, NQL) i32, tris (K, TL) f32, each row one chunk's BVH8
+    tables zero-padded to a multiple of 128; page_start (K,) i32, the
+    chunk's first triangle in leaf order; prim_indices (T,) i32."""
+    nodes_f: torch.Tensor
+    nodes_q: torch.Tensor
+    tris: torch.Tensor
+    page_start: torch.Tensor
+    prim_indices: torch.Tensor
+    n_chunks: int
+    n_tris: int
+    depth: int
+
+    @property
+    def page_bytes(self) -> int:
+        return 4 * (self.nodes_f.shape[1] + self.nodes_q.shape[1]
+                    + self.tris.shape[1])
+
+
+@dataclasses.dataclass
+class BVH8Forest:
+    """Unquantised BVH8 pages (reference BVH8Forest): meta (K*8,) f32 per
+    chunk [n_nodes, tri_base (page floats before the triangles), root lo
+    xyz, hi xyz]; pages (K, rows, 128) f32, each the chunk's 72-float nodes
+    (children [lo3, hi3, first, cnt], cnt 0 interior, -1 empty; the axis
+    at float 64) then its 10-float triangles [p0, e1, e2, original id];
+    prim_indices (T,) i32."""
+    meta: torch.Tensor
+    pages: torch.Tensor
+    prim_indices: torch.Tensor
+    n_chunks: int
+    rows: int
+    n_tris: int
+    depth: int
+
+    @property
+    def page_bytes(self) -> int:
+        return 4 * self.rows * LANES
+
+
+def partition_chunk_roots(nodes_bin: np.ndarray, budget: int):
+    """Greedy DFS partition of a flattened binary SAH BVH into subtree
+    chunk roots whose estimated page (50 B a triangle, 1.3x margin) fits
+    `budget` bytes. Returns (chunk_roots, start, count, is_leaf, roff)."""
+    nb = np.asarray(nodes_bin)
+    roff = np.round(nb[:, 6]).astype(np.int64)
+    is_leaf = (np.round(nb[:, 7]).astype(np.int64) >> 2) > 0
+    start, count = native.subtree_ranges(nodes_bin)
+    chunk_roots = []
+    stack = [0]
+    while stack:
+        s = stack.pop()
+        if int(count[s] * 50 * 1.3) <= budget or is_leaf[s]:
+            chunk_roots.append(s)
+        else:
+            stack.append(roff[s])
+            stack.append(s + 1)
+    return chunk_roots, start, count, is_leaf, roff
+
+
+def _pad_to_lanes(n: int) -> int:
+    return -(-n // LANES) * LANES
+
+
+def _collapse_chunk(nb, root: int, prim_base: int, max_leaf: int):
+    """collapse_to_bvh8 of the subtree at binary node `root`, on a copy of
+    just that subtree: in the depth-first layout it is the contiguous run
+    from `root` to the leaf at the end of its rightmost path, so child
+    offsets shift by `root` and the native collapse (which sweeps every
+    node it is given) costs the chunk's size, not the tree's. Same rows as
+    collapsing the whole array from `root`."""
+    end = root
+    while (int(round(float(nb[end, 7]))) >> 2) == 0:    # interior
+        end = int(round(float(nb[end, 6])))
+    sub = nb[root:end + 1].copy()
+    interior = (np.round(sub[:, 7]).astype(np.int64) >> 2) == 0
+    sub[interior, 6] -= root
+    return collapse_to_bvh8(sub, max_leaf, prim_base=prim_base)
+
+
+def build_bvh8_chunked(prim_lo, prim_hi, tri_geo, max_leaf: int = MAX_LEAF,
+                       binary_bvh=None, budget: int = SMEM_BYTES,
+                       device="cuda") -> BVH8Chunked:
+    """Chunked quantised pages on `device`, each page (NFL + NQL + TL) * 4
+    bytes at most `budget`: the partition shrinks and repeats until the
+    padded pages fit. tri_geo: (T, 10) rows in original order."""
+    device = dev_mod.resolve(device)
+    b = binary_bvh if binary_bvh is not None \
+        else bvh_mod.build_bvh(prim_lo, prim_hi, max_leaf=4)
+    order = np.asarray(b.prim_indices)
+    tg = np.asarray(tri_geo, np.float32)[order]
+    nb = np.ascontiguousarray(np.asarray(b.nodes), np.float32)
+    part_budget = budget
+    for _ in range(8):
+        chunk_roots, start, count, _, _ = partition_chunk_roots(
+            nb, part_budget)
+        nf_pages, nq_pages, tri_pages, starts = [], [], [], []
+        max_depth = 0
+        for s in chunk_roots:
+            nd, dep = _collapse_chunk(nb, s, int(start[s]), max_leaf)
+            max_depth = max(max_depth, dep)
+            nf, nq = quantize_nodes(nd)
+            nf_pages.append(nf)
+            nq_pages.append(nq)
+            tri_pages.append(
+                pack_tris_flat(tg[start[s]:start[s] + count[s]]))
+            starts.append(int(start[s]))
+        widths = [_pad_to_lanes(max(p.shape[0] for p in pages))
+                  for pages in (nf_pages, nq_pages, tri_pages)]
+        if 4 * sum(widths) <= budget:
+            break
+        part_budget = int(part_budget * 0.7)
+    else:
+        raise RuntimeError(f"chunk pages ({4 * sum(widths)} B) exceed the "
+                           f"budget of {budget} B after 8 partitions")
+    K = len(nf_pages)
+    tables = [np.zeros((K, w), dt) for w, dt in
+              zip(widths, (np.float32, np.int32, np.float32))]
+    for table, pages in zip(tables, (nf_pages, nq_pages, tri_pages)):
+        for k, p in enumerate(pages):
+            table[k, :p.shape[0]] = p
+    nodes_f, nodes_q, tris = (torch.as_tensor(x, device=device)
+                              for x in tables)
+    return BVH8Chunked(nodes_f=nodes_f, nodes_q=nodes_q, tris=tris,
+                       page_start=torch.as_tensor(np.asarray(starts,
+                                                             np.int32),
+                                                  device=device),
+                       prim_indices=torch.as_tensor(order.astype(np.int32),
+                                                    device=device),
+                       n_chunks=K, n_tris=tg.shape[0], depth=max_depth)
+
+
+def build_bvh8_forest(prim_lo, prim_hi, tri_geo, max_leaf: int = MAX_LEAF,
+                      binary_bvh=None, page_budget: int = SMEM_BYTES,
+                      device="cuda") -> BVH8Forest:
+    """Forest pages on `device`, each at most `page_budget` bytes (the
+    reference's partition estimate; a page over it raises). tri_geo: (T,
+    10) rows in original order."""
+    device = dev_mod.resolve(device)
+    b = binary_bvh if binary_bvh is not None \
+        else bvh_mod.build_bvh(prim_lo, prim_hi, max_leaf=4)
+    order = np.asarray(b.prim_indices)
+    tg = np.asarray(tri_geo, np.float32)[order]
+    nb = np.ascontiguousarray(np.asarray(b.nodes), np.float32)
+    chunk_roots, start, count, _, _ = partition_chunk_roots(nb, page_budget)
+    pages, metas = [], []
+    max_depth = 0
+    for s in chunk_roots:
+        nd, dep = _collapse_chunk(nb, s, int(start[s]), max_leaf)
+        max_depth = max(max_depth, dep)
+        node_flat = nd.reshape(-1)
+        page = np.concatenate(
+            [node_flat, pack_tris_flat10(tg[start[s]:start[s] + count[s]])])
+        if page.nbytes > page_budget:
+            raise ValueError(f"chunk page {page.nbytes} B exceeds the page "
+                             f"budget of {page_budget} B")
+        pages.append(page)
+        metas.append([nd.shape[0], node_flat.shape[0], *nb[s, :6]])
+    rows = max(-(-p.shape[0] // LANES) for p in pages)
+    K = len(pages)
+    pg = np.zeros((K, rows * LANES), np.float32)
+    for k, p in enumerate(pages):
+        pg[k, :p.shape[0]] = p
+    return BVH8Forest(
+        meta=torch.as_tensor(np.asarray(metas, np.float32).reshape(-1),
+                             device=device),
+        pages=torch.as_tensor(pg.reshape(K, rows, LANES), device=device),
+        prim_indices=torch.as_tensor(order.astype(np.int32), device=device),
+        n_chunks=K, rows=rows, n_tris=tg.shape[0], depth=max_depth)
 
 
 # ---------------------------------------------------------------------------
@@ -224,25 +421,53 @@ def _tri_test(r, o, d):
     return t, u_n * inv_det, v_n * inv_det, valid
 
 
-def bvh8_intersect_plain(b8: BVH8, o, d, t_max, any_hit: bool):
-    """Plain PyTorch traversal. o, d (N, 3) f32; t_max (N,) f32. Returns
-    (t (N,) = inf on a miss, prim (N,) int32 original id = -1 on a miss,
-    b1, b2 (N,) = 0 on a miss). Each loop pass pops one node on every lane
-    whose stack is not empty. counter.work: node visits and triangle
-    tests of the run."""
-    counter.plain += 1
-    work = dict(node_visits=0, tri_tests=0)
+def quantised_nodes(nodes_f, nodes_q, base_f=0, base_q=0):
+    """Node decoder of quantised BVH8 tables for `walk`: flat nodes_f and
+    nodes_q, each lane's page starting at base_f / base_q ((n,) or 0)."""
+    ar_f = torch.arange(NF_F, device=nodes_f.device)
+    ar_q = torch.arange(NQ_I, device=nodes_f.device)
+
+    def decode(cur, lanes):
+        bf = base_f[lanes] if torch.is_tensor(base_f) else base_f
+        bq = base_q[lanes] if torch.is_tensor(base_q) else base_q
+        fr = nodes_f[(bf + 8 + cur * NF_F)[:, None] + ar_f]
+        qq = nodes_q[(bq + cur * NQ_I)[:, None] + ar_q].view(-1, WIDTH, 3)
+        w0, w1, first = qq[..., 0], qq[..., 1], qq[..., 2]
+        lo = torch.stack([fr[:, None, c] + ((w0 >> (8 * c)) & 255)
+                          .to(torch.float32) * fr[:, None, 3 + c]
+                          for c in range(3)], dim=-1)
+        hi = torch.stack([fr[:, None, c] + ((w1 >> (8 * c)) & 255)
+                          .to(torch.float32) * fr[:, None, 3 + c]
+                          for c in range(3)], dim=-1)
+        return (lo, hi, first.to(torch.int64), (w0 >> 24) & 255,
+                fr[:, 6].round().to(torch.int64))
+    return decode
+
+
+def triangle_rows(tris, stride, base=0):
+    """Triangle reader for `walk`: rows [p0, e1, e2] of `stride` floats in
+    flat `tris`, each lane's page starting at `base` ((n,) or 0)."""
+    ar9 = torch.arange(9, device=tris.device)
+
+    def rows(slot, lanes):
+        b = base[lanes] if torch.is_tensor(base) else base
+        return tris[(b + slot * stride)[:, None] + ar9]
+    return rows
+
+
+def walk(decode, rows, o, d, t_best, b1, b2, go, any_hit, work):
+    """Per-lane stack traversal of 8-wide nodes, vectorised over the lanes
+    whose stack is not empty: each loop pass pops one node on each of them.
+    decode(cur, lanes) -> (child lo, hi (n, 8, 3), first, count (n, 8),
+    axis (n,)) of node cur of each lane's tree; rows(slot, lanes) -> (m,
+    9) triangle rows. Lanes with `go` start at node 0. t_best, b1, b2 (N,)
+    hold the running hit and are updated in place. Returns the winning
+    triangle slot (N,) int64, -1 where none; adds node visits and triangle
+    tests to `work`."""
     dev = o.device
     N = o.shape[0]
-    frames = b8.nodes_f[8:].view(-1, NF_F)
-    q = b8.nodes_q.view(-1, WIDTH, 3)
-    tris = b8.tris.view(-1, 9)
     inv = 1.0 / torch.where(d == 0.0, 1e-20, d)
-    t_best = t_max.clone()
     slot = torch.full((N,), -1, dtype=torch.int64, device=dev)
-    b1 = torch.zeros((N,), dtype=torch.float32, device=dev)
-    b2 = torch.zeros_like(b1)
-    go = _slab(b8.nodes_f[0:3], b8.nodes_f[3:6], o, inv, t_best)
     stack = torch.zeros((N, STACK), dtype=torch.int32, device=dev)
     sp = go.to(torch.int64)              # the root sits in stack[:, 0]
     ar8 = torch.arange(WIDTH, device=dev)
@@ -255,16 +480,7 @@ def bvh8_intersect_plain(b8: BVH8, o, d, t_max, any_hit: bool):
         work["node_visits"] += n
         spl = sp[lanes] - 1
         cur = stack[lanes, spl].to(torch.int64)
-        fr = frames[cur]
-        qq = q[cur]
-        w0, w1, first = qq[..., 0], qq[..., 1], qq[..., 2]
-        cnt = (w0 >> 24) & 255
-        lo = torch.stack([fr[:, None, c] + ((w0 >> (8 * c)) & 255)
-                          .to(torch.float32) * fr[:, None, 3 + c]
-                          for c in range(3)], dim=-1)
-        hi = torch.stack([fr[:, None, c] + ((w1 >> (8 * c)) & 255)
-                          .to(torch.float32) * fr[:, None, 3 + c]
-                          for c in range(3)], dim=-1)
+        lo, hi, first, cnt, axis = decode(cur, lanes)
         ol, dl, il = o[lanes], d[lanes], inv[lanes]
         tb = t_best[lanes]
         mask = _slab(lo, hi, ol[:, None, :], il[:, None, :], tb[:, None])
@@ -273,8 +489,8 @@ def bvh8_intersect_plain(b8: BVH8, o, d, t_max, any_hit: bool):
         jj, cc, kk = torch.nonzero(cand, as_tuple=True)
         if jj.numel():
             work["tri_tests"] += jj.numel()
-            s = first[jj, cc].to(torch.int64) + kk
-            t, u, v, valid = _tri_test(tris[s], ol[jj], dl[jj])
+            s = first[jj, cc] + kk
+            t, u, v, valid = _tri_test(rows(s, lanes[jj]), ol[jj], dl[jj])
             ok = valid & (t < tb[jj])
             order = cc * MAX_LEAF + kk     # the kernel's test order
             if not any_hit:
@@ -293,18 +509,36 @@ def bvh8_intersect_plain(b8: BVH8, o, d, t_max, any_hit: bool):
             b1[w_lanes] = u[win]
             b2[w_lanes] = v[win]
         # interior children hit at entry, near side last (pops first)
-        axis = fr[:, 6].round().to(torch.int64)
         neg = dl.gather(1, axis[:, None])[:, 0] < 0.0
         perm = torch.where(neg[:, None], ar8, WIDTH - 1 - ar8)
         push = (mask & (cnt == 0)).gather(1, perm)
         rank = torch.cumsum(push.to(torch.int64), dim=1) - 1
-        rows = lanes[:, None].expand(-1, WIDTH)
-        stack[rows[push], (spl[:, None] + rank)[push]] = \
-            first.gather(1, perm)[push]
+        rows_ = lanes[:, None].expand(-1, WIDTH)
+        stack[rows_[push], (spl[:, None] + rank)[push]] = \
+            first.gather(1, perm)[push].to(torch.int32)
         new_sp = spl + push.sum(dim=1)
         if any_hit:
             new_sp = torch.where(slot[lanes] >= 0, 0, new_sp)
         sp[lanes] = new_sp
+    return slot
+
+
+def bvh8_intersect_plain(b8: BVH8, o, d, t_max, any_hit: bool):
+    """Plain PyTorch traversal. o, d (N, 3) f32; t_max (N,) f32. Returns
+    (t (N,) = inf on a miss, prim (N,) int32 original id = -1 on a miss,
+    b1, b2 (N,) = 0 on a miss). counter.work: node visits and triangle
+    tests of the run."""
+    counter.plain += 1
+    work = dict(node_visits=0, tri_tests=0)
+    N = o.shape[0]
+    inv = 1.0 / torch.where(d == 0.0, 1e-20, d)
+    t_best = t_max.clone()
+    b1 = torch.zeros((N,), dtype=torch.float32, device=o.device)
+    b2 = torch.zeros_like(b1)
+    go = _slab(b8.nodes_f[0:3], b8.nodes_f[3:6], o, inv, t_best)
+    slot = walk(quantised_nodes(b8.nodes_f, b8.nodes_q),
+                triangle_rows(b8.tris, 9), o, d, t_best, b1, b2, go,
+                any_hit, work)
     counter.work = work
     hit = slot >= 0
     prim = torch.where(hit, b8.prim_indices[slot.clamp(min=0)],

@@ -1,21 +1,25 @@
 """Whole-path megakernel for diffuse / area-light scenes (counterpart of
-pbrt_tpu/ops/megawave.py, megakernel v2: `trace_full`).
+pbrt_tpu/ops/megawave.py: megakernel v2, `trace_full`, and megakernel v1,
+`trace`).
 
 One lane traces one whole path: pixel decode from the morton|spp index,
 ZSobol camera dimensions, gaussian filter importance sample (Giles erf^-1),
-pinhole ray, then per depth the closest hit, emission with power-heuristic
-MIS, next-event estimation with a uniform or power-alias light pick and an
-any-hit shadow ray, the diffuse cosine BSDF sample and Russian roulette.
-Outputs: L at the lane's 4 wavelengths and the filter weight.
+pinhole ray -- or, for `trace`, the camera ray given from outside -- then
+per depth the closest hit, emission with power-heuristic MIS, next-event
+estimation with a uniform or power-alias light pick and an any-hit shadow
+ray, the diffuse cosine BSDF sample and Russian roulette. Outputs: L at
+the lane's 4 wavelengths, and the filter weight when the kernel made the
+camera ray.
 
 `wave_full` is the wrapper: CPU tensors run `wave_full_plain`, which is the
-reference's `_wave_kernel_full` + `_path_loop` as tensor ops over all lanes;
-CUDA tensors launch csrc/megawave.cu, or raise. The triangle, attribute,
-light and material tables keep the reference layouts (`scene_tables`).
-What the reference did for the TPU only — one-hot row selects, ints held
-as f32, compile-time depth unrolling and ablation knobs — is not carried
-over: rows are read by integer index and every loop bound is a run-time
-argument.
+reference's `_wave_kernel_full` / `_wave_kernel` + `_path_loop` as tensor
+ops over all lanes; CUDA tensors launch csrc/megawave.cu (one kernel, the
+camera section switched off when rays are given), or raise. The triangle,
+attribute, light and material tables keep the reference layouts
+(`scene_tables`). What the reference did for the TPU only -- one-hot row
+selects, ints held as f32, compile-time depth unrolling and ablation knobs
+-- is not carried over: rows are read by integer index and every loop
+bound is a run-time argument.
 """
 from __future__ import annotations
 
@@ -148,8 +152,10 @@ def eligible_full(scene, sampler, camera, filt) -> bool:
 @dataclasses.dataclass
 class FullWave:
     """Inputs of one megakernel launch. Tensors live on one device; mi is
-    the int64 morton|spp lane index (u32 values); lam and le are (N, 4)."""
-    cam: torch.Tensor
+    the int64 morton|spp lane index (u32 values); lam and le are (N, 4).
+    The camera rays are made in the kernel from cam and filt, or given as
+    o, d (N, 3) (then cam and filt are None)."""
+    cam: torch.Tensor | None
     tri: torch.Tensor
     attr: torch.Tensor
     light: torch.Tensor
@@ -166,17 +172,20 @@ class FullWave:
     B: int
     log2_spp: int
     ls_uniform: bool
-    filt: flt.Filter        # gaussian
+    filt: flt.Filter | None     # gaussian
+    o: torch.Tensor | None = None
+    d: torch.Tensor | None = None
 
     @property
     def seeds(self) -> np.ndarray:
         return seed_table(self.seed, self.max_depth)
 
 
-def prepare_full(scene, sampler, camera, filt, px, py, sample_index, lam,
-                 max_depth=5, rr_start=1) -> FullWave:
-    """Front end of trace_full in plain torch: the lane index, the light
-    spectrum at the lanes' wavelengths, and the constant tables."""
+def _prepare(scene, sampler, px, py, sample_index, lam, max_depth,
+             rr_start, **rays) -> FullWave:
+    """Front end of both entries in plain torch: the lane index, the light
+    spectrum at the lanes' wavelengths, and the constant tables; `rays`:
+    cam and filt, or o and d."""
     N = px.shape[0]
     mi = smp.morton_index(sampler, px, py, sample_index)
     meta = scene.mega
@@ -187,13 +196,28 @@ def prepare_full(scene, sampler, camera, filt, px, py, sample_index, lam,
         torch.ones((N,), dtype=torch.float32, device=lam.device), lam)
     attr, light, mat = scene_tables(scene)
     return FullWave(
-        cam=camera_table(camera, lam.device), tri=scene.tri_pallas,
-        attr=attr, light=light, mat=mat, mi=mi, lam=lam.contiguous(),
-        le=le.contiguous(), seed=int(sampler.seed),
+        tri=scene.tri_pallas, attr=attr, light=light, mat=mat, mi=mi,
+        lam=lam.contiguous(), le=le.contiguous(), seed=int(sampler.seed),
         n_real=meta.n_tris, n_mats=meta.n_mats, n_lights=meta.n_lights,
         max_depth=int(max_depth), rr_start=int(rr_start),
         B=smp.zsobol_index_bits(sampler), log2_spp=sampler.log2_spp,
-        ls_uniform=bool(meta.ls_uniform), filt=filt)
+        ls_uniform=bool(meta.ls_uniform), **rays)
+
+
+def prepare_full(scene, sampler, camera, filt, px, py, sample_index, lam,
+                 max_depth=5, rr_start=1) -> FullWave:
+    """The wave of trace_full: camera rays made in the kernel."""
+    return _prepare(scene, sampler, px, py, sample_index, lam, max_depth,
+                    rr_start, cam=camera_table(camera, lam.device),
+                    filt=filt)
+
+
+def prepare_rays(scene, sampler, px, py, sample_index, o, d, lam,
+                 max_depth=5, rr_start=1) -> FullWave:
+    """The wave of trace: camera rays o, d (N, 3) given."""
+    return _prepare(scene, sampler, px, py, sample_index, lam, max_depth,
+                    rr_start, cam=None, filt=None, o=o.contiguous(),
+                    d=d.contiguous())
 
 
 def trace_full(scene, sampler, camera, filt, px, py, sample_index, lam,
@@ -204,10 +228,20 @@ def trace_full(scene, sampler, camera, filt, px, py, sample_index, lam,
                                   sample_index, lam, max_depth, rr_start))
 
 
+def trace(scene, sampler, px, py, sample_index, o, d, lam, max_depth=5,
+          rr_start=1):
+    """Megakernel path trace of the camera rays o, d (N, 3) (reference
+    megawave.trace). Returns L (N, 4). Gate with eligible()."""
+    return wave_full(prepare_rays(scene, sampler, px, py, sample_index, o, d,
+                                  lam, max_depth, rr_start))[0]
+
+
 def wave_full(w: FullWave):
-    """The wrapper: plain version for CPU tensors, kernel for CUDA."""
-    tensors = (w.cam, w.tri, w.attr, w.light, w.mat, w.mi, w.lam, w.le)
-    devices = {x.device.type for x in tensors}
+    """The wrapper: plain version for CPU tensors, kernel for CUDA.
+    Returns (L (N, 4), filter weight (N,), None when rays were given)."""
+    tensors = (w.cam, w.tri, w.attr, w.light, w.mat, w.mi, w.lam, w.le,
+               w.o, w.d)
+    devices = {x.device.type for x in tensors if x is not None}
     if devices == {"cpu"}:
         return wave_full_plain(w)
     if devices != {"cuda"}:
@@ -305,24 +339,37 @@ def _camera_rays(w: FullWave, zs: _ZSobol):
 
 def wave_full_plain(w: FullWave):
     """Plain PyTorch version of the megakernel: all lanes, all depths, as
-    masked tensor ops (reference _path_loop). Returns (L (N, 4), fw (N,)).
-    counter.work["live_lane_depths"]: the closest-hit queries of lanes
-    still alive, the ones the kernel runs."""
+    masked tensor ops (reference _path_loop). Returns (L (N, 4), fw (N,),
+    None when rays were given). counter.work["live_lane_depths"]: the
+    closest-hit queries of lanes still alive, the ones the kernel runs."""
     counter.plain += 1
-    live = 0
     zs = _ZSobol(w.mi, w.seeds, w.B)
-    o, d, fw = _camera_rays(w, zs)
+    if w.o is None:
+        o, d, fw = _camera_rays(w, zs)
+    else:
+        o = tuple(w.o[:, c] for c in range(3))
+        d = tuple(w.d[:, c] for c in range(3))
+        fw = None
+    L, live = _path_loop(w, zs, o, d)
+    counter.work = dict(live_lane_depths=live)
+    return L, fw
+
+
+def _path_loop(w: FullWave, zs: _ZSobol, o, d):
+    """Every depth of every lane from camera rays o, d (component tuples).
+    Returns (L (N, 4), the closest-hit queries of live lanes)."""
+    live = 0
     attr_rows = w.attr.reshape(-1, ATTR_COLS)
     light_rows = w.light.reshape(-1, LIGHT_COLS)
     mat_rows = w.mat.reshape(-1, 3)
     lam4 = [w.lam[:, c] for c in range(4)]
     Le_in = [w.le[:, c] for c in range(4)]
-    ones = torch.ones_like(fw)
+    ones = torch.ones_like(lam4[0])
     beta = [ones] * 4
-    L = [torch.zeros_like(fw)] * 4
-    active = torch.ones_like(fw, dtype=torch.bool)
+    L = [torch.zeros_like(ones)] * 4
+    active = torch.ones_like(ones, dtype=torch.bool)
     prev_pdf = ones
-    t_far = torch.full_like(fw, 1e30)
+    t_far = torch.full_like(ones, 1e30)
 
     for depth in range(w.max_depth):
         live += int(active.sum())
@@ -468,8 +515,7 @@ def wave_full_plain(w: FullWave):
             o = _offset_origin(p, p_err, ng, wi_w)
             d = wi_w
 
-    counter.work = dict(live_lane_depths=live)
-    return torch.stack(L, dim=-1), fw
+    return torch.stack(L, dim=-1), live
 
 
 # ---------------------------------------------------------------------------
@@ -478,14 +524,19 @@ def wave_full_plain(w: FullWave):
 def _launch(w: FullWave):
     import ctypes
     from . import _build
-    for name in ("cam", "tri", "attr", "light", "mat", "lam", "le"):
+    rays = w.o is not None
+    names = ("tri", "attr", "light", "mat", "lam", "le") + \
+        (("o", "d") if rays else ("cam",))
+    for name in names:
         x = getattr(w, name)
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"megawave: {name} must be float32 contiguous")
     N = w.mi.shape[0]
     if w.lam.shape != (N, 4) or w.le.shape != (N, 4):
         raise ValueError("megawave: lam and le must be (N, 4)")
-    if w.cam.numel() != CAM_COLS:
+    if rays and not (w.o.shape == w.d.shape == (N, 3)):
+        raise ValueError("megawave: o and d must be (N, 3)")
+    if not rays and w.cam.numel() != CAM_COLS:
         raise ValueError("megawave: camera table must have 19 entries")
     dev = w.lam.device
     lib = _build.load_library("megawave")
@@ -497,17 +548,22 @@ def _launch(w: FullWave):
     lam, le = (x if x.data_ptr() % 16 == 0 else x.clone()
                for x in (w.lam, w.le))
     L = torch.empty((N, 4), dtype=torch.float32, device=dev)
-    fw = torch.empty((N,), dtype=torch.float32, device=dev)
+    fw = None if rays else torch.empty((N,), dtype=torch.float32, device=dev)
     if N == 0:
         return L, fw
-    c = flt.gaussian_constants(w.filt)
+    # the filter's constants, read only when the kernel makes the rays
+    c = dict.fromkeys(("s2", "inv_2s2", "norm", "zx", "zy", "ex", "ey", "rx",
+                       "ry"), 0.0) if rays else flt.gaussian_constants(w.filt)
     F = ctypes.c_float
     with torch.cuda.device(dev):
         err = lib.megawave_launch(
-            w.cam.data_ptr(), w.tri.data_ptr(), w.attr.data_ptr(),
-            w.light.data_ptr(), w.mat.data_ptr(), seeds.data_ptr(),
-            cols.data_ptr(), mi32.data_ptr(), lam.data_ptr(), le.data_ptr(),
-            L.data_ptr(), fw.data_ptr(),
+            None if rays else w.cam.data_ptr(), w.tri.data_ptr(),
+            w.attr.data_ptr(), w.light.data_ptr(), w.mat.data_ptr(),
+            seeds.data_ptr(), cols.data_ptr(), mi32.data_ptr(),
+            lam.data_ptr(), le.data_ptr(),
+            w.o.data_ptr() if rays else None,
+            w.d.data_ptr() if rays else None, L.data_ptr(),
+            None if rays else fw.data_ptr(),
             N, w.tri.numel() // 16, w.n_real, w.n_mats, w.n_lights,
             seeds.shape[0], w.max_depth, w.rr_start, w.B, w.log2_spp,
             int(w.ls_uniform),

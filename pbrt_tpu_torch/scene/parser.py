@@ -451,7 +451,7 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
                        "slice 4 item 21 (the other cameras)", dpos)
             if ps.float("lensradius", 0.0) > 0:
                 refuse("a thin-lens camera",
-                       "kernel queue 1 (megakernel v1) and slice 4", dpos)
+                       "slice 4 item 21 (the other cameras)", dpos)
             cam_params = dict(fov=ps.float("fov", 90.0),
                               camera_from_world=gs.ctm)
         elif tok == "Sampler":

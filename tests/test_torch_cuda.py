@@ -251,3 +251,92 @@ def test_curve_kernel_matches_plain(cuda_device, any_hit):
         assert torch.equal(got[k], want[k]), k
     assert torch.equal(got["curve_id"], torch.where(
         seg_p >= 0, rows[:, 14].round().long(), -1))
+
+
+@pytest.mark.cuda
+def test_megakernel_rays_in_matches_plain(cuda_device):
+    """Megakernel v1 (camera rays given, from the general wave's front
+    end): L bit for bit against the plain version."""
+    from pbrt_tpu_torch.integrators import path as path_mod
+    scene, cam = scenes.make_cornell_box(W, H, device=cuda_device)
+    sampler = smp.make_sampler("zsobol", spp=SPP, full_resolution=(W, H))
+    pix = torch.arange(W * H, device=cuda_device).repeat(SPP)
+    si = torch.arange(W * H * SPP, device=cuda_device) // (W * H)
+    px, py, swl = path_mod.camera_lanes(cam, sampler, pix, si)
+    o, d, _w = path_mod.camera_rays(cam, sampler, flt.make_filter("gaussian"),
+                                    px, py, si)
+    w = megawave.prepare_rays(scene, sampler, px, py, si, o, d, swl.lam,
+                              max_depth=5)
+    before = megawave.counter.launches
+    L, fw = megawave.wave_full(w)
+    torch.cuda.synchronize()
+    assert megawave.counter.launches == before + 1 and fw is None
+    L_p, fw_p = megawave.wave_full_plain(w)
+    assert fw_p is None and torch.equal(L, L_p)
+
+
+def _terrain(device, n=101, n_rays=1 << 14):
+    """tools/terrain_rays.py's terrain (20,000 triangles at n = 101), its
+    three builds, and raster and bounce rays."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import terrain_rays
+    from pbrt_tpu_torch.ops import bvh as bvh_mod
+    lo, hi, tri = terrain_rays.terrain_triangles(n)
+    b = bvh_mod.build_bvh(lo, hi)
+    V, _F = terrain_rays.make_terrain(n)
+    rays = [tuple(torch.as_tensor(a, device=device)
+                  for a in terrain_rays.gen_rays(V, kind, n_rays))
+            for kind in ("raster", "bounce")]
+    return (bvh8.build_bvh8_forest(lo, hi, tri, binary_bvh=b, device=device),
+            bvh8.build_bvh8_chunked(lo, hi, tri, binary_bvh=b,
+                                    device=device), rays)
+
+
+def _hold_paged(got, want, any_hit):
+    """Kernel vs plain: the hit flag equal; closest hit: t, prim, b1 and b2
+    bit for bit."""
+    assert torch.equal(got["hit"], want[1] >= 0)
+    if not any_hit:
+        for k, v in zip(("t", "prim", "b1", "b2"), want):
+            assert torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_forest_kernel_matches_plain(cuda_device, any_hit):
+    from pbrt_tpu_torch.ops import bvh8_pages as bp
+    forest, _c, rays = _terrain(cuda_device)
+    assert forest.n_chunks > 1
+    for o, d in rays:
+        t_max = torch.full((o.shape[0],), 30.0 if any_hit else 1e30,
+                           device=cuda_device)
+        before = bp.counter_forest.launches
+        got = bp.forest_intersect(forest, o, d, t_max, any_hit)
+        torch.cuda.synchronize()
+        assert bp.counter_forest.launches == before + 1
+        _hold_paged(got, bp.forest_intersect_plain(forest, o, d, t_max,
+                                                   any_hit), any_hit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_binned_kernel_matches_plain(cuda_device, any_hit):
+    """Two pages a round, so that the rounds loop runs several launches."""
+    from pbrt_tpu_torch.ops import bvh8_pages as bp
+    _f, chunked, rays = _terrain(cuda_device)
+    assert chunked.n_chunks > 2
+    for o, d in rays:
+        t_max = torch.full((o.shape[0],), 30.0 if any_hit else 1e30,
+                           device=cuda_device)
+        before = bp.counter_binned.launches
+        got = bp.binned_intersect(chunked, o, d, t_max, any_hit,
+                                  pages_per_round=2)
+        torch.cuda.synchronize()
+        assert got["rounds"] > 1
+        assert bp.counter_binned.launches == before + got["rounds"]
+        *want, rounds, copies = bp.binned_intersect_plain(
+            chunked, o, d, t_max, any_hit, pages_per_round=2)
+        assert (rounds, copies) == (got["rounds"], got["page_copies"])
+        _hold_paged(got, want, any_hit)

@@ -3,7 +3,11 @@
 trace_full wrapper on CPU tensors) against pbrt_tpu.ops.megawave.trace_full
 in Pallas interpret mode, with the inputs of the reference's own
 test_full_pipeline_matches_render_wave: cornell 16x16, 4 spp, sample index
-2, max depth 4. Tolerance: the reference's kernel gate, relative error
+2, max depth 4. The rays-in entry (megawave.trace, megakernel v1) and its
+route inside path.trace_paths against the reference's trace and
+trace_paths(megakernel=True) on the lanes of the reference's
+test_cornell_is_eligible_and_matches_fused (sample index 1, pixel-centre
+rays, max depth 4). Tolerance: the reference's kernel gate, relative error
 < 1e-4 with a 1e-3 floor, per lane. The CUDA kernel is held to this plain
 version on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 import os
@@ -103,3 +107,137 @@ def test_eligible_full_matches_reference_rule():
         assert megawave.eligible_full(scene, sampler, cam,
                                       flt.make_filter("gaussian")) is ok
 
+
+
+# ---------------------------------------------------------------------------
+# Megakernel v1: camera rays given (reference megawave.trace and its route
+# inside trace_paths), on the reference's own test lanes: cornell 16x16,
+# 4 spp, sample index 1, pixel-centre camera rays, max depth 4.
+
+@pytest.fixture(scope="module")
+def ray_lanes():
+    from pbrt_tpu import cameras as jcam
+    from pbrt_tpu.integrators import path as jpath
+    scene, cam, sampler, _arrays, _meta = export_cornell(W, H, SPP)
+    pix = np.arange(W * H)
+    px, py = jnp.asarray(pix % W), jnp.asarray(pix // W)
+    si = jnp.full((W * H,), 1, jnp.int32)
+    u_lens = jsmp.sample_2d(sampler, px, py, si, 3)
+    swl = jspc.sample_visible_wavelengths(jsmp.sample_1d(sampler, px, py,
+                                                         si, 5))
+    p_film = jnp.stack([px + 0.5, py + 0.5], -1).astype(jnp.float32)
+    o, d, _t, _w = jcam.generate_ray_weighted(cam, p_film, u_lens,
+                                              jnp.zeros((W * H,)))
+    L_trace = jmw.trace(scene, sampler, px, py, si, o, d, swl.lam,
+                        max_depth=MAX_DEPTH, rr_start=1, interpret=True)
+    L_paths = jpath.trace_paths(scene, sampler, px, py, si, o, d, swl,
+                                jpath.PathOptions(max_depth=MAX_DEPTH,
+                                                  megakernel=True))
+    return dict(px=np.asarray(px), py=np.asarray(py), si=np.asarray(si),
+                o=np.asarray(o), d=np.asarray(d), lam=np.asarray(swl.lam),
+                pdf=np.asarray(swl.pdf), L_trace=np.asarray(L_trace),
+                L_paths=np.asarray(L_paths))
+
+
+def _port_rays(r):
+    scene, _cam = scenes.make_cornell_box(W, H, device="cpu")
+    sampler = smp.make_sampler("zsobol", spp=SPP, full_resolution=(W, H))
+    px, py, si, o, d, lam = (torch.as_tensor(np.array(r[k])) for k in
+                             ("px", "py", "si", "o", "d", "lam"))
+    return scene, sampler, px, py, si, o, d, lam
+
+
+def test_trace_matches_reference(ray_lanes):
+    scene, sampler, px, py, si, o, d, lam = _port_rays(ray_lanes)
+    before = (megawave.counter.plain, megawave.counter.launches)
+    L = megawave.trace(scene, sampler, px, py, si, o, d, lam,
+                       max_depth=MAX_DEPTH, rr_start=1)
+    assert (megawave.counter.plain, megawave.counter.launches) == \
+        (before[0] + 1, before[1])
+    assert L.shape == (W * H, 4) and np.all(np.isfinite(L.numpy()))
+    assert (ray_lanes["L_trace"] > 0).mean() > 0.5
+    assert _rel(L.numpy(), ray_lanes["L_trace"]).max() < 1e-4
+
+
+def test_trace_plain_is_the_full_path_loop_on_the_same_rays():
+    """With the rays the in-kernel camera makes, the rays-in wave gives
+    the full wave's L bit for bit: one path loop serves both."""
+    scene, cam = scenes.make_cornell_box(W, H, device="cpu")
+    sampler = smp.make_sampler("zsobol", spp=SPP, full_resolution=(W, H))
+    pix = torch.arange(W * H)
+    px, py, si = pix % W, pix // W, torch.full((W * H,), 3)
+    lam = spc.sample_visible_wavelengths(smp.sample_1d(sampler, px, py, si,
+                                                       5)).lam
+    w = megawave.prepare_full(scene, sampler, cam, flt.make_filter("gaussian"),
+                              px, py, si, lam, max_depth=MAX_DEPTH)
+    zs = megawave._ZSobol(w.mi, w.seeds, w.B)
+    o, d, _fw = megawave._camera_rays(w, zs)
+    L_full, _ = megawave.wave_full_plain(w)
+    L_rays = megawave.trace(scene, sampler, px, py, si, torch.stack(o, -1),
+                            torch.stack(d, -1), lam, max_depth=MAX_DEPTH)
+    assert torch.equal(L_full, L_rays)
+
+
+def test_trace_paths_megakernel_true_matches_reference(ray_lanes,
+                                                      monkeypatch):
+    from pbrt_tpu_torch import scene_core
+    from pbrt_tpu_torch.integrators import path as path_mod
+    scene, sampler, px, py, si, o, d, lam = _port_rays(ray_lanes)
+    swl = spc.SampledWavelengths(lam=lam, pdf=torch.as_tensor(
+        np.array(ray_lanes["pdf"])))
+    queries = []
+    for name in ("intersect", "intersect_p"):
+        real = getattr(scene_core, name)
+        monkeypatch.setattr(scene_core, name, lambda *a, _f=real, **k:
+                            queries.append(1) or _f(*a, **k))
+    before = (megawave.counter.plain, megawave.counter.launches)
+    L = path_mod.trace_paths(scene, sampler, px, py, si, o, d, swl,
+                             path_mod.PathOptions(max_depth=MAX_DEPTH,
+                                                  megakernel=True))
+    # one plain megakernel run, no triangle query of the general wave
+    assert (megawave.counter.plain - before[0],
+            megawave.counter.launches - before[1], len(queries)) == (1, 0, 0)
+    assert _rel(L.numpy(), ray_lanes["L_paths"]).max() < 1e-4
+
+
+def test_megakernel_false_and_render_wave_never_reach_trace(ray_lanes,
+                                                            monkeypatch):
+    """megakernel=False, a time, and render_wave on every route stay off
+    the rays-in megakernel; "auto" and True take it from trace_paths."""
+    from pbrt_tpu_torch.integrators import path as path_mod
+    scene, sampler, px, py, si, o, d, lam = _port_rays(ray_lanes)
+    swl = spc.SampledWavelengths(lam=lam, pdf=torch.as_tensor(
+        np.array(ray_lanes["pdf"])))
+    calls = []
+    real = megawave.trace
+    monkeypatch.setattr(megawave, "trace",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+
+    def paths(mk, **kw):
+        return path_mod.trace_paths(scene, sampler, px, py, si, o, d, swl,
+                                    path_mod.PathOptions(max_depth=2,
+                                                         megakernel=mk),
+                                    **kw)
+    paths(False)
+    paths(True, time=torch.zeros(W * H))
+    assert calls == []
+    paths("auto")
+    paths(True)
+    assert len(calls) == 2
+    calls.clear()
+    # render_wave: the in-kernel camera, or (a sampler too deep for the
+    # in-kernel pixel decode) the general wave
+    _s, cam = scenes.make_cornell_box(W, H, device="cpu")
+    pix = torch.arange(W * H)
+    deep = smp.make_sampler("zsobol", spp=1 << 27, full_resolution=(W, H))
+    assert megawave.eligible(scene, deep)
+    assert not megawave.eligible_full(scene, deep, cam,
+                                      flt.make_filter("gaussian"))
+    for mk in ("auto", True, False):
+        for spl in (sampler, deep):
+            path_mod.render_wave(scene, cam, spl, flt.make_filter("gaussian"),
+                                 pix, si, path_mod.PathOptions(
+                                     max_depth=2, megakernel=mk))
+    assert calls == []
+    with pytest.raises(ValueError, match="megakernel"):
+        paths("yes")

@@ -122,6 +122,7 @@ def test_port_imports_no_jax(tmp_path):
         "import sys\n"
         "sys.path.insert(0, 'tools')\n"
         "import hair_scene\n"
+        "import terrain_rays\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in\n"
         "            ('torch', 'jax', 'pbrt_tpu', 'pbrt_tpu_torch')]\n"
         "import torch\n"
@@ -129,7 +130,7 @@ def test_port_imports_no_jax(tmp_path):
         "from pbrt_tpu_torch import scenes\n"
         "from pbrt_tpu_torch.integrators import render, path\n"
         "from pbrt_tpu_torch import convert, native\n"
-        "from pbrt_tpu_torch.ops import bvh2, bvh8, curves, tlas\n"
+        "from pbrt_tpu_torch.ops import bvh2, bvh8, bvh8_pages, curves, tlas\n"
         "from pbrt_tpu_torch.scene import parser\n"
         "from pbrt_tpu_torch.utils import image\n"
         "scene, cam = scenes.make_cornell_box(8, 8, device='cpu')\n"
@@ -156,6 +157,31 @@ def test_port_imports_no_jax(tmp_path):
         "                        device='cpu',\n"
         "                        opts=path.PathOptions(max_depth=2))\n"
         "assert curves.counter.plain == 4 and img4.mean() > 0\n"
+        "lo, hi, tri = terrain_rays.terrain_triangles(12)\n"
+        "V, _F = terrain_rays.make_terrain(12)\n"
+        "o, d = (torch.as_tensor(a) for a in\n"
+        "        terrain_rays.gen_rays(V, 'raster', 64))\n"
+        "f = bvh8.build_bvh8_forest(lo, hi, tri, page_budget=4096,\n"
+        "                           device='cpu')\n"
+        "c = bvh8.build_bvh8_chunked(lo, hi, tri, budget=4096,\n"
+        "                            device='cpu')\n"
+        "hf = bvh8_pages.forest_intersect(f, o, d, 1e30)\n"
+        "hb = bvh8_pages.binned_intersect(c, o, d, 1e30)\n"
+        "assert torch.equal(hf['prim'], hb['prim']) and hf['hit'].any()\n"
+        "o3, d3 = (torch.as_tensor(a) for a in\n"
+        "          terrain_rays.gen_rays(V, 'bounce', 8))\n"
+        "sc2, cam2 = scenes.make_cornell_box(4, 2, device='cpu')\n"
+        "from pbrt_tpu_torch import samplers\n"
+        "from pbrt_tpu_torch.utils import spectrum\n"
+        "spl = samplers.make_sampler('zsobol', spp=1,\n"
+        "                            full_resolution=(4, 2))\n"
+        "pix = torch.arange(8)\n"
+        "swl = spectrum.sample_visible_wavelengths(torch.rand(8))\n"
+        "L = path.trace_paths(sc2, spl, pix % 4, pix // 4, pix * 0,\n"
+        "                     o3 + 278.0, d3, swl,\n"
+        "                     path.PathOptions(max_depth=2))\n"
+        "from pbrt_tpu_torch.ops import megawave\n"
+        "assert L.shape == (8, 4) and megawave.counter.plain >= 2\n"
         "assert native.NATIVE_DIR.parts[-3:] == ('pbrt_tpu_torch', 'csrc',\n"
         "                                        'host')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
