@@ -94,14 +94,41 @@ Phases, each of which raises on failure (exit code 1):
      round's kernel, the pre-pass and the schedule apart), the whole-tree
      kernel on the same rays, each plain version, the rays-in megakernel
      beside the in-kernel-camera one, and the page bytes staged beside the
-     tables' bytes.
+     tables' bytes;
+ 26. the dma_probe library's ptxas report: registers, spills of its four
+     entries;
+ 27. the page-copy probes against their plain versions, bit for bit, and
+     against the values the TPU probes check: the 14 configurations of
+     tools/exp_dma_var.py, exp_dma_var2.py and exp_dma_min.py x the three
+     copy paths (ld, cp_async, bulk) at their own size (8 pages of 16
+     rows); then whole pages summed at the paged kernels' page sizes (420
+     pages of 226 rows pipelined, of 298 and 378 rows manual, the ladder's
+     stage 4, one copy of page 2);
+ 28. the timed matrix of tools/torch_dma_probe.py (run_matrix), launch
+     counts read around it: 420 pages, 1,024 blocks of 1,024 threads, 20
+     seeded schedule entries a block at 378 rows (20,480 copies, 3.96 GB,
+     the forest kernel's raster query with the traversal taken out), each
+     copy path x page size x {the copy alone, the copy and a full read},
+     manual and pipelined, the seeded order and every block's pages in
+     ascending order (the forest kernel's), dma_var at its own grid of two
+     blocks; CUDA events, medians; torch.index_select on the same schedules
+     beside them; the finding: the copies alone against the forest kernel's
+     time in this run, the best copy path over plain loads at each size;
+ 29. the patches path through the user entry points (parse_file ->
+     render): scenes/patches.pbrt, 12 exact bilinear patches over a
+     2-triangle ground, 200x200, 32 spp, max depth 3, the triangle queries
+     through the triangle kernel and the patches through tensor code,
+     launch counts read around it, the image gated against
+     goldens/patches_200_32spp.exr and written to pbrt_tpu_torch/_build/;
+ 30. its time in paths/s, set-up apart.
 Phase 2 builds every kernel (one nvcc per source, all started together)
 and the host BVH builder (g++). The line before the last is a JSON object
 with one entry per kernel, each with its bound: the larger of the bytes it
 must move over 3.35 TB/s and the f32 operations this run's rays needed
 (counted by the plain version) over 67 TFLOP/s, the H100 SXM's published
-peaks; no single PyTorch call computes any of these functions, so
-library_ms is null. The last line is {"ok": true, "device": {...}}.
+peaks; no single PyTorch call computes a ray query or a path, so their
+library_ms is null; the probes' is torch.index_select on the same
+schedule. The last line is {"ok": true, "device": {...}}.
 """
 import json
 import subprocess
@@ -127,6 +154,10 @@ HAIR_REF_SCENE = (512, 1, 128, 128, 16)
 HAIR_REF = ROOT / "tests" / "data" / "torch_hair_ref_128_16spp.exr"
 HAIR_GATE_MRSE = 0.05   # the instances gates
 HAIR_GATE_MEAN_RATIO = 0.02
+PATCH_SCENE = ROOT / "scenes" / "patches.pbrt"
+PATCH_GOLDEN = ROOT / "goldens" / "patches_200_32spp.exr"
+PATCH_GATE_MRSE = 0.05  # tools/golden.py CONFIGS, patches
+PATCH_GATE_MEAN_RATIO = 0.02
 # the bound's peaks (H100 SXM data sheet) and the f32 operations of one
 # unit of work, counted from the kernels' sources
 PEAK_BYTES_PER_S = 3.35e12
@@ -152,6 +183,11 @@ TERRAIN_PLAIN = {("raster", False): 1 << 20, ("raster", True): 1 << 16,
 # width, 2 for hw^2/4, 1 test, 3 for z, 3 for the edge, 2 for z_hit, 2 for
 # t, 3 tests
 SEG_OPS = 75
+# what the TPU copy probes check (tools/exp_dma_var.py, exp_dma_var2.py)
+# or print (exp_dma_min.py: row means at stages 1-2, then at stages 3-4)
+PROBE_VALUES = {"var": 4096.0, "var2": [8192.0, 12288.0, 16384.0, 20480.0],
+                "min": {False: [0.0, 2048.0, 4096.0, 6144.0],
+                        True: [2048.0, 2048.0, 10240.0, 6144.0]}}
 
 
 def check(cond, what):
@@ -877,6 +913,234 @@ def terrain_phases(dev, card):
                  for k, _ in rays.items() for a, _t in modes})
 
 
+def probe_phases(dev, card, build_log, forest_ms):
+    """Phases 26-28, the page-copy probes: the ptxas report, every probe
+    configuration x copy path against its plain version and the TPU
+    checks' values, the timed matrix. Returns the four entries of the
+    kernels line."""
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch.ops import dma_probe as dp
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_dma_probe as tool
+    # ---- 26. the dma_probe library's ptxas report ----
+    entries = ptxas_entries(build_log)
+    print(f"[26 dma_probe build] ptxas: {entries}", flush=True)
+    check(sum("registers" in ln for ln in entries) == 4,
+          "dma_probe: ptxas reported other than four entries (no report at "
+          "all when the library was built before this run: remove "
+          "pbrt_tpu_torch/_build)")
+
+    # ---- 27. every configuration x copy path, at the TPU tools' size ----
+    kernel_of = {"var": "dma_var", "min": "dma_ladder"}
+    errs = dict.fromkeys(("dma_var", "dma_sched_pipelined",
+                          "dma_sched_manual", "dma_ladder"), 0.0)
+
+    def hold(name, got, want, label):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        errs[name] = max(errs[name], err)
+        check(torch.equal(got, want),
+              f"{label}: differs from its plain version (max |d| {err})")
+
+    configs = tool.configurations()
+    check(len(configs) == 14, "the TPU tools have 14 configurations")
+    for probe, which in configs:
+        name = kernel_of.get(probe) or f"dma_sched_{tool.VAR2[which]}"
+        want_tpu = np.float32(PROBE_VALUES[probe] if probe != "min"
+                              else PROBE_VALUES[probe][which >= 3])
+        want = tool.run_plain(probe, which, device=dev)
+        for copy in dp.COPIES:
+            out, got, exp = tool.run_probe(probe, which, copy, device=dev)
+            label = f"27 {probe} {which} copy={copy}"
+            hold(name, out, want, label)
+            per_block = got.mean(axis=1) if probe == "min" else got[:, 0]
+            check(bool((got == exp[:, None]).all())
+                  and np.array_equal(per_block, np.atleast_1d(want_tpu)),
+                  f"{label}: {per_block} is not the TPU check's value "
+                  f"{want_tpu}")
+        print(f"[27 probes] {probe} {which} ({name}): ld, cp_async, bulk "
+              f"bit-equal to the plain version; value "
+              f"{np.atleast_1d(want_tpu).tolist()} as the TPU check",
+              flush=True)
+    # the paged kernels' sizes, whole pages summed: K = 420 pages of small
+    # integers, 64 blocks of 20 seeded entries
+    K, B, P = tool.K_MATRIX, 64, tool.P_MATRIX
+    for mode, R in (("pipelined", tool.R_TWO), ("manual", tool.R_CHUNKED),
+                    ("manual", tool.R_FOREST)):
+        pages = dp.make_pages(K, R, dev, fill="small")
+        x = torch.ones((B * 8, 128), device=dev)
+        sched = dp.probe_schedule("seeded", B, P, K, dev, seed=27)
+        lad = dp.probe_schedule("min", B, P, K, dev)
+        want = dp.dma_sched_plain(pages, x, sched, P, "sum")
+        want_l = dp.dma_ladder_plain(pages, x, lad, P, 4, "sum")
+        want_v = dp.dma_var_plain(pages, x[:8], "sum")
+        for copy in dp.COPIES:
+            label = f"27 {R} rows copy={copy}"
+            hold(f"dma_sched_{mode}", dp.dma_sched(
+                pages, x, sched, P, mode=mode, copy=copy, reduce="sum"),
+                want, f"{label} {mode}")
+            if mode == "manual":
+                hold("dma_ladder", dp.dma_ladder(
+                    pages, x, lad, P, 4, copy=copy, reduce="sum"), want_l,
+                    f"{label} ladder")
+                hold("dma_var", dp.dma_var(
+                    pages, x[:8], "hbm_vmem_slice", copy=copy, reduce="sum"),
+                    want_v, f"{label} var")
+        print(f"[27 probes] {R} rows ({R * dp.ROW_BYTES} B pages), K {K}, "
+              f"reduce=sum, {B} blocks x {P} entries: {mode}"
+              f"{', ladder stage 4, var' if mode == 'manual' else ''} "
+              f"bit-equal to the plain versions on every copy path; tile "
+              f"sums up to {want.max().item():.0f} (< 2^24)", flush=True)
+        check(want.max().item() < (1 << 24), "tile sums are not exact")
+        del pages
+
+    # ---- 28. the timed matrix ----
+    counts = dict(dma_var=dp.counter_var,
+                  dma_sched_pipelined=dp.counter_pipelined,
+                  dma_sched_manual=dp.counter_manual,
+                  dma_ladder=dp.counter_ladder)
+    reset_counts(counts.values())
+    t0 = time.perf_counter()
+    rows = tool.run_matrix(dev, emit=lambda s: print(f"[28 matrix] {s}",
+                                                     flush=True))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counts.items()}
+    plain = sum(c.plain for c in counts.values())
+    print(f"[28 matrix] {len(rows)} rows in {time.perf_counter() - t0:.1f} "
+          f"s; launches {launches}, plain-version runs through a wrapper "
+          f"{plain}. bound_ms: bytes staged over 3.35 TB/s; the 420 pages of "
+          "298 and 378 rows (64 and 81 MB) exceed the 50 MB L2, the 16-row "
+          "pages (3.4 MB) and dma_var's one page stay in it; library_ms: "
+          "torch.index_select, which also writes the pages back (twice the "
+          "bytes)", flush=True)
+    check(all(r["equals_plain"] for r in rows),
+          "a matrix row differs from its plain version")
+    check(min(launches.values()) >= 1 and plain == 0,
+          "the matrix launched no kernel of some probe")
+
+    def row(probe, mode, R, copy, reduce, P=None, kind=None):
+        return next(r for r in rows if (r["probe"], r["mode"], r["rows"],
+                                        r["copy"], r["reduce"]) ==
+                    (probe, mode, R, copy, reduce)
+                    and (P is None or r["P"] == P)
+                    and (kind is None or r["schedule"] == kind))
+
+    # the finding: do plain loads set the forest kernel's time, and what
+    # does the best copy path gain over them at each size
+    ld = row("sched", "manual", tool.R_FOREST, "ld", "first")
+    print(f"[28 finding] card {card}: ld, copy alone, {ld['copies']} copies "
+          f"x {ld['page_bytes']} B = {ld['staged_bytes']} B in "
+          f"{ld['ms']:.4f} ms ({ld['gb_per_s']:.1f} GB/s); the forest "
+          f"kernel's raster query, which stages the same bytes and walks "
+          f"them, {forest_ms:.4f} ms in this run: the copies alone are "
+          f"{ld['ms'] / forest_ms * 100:.1f}% of it", flush=True)
+    # the same with every block walking its pages in ascending order, the
+    # forest kernel's order (its blocks do not start a page together, so
+    # this is nearer to its traffic, not equal to it)
+    ordered = row("sched", "manual", tool.R_FOREST, "ld", "first",
+                  kind="ordered")
+    print(f"[28 finding] card {card}: ld, copy alone, pages in ascending "
+          f"order in every block: {ordered['ms']:.4f} ms "
+          f"({ordered['gb_per_s']:.1f} GB/s), "
+          f"{ordered['ms'] / forest_ms * 100:.1f}% of the forest kernel's "
+          f"{forest_ms:.4f} ms; in any order {ld['ms']:.4f} ms", flush=True)
+    for probe, mode, R, P, kind in tool.matrix_cases():
+        for reduce in dp.REDUCES:
+            ms = {c: row(probe, mode, R, c, reduce, P, kind)["ms"]
+                  for c in dp.COPIES}
+            best = min(ms, key=ms.get)
+            print(f"[28 finding] card {card}: {probe} {mode} at {R} rows, "
+                  f"{P} entries a block, {kind} schedule, reduce={reduce}: "
+                  f"ld {ms['ld']:.4f}, cp_async "
+                  f"{ms['cp_async']:.4f}, bulk {ms['bulk']:.4f} ms; best "
+                  f"{best}, {ms['ld'] / ms[best]:.3f}x over ld", flush=True)
+
+    def entry(name, probe, mode, R, replaces, kind):
+        """The kernels-line entry of one probe: its fastest copy path at R
+        rows with the page read in full (reduce=sum). The bound is the
+        function's, not the harness's: the pages the schedule names, the
+        schedule and x read once and out written once, against one add a
+        float of those pages and one a schedule entry (a page that several
+        blocks stage is needed once)."""
+        by = {f"{c}_{red}": row(probe, mode, R, c, red, kind=kind)["ms"]
+              for c in dp.COPIES for red in dp.REDUCES}
+        best = min((row(probe, mode, R, c, "sum", kind=kind)
+                    for c in dp.COPIES), key=lambda r: r["ms"])
+        n_pages = 1 if probe == "var" else min(best["K"], best["copies"])
+        n_sched = 0 if probe == "var" else best["copies"]
+        b_ms, b_by = bound(n_pages * best["page_bytes"] + 4 * n_sched
+                           + 2 * best["B"] * 8 * 128 * 4,
+                           n_pages * R * 128 + max(n_sched, 1))
+        print(f"[bounds] card {card}: {name} ({best['copy']}, {R} rows) "
+              f"bound {b_ms:.5f} ms by {b_by}, kernel {best['ms']:.4f} ms "
+              f"({b_ms / best['ms'] * 100:.2f}% of the bound); bytes staged "
+              f"over the memory rate {best['bound_ms']:.4f} ms", flush=True)
+        return dict(name=name, route="cuda",
+                    source="pbrt_tpu_torch/csrc/dma_probe.cu",
+                    replaces=replaces, launches=launches[name],
+                    max_abs_err=errs[name], ms=best["ms"],
+                    plain_ms=best["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                    library_ms=best["library_ms"], copy=best["copy"],
+                    rows=R, copies=best["copies"],
+                    staged_bytes=best["staged_bytes"],
+                    staged_bound_ms=best["bound_ms"], ms_by_copy=by)
+    # launches: phase 28's matrix; ms: the fastest copy path with the page
+    # read in full, at the forest's page (226 rows for the two buffers of
+    # the pipelined probe); every path's time in ms_by_copy
+    return [
+        entry("dma_var", "var", "hbm_vmem_slice", tool.R_FOREST,
+              "tools/exp_dma_var.py:77", "fixed"),
+        entry("dma_sched_pipelined", "sched", "pipelined", tool.R_TWO,
+              "tools/exp_dma_var2.py:49", "seeded"),
+        entry("dma_sched_manual", "sched", "manual", tool.R_FOREST,
+              "tools/exp_dma_var2.py:77", "seeded"),
+        entry("dma_ladder", "ladder", "stage4", tool.R_FOREST,
+              "tools/exp_dma_min.py:82", "min")]
+
+
+def patches_phases(dev, card, named):
+    """Phases 29-30, the patches path: scenes/patches.pbrt through
+    parse_file -> render, gated against its golden; its time."""
+    import torch
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.scene import parser
+    from pbrt_tpu_torch.utils import image
+    # ---- 29. the patches path through the entry points ----
+    reset_counts(named.values())
+    t0 = time.perf_counter()
+    desc = parser.parse_file(PATCH_SCENE, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    check(desc.scene.has_blps and desc.scene.blp_rows.shape == (12, 14)
+          and desc.scene.n_tris == 2, "patches: scene tables")
+    img, stats = render.render(desc.scene, desc.camera, sampler=desc.sampler,
+                               device=dev,
+                               opts=path_mod.PathOptions(max_depth=3))
+    launches = {c: k.launches for c, k in named.items()}
+    plain = sum(k.plain for k in named.values())
+    print(f"[29 patches] {desc.scene.blp_rows.shape[0]} exact patches (tensor"
+          f" code, every ray against every patch), {desc.scene.n_tris} "
+          f"triangles; launches {launches}, plain-version runs {plain}; "
+          f"{stats['lanes_per_wave']} lanes per wave", flush=True)
+    check(launches["tri_intersect"] >= 1
+          and sum(launches.values()) == launches["tri_intersect"],
+          "patches left the triangle-kernel route")
+    check(plain == 0, "patches ran a plain version on the card")
+    m, ratio = gate(img, PATCH_GOLDEN, (200, 200, 3), PATCH_GATE_MRSE,
+                    PATCH_GATE_MEAN_RATIO, "29 patches golden")
+    image.write_exr(_build.BUILD_DIR / "patches_200_32spp.exr", img)
+    # ---- 30. its time ----
+    print(f"[30 times] card {card}: patches 200x200x32 depth 3 "
+          f"{stats['paths_per_sec']:.6g} paths/s ({stats['seconds']:.3f} s),"
+          f" set-up (parse and build) {setup:.3f} s apart", flush=True)
+    return dict(paths_per_sec=stats["paths_per_sec"],
+                seconds=stats["seconds"], mrse=m, mean_ratio_err=ratio,
+                tri_launches=launches["tri_intersect"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -896,6 +1160,7 @@ def main():
     from pbrt_tpu_torch.ops import bvh8
     from pbrt_tpu_torch.ops import bvh8_pages as bp
     from pbrt_tpu_torch.ops import curves
+    from pbrt_tpu_torch.ops import dma_probe as dp
     from pbrt_tpu_torch.ops import megawave
     from pbrt_tpu_torch.ops import tri_intersect as ti
     from pbrt_tpu_torch.scene import parser
@@ -905,7 +1170,11 @@ def main():
              "bvh8": bvh8.counter, "bvh2": bvh2.counter_bvh2,
              "two_level": bvh2.counter_two_level, "curves": curves.counter,
              "bvh8_forest": bp.counter_forest,
-             "bvh8_binned": bp.counter_binned}
+             "bvh8_binned": bp.counter_binned,
+             "dma_var": dp.counter_var,
+             "dma_sched_pipelined": dp.counter_pipelined,
+             "dma_sched_manual": dp.counter_manual,
+             "dma_ladder": dp.counter_ladder}
     counters = tuple(named.values())
 
     dev = torch.device("cuda", 0)
@@ -1252,6 +1521,12 @@ def main():
     tr = terrain_phases(dev, card)
     print(f"[25 times] phases 21-25 took {time.perf_counter() - t_new:.1f} "
           "s", flush=True)
+    t_new = time.perf_counter()
+    probes = probe_phases(dev, card, libs["dma_probe"][1],
+                          tr["forest"]["ms"])
+    pt = patches_phases(dev, card, named)
+    print(f"[30 times] phases 26-30 took {time.perf_counter() - t_new:.1f} "
+          "s", flush=True)
 
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]
@@ -1393,6 +1668,7 @@ def main():
              schedule_ms=tr["binned"]["schedule_ms"],
              ms_all=tr["binned"]["ms_all"],
              page_copies=tr["binned"]["page_copies"]),
+        *probes,
     ]
     print(json.dumps(dict(render=dict(
         paths_per_sec=stats["paths_per_sec"], seconds=stats["seconds"],
@@ -1404,7 +1680,7 @@ def main():
         paths_per_sec=istats["paths_per_sec"], seconds=istats["seconds"],
         mrse=i_mrse, mean_ratio_err=i_ratio), hair=cr["hair"],
         hair_ref=cr["hair_ref"], rays_in=ri["render"],
-        terrain_bvh8_ms=tr["bvh8_ms"])))
+        terrain_bvh8_ms=tr["bvh8_ms"], patches=pt)))
     print(f"card: {card}")
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps({"ok": True, "device": {

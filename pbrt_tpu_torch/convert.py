@@ -12,7 +12,8 @@ sampler's alias rows and pmf table; "c2w_m" (4, 4); "tan_half_fov" ();
 "tris_b8", "prim_indices" (the BVH8 tables) on the BVH route;
 "tlas_nodes", "inst_rows", "tri_geo_tlas" (the two-level tables) for an
 instanced scene; "curve_nodes", "curve_segs", "curve_mats" (the curve
-tables) for a scene with curves; "attr", "light", "mat" (the reference's
+tables) for a scene with curves; "blp_rows" (K, 14) for a scene with
+bilinear patches; "attr", "light", "mat" (the reference's
 megawave.scene_tables) for a megakernel scene.
 meta: "ls_kind", "n_lights", "scene_radius", "inf_indices", "light_tags",
 "n_tris", "bxdf_tags" (the material pool's tag set); "bvh8" (n_nodes,
@@ -67,6 +68,8 @@ def from_jax_scene(arrays: dict, meta: dict, device="cuda"):
             curve_mats=t("curve_mats", np.int64),
             curve_depth=bvh_mod.bvh_max_depth(arrays["curve_nodes"]),
             has_curves=True)
+    if "blp_rows" in arrays:
+        extra.update(blp_rows=t("blp_rows"), has_blps=True)
     kind = int(meta["ls_kind"])
     ls = lsamp.LightSampler(
         kind=kind, n_lights=int(meta["n_lights"]),

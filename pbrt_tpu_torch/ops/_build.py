@@ -71,6 +71,17 @@ SIGNATURES = {
         # nodes, segs, o, d, t_max, t, seg, n, any_hit, stream
         "curves_intersect_launch": [_P] * 7 + [_I] * 2 + [_P],
     },
+    "dma_probe": {
+        # pages, x, out, n_pages, rows, page, variant, copy, reduce, blocks,
+        # smem, stream
+        "dma_var_launch": [_P] * 3 + [_I] * 8 + [_P],
+        # pages, sched, x, out, n_pages, rows, B, P, pipelined, copy,
+        # reduce, smem, stream
+        "dma_sched_launch": [_P] * 4 + [_I] * 8 + [_P],
+        # pages, sched, x, out, n_pages, rows, B, P, stage, copy, reduce,
+        # smem, stream
+        "dma_ladder_launch": [_P] * 4 + [_I] * 8 + [_P],
+    },
 }
 
 

@@ -4,8 +4,8 @@ pbrt_tpu/scene/parser.py).
 The reference's pipeline, kept: regex tokenizer -> typed parameter lists
 (`ParamSet`) -> directive loop over a graphics state -> SceneBuilder ->
 compiled scene on the device the caller names. The directives handled are
-those of scenes/cornell.pbrt, scenes/meshfield.pbrt and
-scenes/instances.pbrt:
+those of scenes/cornell.pbrt, scenes/meshfield.pbrt, scenes/instances.pbrt
+and scenes/patches.pbrt:
 
     LookAt, Translate, Scale, Rotate, Transform, ConcatTransform
     Camera "perspective" (pinhole), Film "rgb", Sampler "zsobol",
@@ -13,6 +13,7 @@ scenes/instances.pbrt:
     Material / MakeNamedMaterial / NamedMaterial, types "diffuse", "hair"
     AreaLightSource "diffuse", LightSource "infinite" (an L, no file)
     Shape "trianglemesh", Shape "curve" (cubic Bezier, the hair scene)
+    Shape "bilinearmesh" (exact patches, or two triangles a quad)
     ObjectBegin, ObjectEnd, ObjectInstance (static instances)
 
 Any other directive, type or parameter that changes the image raises
@@ -338,21 +339,43 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
             refl = (0.5, 0.5, 0.5)
         return b.materials.add_diffuse(tuple(np.clip(refl, 0, 1)))
 
-    def trianglemesh_data(ps: ParamSet):
-        """(P, indices, N, uv) of a trianglemesh, in its own space."""
+    def mesh_params(ps: ParamSet, name, corners):
+        """(P, indices (F, corners)) of a mesh shape, in its own space."""
         P = ps.point3s("P")
         idx = ps.ints("indices")
         if P is None or idx is None:
-            raise ParseError(f"{p.loc()}: trianglemesh needs \"point3 P\" "
+            raise ParseError(f"{p.loc()}: {name} needs \"point3 P\" "
                              "and \"integer indices\"")
         if ps.texture_name("alpha") is not None or \
                 ps.float("alpha", 1.0) != 1.0:
             refuse("shape alpha", "slice 4 item 18 (textured alpha)")
-        return (P, idx.reshape(-1, 3), ps.point3s("N", None),
+        return P, idx.reshape(-1, corners)
+
+    def trianglemesh_data(ps: ParamSet):
+        """(P, indices, N, uv) of a trianglemesh, in its own space."""
+        P, idx = mesh_params(ps, "trianglemesh", 3)
+        return (P, idx, ps.point3s("N", None),
                 ps.point2s("uv", ps.point2s("st", None)))
 
-    def add_trianglemesh(ps: ParamSet):
-        P, idx, N, uv = trianglemesh_data(ps)
+    def add_bilinearmesh(ps: ParamSet):
+        """Shape "bilinearmesh" (reference parser): exact patches when the
+        mesh has no emission, N or uv and at most 64 quads, else two
+        triangles a quad, [0, 1, 3] and [0, 3, 2]."""
+        P, qidx = mesh_params(ps, "bilinearmesh", 4)
+        N = ps.point3s("N", None)
+        uv = ps.point2s("uv", None)
+        if gs.area_light is None and N is None and uv is None and \
+                len(qidx) <= 64:
+            Pw = np.asarray(gs.ctm.apply_point(np.asarray(P, np.float32)))
+            for q4 in qidx:
+                b.add_bilinear_patch(*(Pw[i] for i in q4), gs.material)
+            return
+        add_mesh(P, np.concatenate([qidx[:, [0, 1, 3]], qidx[:, [0, 3, 2]]]),
+                 N, uv)
+
+    def add_mesh(P, idx, N, uv):
+        """A triangle mesh in the current transform, material and area
+        light."""
         xf = gs.ctm
         P = np.asarray(xf.apply_point(np.asarray(P, np.float32)))
         if N is not None:
@@ -534,17 +557,17 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
         elif tok == "Shape":
             name = p.parse_string()
             ps = p.parse_params()
-            if name == "curve" and current_object is None:
-                add_curve(ps)
+            if name in ("curve", "bilinearmesh") and current_object is None:
+                (add_curve if name == "curve" else add_bilinearmesh)(ps)
                 continue
             if name != "trianglemesh":
-                refuse(f"shape '{name}'" + (" in an object" if name ==
-                                            "curve" else ""),
-                       "slices 3-4 (plymesh with killeroo/plytex, "
-                       "bilinearmesh with patches, quadrics, instanced "
-                       "curves)", dpos)
+                refuse(f"shape '{name}'" + (" in an object" if name in
+                                            ("curve", "bilinearmesh")
+                                            else ""),
+                       "slices 3-4 (plymesh with killeroo/plytex, quadrics, "
+                       "instanced curves and patches)", dpos)
             if current_object is None:
-                add_trianglemesh(ps)
+                add_mesh(*trianglemesh_data(ps))
             else:
                 objects[current_object]["records"].append(dict(
                     mesh=trianglemesh_data(ps), ctm=gs.ctm, mat=gs.material,

@@ -4,9 +4,10 @@ points of the general path wave.
 
 A scene is built on the host in numpy and moved once to the device the
 caller names. It holds triangle meshes (per-vertex normals and uvs when
-given) with diffuse and hair materials, cubic Bezier curves, area-triangle
-emission and uniform infinite lights, under a uniform or power light
-sampler, and static object instances of triangle prototypes. Other shapes,
+given) with diffuse and hair materials, cubic Bezier curves, exact bilinear
+patches, area-triangle emission and uniform infinite lights, under a
+uniform or power light sampler, and static object instances of triangle
+prototypes. Other shapes,
 lights, materials, media, textures, animated instances and alpha are not
 ported: their builders do not exist here, and the parser refuses their
 directives.
@@ -18,7 +19,9 @@ triangles or with force_bvh, through the BVH8 kernel (ops/bvh8.py) over
 the whole scene, and below through the brute-force triangle kernel
 (ops/tri_intersect.py). A scene with curves then sends every query
 through the curve kernel (ops/curves.py) as well, over the curves' own
-BVH, and merges its hits as the reference does. The megakernel's
+BVH, and merges its hits as the reference does; a scene with bilinear
+patches tests every ray against its small patch pool in tensor code
+(ops/intersect.py), before the curves. The megakernel's
 eligibility test is the reference's: an eligible scene (cornell class)
 also carries the megakernel's tables and metadata.
 """
@@ -38,6 +41,7 @@ from .ops import bvh as bvh_mod
 from .ops import bvh2 as bvh2_mod
 from .ops import bvh8 as bvh8_mod
 from .ops import curves as crv
+from .ops import intersect as isect_ops
 from .ops import tlas as tlas_mod
 from .ops import tri_intersect as ti
 from .ops.megawave import MegaMeta, ATTR_COLS, LIGHT_COLS
@@ -71,8 +75,9 @@ class Scene:
     curves (ops/curves.py): curve_nodes (M, 8) the curve BVH, curve_segs
     (S, 16) its sub-segment rows in leaf order, curve_mats (C,) int64 the
     material of each curve id, curve_depth the tree's depth; None (0,
-    False) without curves. bxdf_tags: the BxDF tags of the material
-    pool."""
+    False) without curves. blp_rows (K, 14) the exact bilinear patches
+    [p00, p10, p01, p11, material, -1]; None (False) without patches.
+    bxdf_tags: the BxDF tags of the material pool."""
     tri_all: torch.Tensor
     tri_pallas: torch.Tensor
     bvh8: bvh8_mod.BVH8
@@ -100,6 +105,8 @@ class Scene:
     curve_mats: torch.Tensor = None
     curve_depth: int = 0
     has_curves: bool = False
+    blp_rows: torch.Tensor = None
+    has_blps: bool = False
     bxdf_tags: tuple = (bxdfs.BXDF_DIFFUSE,)
 
     @property
@@ -158,6 +165,7 @@ class SceneBuilder:
         self.curve_seg_rows = []     # (2^crv.SUBDIV, 16) rows of each curve
         self.curve_seg_bounds = []   # (lo, hi) of its sub-segments
         self.curve_mat_list = []     # material of each curve id
+        self.blp_list = []           # (p00, p10, p01, p11, material)
 
     def add_spectrum(self, s: spc.Spectrum, key=None) -> int:
         """Add a spectrum to the pool, deduplicated by content."""
@@ -263,6 +271,15 @@ class SceneBuilder:
         self.curve_mat_list.append(material)
         return cid
 
+    def add_bilinear_patch(self, p00, p10, p01, p11, material: int):
+        """An exact (not tessellated) bilinear patch, world-space corners,
+        point(u, v) = lerp(v; lerp(u; p00, p10), lerp(u; p01, p11)). An
+        emissive quad mesh is triangulated instead: area lights are
+        triangles."""
+        self.blp_list.append((*(np.asarray(x, np.float32)
+                                for x in (p00, p10, p01, p11)),
+                              int(material)))
+
     def add_uniform_infinite_light(self, spectrum: spc.Spectrum,
                                    scale=1.0) -> int:
         """A constant environment; its power is set at build time from the
@@ -280,6 +297,7 @@ class SceneBuilder:
         rows = self.light_rows
         n_tri = len(p0)
         if (use_bvh or self.instances or self.curve_seg_rows
+                or self.blp_list
                 or n_tri > MAX_MEGA_TRIS or not rows
                 or self.materials.tags() != (bxdfs.BXDF_DIFFUSE,)
                 or ls.kind not in (lsamp.LS_UNIFORM, lsamp.LS_POWER)
@@ -304,10 +322,13 @@ class SceneBuilder:
                         ls_uniform=bool(ls.kind == lsamp.LS_UNIFORM))
 
     def _world_bounds(self, lo, hi):
-        """World box of the triangles, the curves' sub-segment boxes and
-        every instance's prototype box corners through its o2w (reference
-        build, :632-648)."""
+        """World box of the triangles, the bilinear patches' corners, the
+        curves' sub-segment boxes and every instance's prototype box
+        corners through its o2w (reference build, :627-648)."""
         world_lo, world_hi = lo.min(axis=0), hi.max(axis=0)
+        for *corners, _m in self.blp_list:
+            world_lo = np.minimum(world_lo, np.min(corners, axis=0))
+            world_hi = np.maximum(world_hi, np.max(corners, axis=0))
         if self.curve_seg_bounds:
             world_lo = np.minimum(world_lo, np.concatenate(
                 [b[0] for b in self.curve_seg_bounds]).min(axis=0))
@@ -455,6 +476,10 @@ class SceneBuilder:
                              np.asarray(self.curve_mat_list, np.int64),
                              device=device),
                          curve_depth=depth, has_curves=True)
+        if self.blp_list:
+            extra.update(has_blps=True, blp_rows=t(np.stack([
+                np.concatenate([*corners, [float(m), -1.0]])
+                for *corners, m in self.blp_list])))
         scene = Scene(
             tri_all=t(np.concatenate([tri_geo, tri_shade], axis=1)),
             tri_pallas=tri_pallas, bvh8=bvh8,
@@ -570,13 +595,63 @@ def intersect(scene: Scene, o, d, t_max):
                light=row[:, 26].round().to(torch.int64), wo=-d, p0=p0,
                p1=p1, p2=p2, dpdu=dpdu, dpdv=dpdv,
                p_err=intersection_p_error(b0, b1, b2, p0, p1, p2))
+    # the reference's order: patches, then curves, then the floor, under
+    # which a patch or curve hit keeps the triangle query's p_err
+    if scene.has_blps:
+        out = _merge_blp_hits(scene, o, d, t_max, out)
     if scene.has_curves:
         out = _merge_curve_hits(scene, o, d, t_max, out)
-    # the reference's order: a curve hit keeps the triangle query's p_err
-    # under this floor
     out["p_err"] = torch.maximum(out["p_err"], gamma_bound(7)
                                  * torch.abs(out["p"]))
     return out
+
+
+def _blp_query(scene: Scene, o, d, t_max):
+    """Closest hit over the small bilinear-patch pool, every ray against
+    every patch. Returns dict(hit, t, k (patch id), u, v)."""
+    rows = scene.blp_rows
+    r = isect_ops.ray_bilinear_patch(
+        o[:, None, :], d[:, None, :],
+        t_max[:, None].expand(o.shape[0], rows.shape[0]),
+        rows[None, :, 0:3], rows[None, :, 3:6], rows[None, :, 6:9],
+        rows[None, :, 9:12])
+    k = torch.argmin(r["t"], dim=-1)
+
+    def take(a):
+        return torch.gather(a, 1, k[:, None])[:, 0]
+    t = take(r["t"])
+    return dict(hit=torch.isfinite(t), t=t, k=k, u=take(r["u"]),
+                v=take(r["v"]))
+
+
+def _merge_blp_hits(scene: Scene, o, d, t_max, out):
+    """Merge the closest bilinear-patch hit below the triangle hit
+    (reference _merge_blp_hits): the position on the ray, uv = (u, v) and
+    dpdu, dpdv of the patch's own parameterisation, the normal their cross
+    product, the patch's material, no light; prim stays the triangle
+    query's."""
+    t_best = torch.where(out["hit"], out["t"], t_max)
+    r = _blp_query(scene, o, d, t_best)
+    hit_b = r["hit"] & (r["t"] < t_best)
+    row = scene.blp_rows[r["k"]]
+    p00, p10, p01, p11 = (row[:, 3 * i:3 * i + 3] for i in range(4))
+    u, v = r["u"], r["v"]
+    dpdu = (1 - v)[:, None] * (p10 - p00) + v[:, None] * (p11 - p01)
+    dpdv = (1 - u)[:, None] * (p01 - p00) + u[:, None] * (p11 - p10)
+    ng = vm.normalize(vm.cross(dpdu, dpdv))
+    h = hit_b[:, None]
+    return dict(out,
+                hit=out["hit"] | hit_b,
+                t=torch.where(hit_b, r["t"], out["t"]),
+                p=torch.where(h, o + r["t"][:, None] * d, out["p"]),
+                ng=torch.where(h, ng, out["ng"]),
+                ns=torch.where(h, ng, out["ns"]),
+                uv=torch.where(h, torch.stack([u, v], dim=-1), out["uv"]),
+                mat=torch.where(hit_b, row[:, 12].round().to(torch.int64),
+                                out["mat"]),
+                light=torch.where(hit_b, -1, out["light"]),
+                dpdu=torch.where(h, dpdu, out["dpdu"]),
+                dpdv=torch.where(h, dpdv, out["dpdv"]))
 
 
 def _merge_curve_hits(scene: Scene, o, d, t_max, out):
@@ -615,6 +690,8 @@ def intersect_p(scene: Scene, o, d, t_max):
     """Any-hit (shadow) query. Returns bool occluded (N,)."""
     o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
     occluded = _tri_dispatch(scene, o, d, t_max, any_hit=True)["hit"]
+    if scene.has_blps:
+        occluded = occluded | _blp_query(scene, o, d, t_max)["hit"]
     if scene.has_curves:
         _t, seg = crv.curves_intersect(scene.curve_nodes, scene.curve_segs,
                                        o, d, t_max, True,

@@ -61,6 +61,14 @@ class Spectrum:
                      / CIE_Y_INTEGRAL)
 
 
+class ConstantSpectrum(Spectrum):
+    def __init__(self, c: float):
+        self.c = float(c)
+
+    def __call__(self, lam):
+        return np.full_like(np.asarray(lam, np.float64), self.c)
+
+
 class DenselySampledSpectrum(Spectrum):
     def __init__(self, values, lambda_min=LAMBDA_MIN):
         self.values = np.asarray(values, np.float64)

@@ -37,6 +37,8 @@ def export(scene, cam, sampler):
         arrays.update(curve_nodes=np.asarray(scene.curve_nodes),
                       curve_segs=np.asarray(scene.curve_segs),
                       curve_mats=np.asarray(scene.curve_mats))
+    if scene.has_blps:
+        arrays["blp_rows"] = np.asarray(scene.blp_rows)
     if scene.has_instances:
         arrays.update(tlas_nodes=np.asarray(scene.tlas_nodes),
                       inst_rows=np.asarray(scene.inst_rows),

@@ -5,6 +5,9 @@ elsewhere. The file imports no jax, so on a machine without it run it
 without the suite's conftest:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -340,3 +343,53 @@ def test_binned_kernel_matches_plain(cuda_device, any_hit):
             chunked, o, d, t_max, any_hit, pages_per_round=2)
         assert (rounds, copies) == (got["rounds"], got["page_copies"])
         _hold_paged(got, want, any_hit)
+
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+import torch_dma_probe as tool  # noqa: E402  (imports no jax)
+
+PROBES = tool.configurations()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copy", ["ld", "cp_async", "bulk"])
+@pytest.mark.parametrize("probe, which", PROBES,
+                         ids=[f"{p}-{w}" for p, w in PROBES])
+def test_dma_probe_kernel_matches_plain(cuda_device, probe, which, copy):
+    """Every probe configuration of the TPU tools on every copy path, at
+    the tools' size: bit-equal to the plain version and to the numbers
+    numpy expects."""
+    from pbrt_tpu_torch.ops import dma_probe as dp
+    counters = (dp.counter_var, dp.counter_pipelined, dp.counter_manual,
+                dp.counter_ladder)
+    before = sum(c.launches for c in counters)
+    out, got, exp = tool.run_probe(probe, which, copy, device=cuda_device)
+    torch.cuda.synchronize()
+    assert sum(c.launches for c in counters) == before + 1
+    want = tool.run_plain(probe, which, device=cuda_device)
+    assert torch.equal(out, want)
+    assert (got == exp[:, None]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copy", ["ld", "cp_async", "bulk"])
+@pytest.mark.parametrize("R, mode", [(226, "pipelined"), (298, "manual"),
+                                     (378, "manual")])
+def test_dma_probe_kernel_matches_plain_at_page_sizes(cuda_device, R, mode,
+                                                      copy):
+    """Whole pages summed at the paged kernels' page sizes, 420 pages, 64
+    blocks of 20 seeded entries, and the ladder's stage 4 on a schedule
+    with empty entries."""
+    from pbrt_tpu_torch.ops import dma_probe as dp
+    K, B, P = 420, 64, 20
+    pages = dp.make_pages(K, R, cuda_device, fill="small")
+    x = torch.ones((B * 8, 128), device=cuda_device)
+    sched = dp.probe_schedule("seeded", B, P, K, cuda_device, seed=R)
+    got = dp.dma_sched(pages, x, sched, P, mode=mode, copy=copy,
+                       reduce="sum")
+    assert torch.equal(got, dp.dma_sched_plain(pages, x, sched, P, "sum"))
+    if mode == "manual":
+        lad = dp.probe_schedule("min", B, P, K, cuda_device)
+        got = dp.dma_ladder(pages, x, lad, P, 4, copy=copy, reduce="sum")
+        assert torch.equal(got, dp.dma_ladder_plain(pages, x, lad, P, 4,
+                                                    "sum"))

@@ -123,6 +123,7 @@ def test_port_imports_no_jax(tmp_path):
         "sys.path.insert(0, 'tools')\n"
         "import hair_scene\n"
         "import terrain_rays\n"
+        "import torch_dma_probe\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in\n"
         "            ('torch', 'jax', 'pbrt_tpu', 'pbrt_tpu_torch')]\n"
         "import torch\n"
@@ -182,6 +183,16 @@ def test_port_imports_no_jax(tmp_path):
         "                     path.PathOptions(max_depth=2))\n"
         "from pbrt_tpu_torch.ops import megawave\n"
         "assert L.shape == (8, 4) and megawave.counter.plain >= 2\n"
+        "from pbrt_tpu_torch.ops import dma_probe, intersect\n"
+        "assert torch_dma_probe.main(['--device', 'cpu', '--probe', 'min',\n"
+        "                             '--stage', '4']) == 0\n"
+        "assert dma_probe.counter_ladder.plain == 1\n"
+        "desc = parser.parse_file('scenes/patches.pbrt', device='cpu')\n"
+        "desc.camera = dataclasses.replace(desc.camera, width=4, height=4)\n"
+        "img5, _ = render.render(desc.scene, desc.camera, spp=1,\n"
+        "                        device='cpu',\n"
+        "                        opts=path.PathOptions(max_depth=2))\n"
+        "assert desc.scene.blp_rows.shape == (12, 14) and img5.mean() > 0\n"
         "assert native.NATIVE_DIR.parts[-3:] == ('pbrt_tpu_torch', 'csrc',\n"
         "                                        'host')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
@@ -191,5 +202,5 @@ def test_port_imports_no_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok")
+    assert out.stdout.splitlines()[-1].startswith("ok")
     assert (tmp_path / "x.exr").exists()
