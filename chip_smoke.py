@@ -120,7 +120,28 @@ Phases, each of which raises on failure (exit code 1):
      through the triangle kernel and the patches through tensor code,
      launch counts read around it, the image gated against
      goldens/patches_200_32spp.exr and written to pbrt_tpu_torch/_build/;
- 30. its time in paths/s, set-up apart.
+ 30. its time in paths/s, set-up apart;
+ 31. the triangle kernel above one shared-memory tile: the 1,280
+     triangles of a subdivision-3 icosphere (the pool a scene built with
+     the default force_bvh=None hands it) and a seeded soup of 4,096, 2^14
+     box rays, closest and any hit, with phase 3's gates and t, prim, b1,
+     b2 bit-equal to the plain version; bit-equality too on the pools of
+     32 (cornell), 4 (hair) and 2 (patches) triangles;
+ 32. the sphere scene (scenes.make_furnace_sphere, albedo 0.8, 200x200, 16
+     spp, max depth 5) through render once with force_bvh=None (every
+     query through the triangle kernel, launch counts read around it) and
+     once with force_bvh=True (the BVH8 kernel): the two images within rel
+     1e-4 (floor 1e-3) on >= 99.9% of pixels, their means within 1e-3;
+ 33. times with CUDA events at the launch size, 160,000 box rays, closest
+     hit: the triangle kernel through its wrapper and as the bare launch
+     (outputs allocated once) at 32, 1,280 and 4,096 triangles, each with
+     its bound, and the BVH8 kernel on the same two meshes and rays;
+ 34. one wave of meshfield, instances and hair (160,000 lanes each): the
+     queries the wave hands the BVH8, two-level and curve kernels (camera
+     rays, each bounce, the shadow rays), recorded and timed again with
+     CUDA events; the curve kernel on the hair wave's camera rays, first
+     bounce and first shadow query bit-equal to its plain version (the hit
+     flag at any hit).
 Phase 2 builds every kernel (one nvcc per source, all started together)
 and the host BVH builder (g++). The line before the last is a JSON object
 with one entry per kernel, each with its bound: the larger of the bytes it
@@ -170,6 +191,10 @@ ENTER_OPS = 39          # a ray through w2o (33) and its 3 inverse dirs
 FOREST_CHILD_OPS = SLAB_OPS      # the forest's children are not quantised
 TERRAIN_N = 708                 # tools/exp_1m.py's terrain: 999,698 tris
 TERRAIN_RAYS = 1 << 20
+# phase 31's rays a pool (the plain version makes rays x triangles tensors)
+# and the rays of a render's wave, the launch size of phases 33 and 34
+BIG_POOL_RAYS = 1 << 14
+LAUNCH_RAYS = 160000
 # The paged plain versions' rays per set. On all 2^20 rays of every set
 # they took 170 s on the H100, and their chunk loop costs nearly as much
 # on 2^16 bounce rays as on 2^20: they run on all raster rays at closest
@@ -350,18 +375,22 @@ def instanced_meshfield(mesh, device, seed=5):
     return b.build(device=device)
 
 
-def tlas_box_rays(scene, n, device, seed):
-    """n rays from the TLAS root box (every instance's world bounds) +-1,
-    normally distributed directions."""
+def seeded_box_rays(lo, hi, n, device, seed):
+    """n rays from the box lo - 1 .. hi + 1, normally distributed
+    directions."""
     import numpy as np
     import torch
-    box = scene.tlas_nodes[scene.tlas_root, :6].cpu().numpy()
     rng = np.random.default_rng(seed)
-    o = rng.uniform(box[:3] - 1, box[3:] + 1, (n, 3)).astype(np.float32)
+    o = rng.uniform(lo - 1, hi + 1, (n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return (torch.as_tensor(o, device=device),
-            torch.as_tensor(d, device=device))
+    return torch.as_tensor(o, device=device), torch.as_tensor(d, device=device)
+
+
+def tlas_box_rays(scene, n, device, seed):
+    """n rays from the TLAS root box (every instance's world bounds) +-1."""
+    box = scene.tlas_nodes[scene.tlas_root, :6].cpu().numpy()
+    return seeded_box_rays(box[:3], box[3:], n, device, seed)
 
 
 def reset_counts(counters):
@@ -373,16 +402,8 @@ def reset_counts(counters):
 def box_rays(scene, n, device, seed=0):
     """bench.py's Mrays/s rays: origins uniform in the world box +-1,
     normally distributed directions."""
-    import numpy as np
-    import torch
     tri = scene.tri_all[:, :9].reshape(-1, 3).cpu().numpy()
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(tri.min(axis=0) - 1, tri.max(axis=0) + 1,
-                    (n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return (torch.as_tensor(o, device=device),
-            torch.as_tensor(d, device=device))
+    return seeded_box_rays(tri.min(axis=0), tri.max(axis=0), n, device, seed)
 
 
 def curves_phases(dev, card, build_log, counters, n_rays):
@@ -420,25 +441,22 @@ def curves_phases(dev, card, build_log, counters, n_rays):
     hair = hdesc.scene
     hair_setup = time.perf_counter() - t0
     ctab = (hair.curve_nodes, hair.curve_segs)
+    ckw = dict(depth=hair.curve_depth, wide=hair.curve_wide)
     print(f"[17 curves] hair: {hair.curve_mats.shape[0]} spans, "
           f"{hair.curve_segs.shape[0]} sub-segments "
           f"({4 * hair.curve_segs.numel() / 2**20:.1f} MiB of rows), "
-          f"{hair.curve_nodes.shape[0]} nodes, depth {hair.curve_depth}, "
+          f"{hair.curve_nodes.shape[0]} nodes ({hair.curve_wide.shape[0]} "
+          f"rows of the kernel's own table), depth {hair.curve_depth}, "
           f"{hair.n_tris} triangles; set-up {hair_setup:.2f} s (text "
           f"{t_gen:.2f} s, parse and build {hair_setup - t_gen:.2f} s)",
           flush=True)
     box = hair.curve_nodes[0, :6].cpu().numpy()
-    rng = np.random.default_rng(17)
-    o17 = torch.as_tensor(rng.uniform(box[:3] - 1, box[3:] + 1, (n_rays, 3))
-                          .astype(np.float32), device=dev)
-    d17 = rng.normal(size=(n_rays, 3)).astype(np.float32)
-    d17 = torch.as_tensor(d17 / np.linalg.norm(d17, axis=1, keepdims=True),
-                          device=dev)
+    o17, d17 = seeded_box_rays(box[:3], box[3:], n_rays, dev, seed=17)
     crv_work, crv_err = {}, 0.0
     for any_hit, t_max in ((False, 1e30), (True, 30.0)):
         tv = torch.full((n_rays,), t_max, device=dev)
         t_k, seg_k = curves.curves_intersect(*ctab, o17, d17, tv, any_hit,
-                                             depth=hair.curve_depth)
+                                             **ckw)
         t_p, seg_p = curves.curves_intersect_plain(*ctab, o17, d17, tv,
                                                    any_hit)
         torch.cuda.synchronize()
@@ -456,8 +474,7 @@ def curves_phases(dev, card, build_log, counters, n_rays):
                   "version")
             crv_err = (t_k[hit_p] - t_p[hit_p]).abs().max().item() \
                 if bool(hit_p.any()) else 0.0
-            got = curves.intersect_curves(*ctab, o17, d17, tv,
-                                          depth=hair.curve_depth)
+            got = curves.intersect_curves(*ctab, o17, d17, tv, **ckw)
             rows = hair.curve_segs[seg_p.clamp(min=0).long()]
             want = curves.segment_test(o17, d17, torch.where(
                 hit_p, t_p * 1.0001 + 1e-5, 0.0), rows)
@@ -539,8 +556,7 @@ def curves_phases(dev, card, build_log, counters, n_rays):
         tv = torch.full((n_rays,), t_max, device=dev)
         crv_ms[any_hit] = (
             cuda_ms(lambda: curves.curves_intersect(
-                *ctab, o17, d17, tv, any_hit, depth=hair.curve_depth),
-                reps=20, warmup=3),
+                *ctab, o17, d17, tv, any_hit, **ckw), reps=20, warmup=3),
             cuda_ms(lambda: curves.curves_intersect_plain(
                 *ctab, o17, d17, tv, any_hit), reps=1))
         k_ms, p_ms = crv_ms[any_hit]
@@ -560,7 +576,7 @@ def curves_phases(dev, card, build_log, counters, n_rays):
                       + crv_work[False]["seg_tests"] * SEG_OPS)
     return dict(launches=hlaunch["curves"], err=crv_err, ms=crv_ms,
                 bound=crv_bound, tri_launches=hlaunch["tri_intersect"],
-                tri_err=hair_tri_err,
+                tri_err=hair_tri_err, desc=hdesc,
                 hair=dict(paths_per_sec=hstats["paths_per_sec"],
                           seconds=hstats["seconds"],
                           setup_seconds=hair_setup),
@@ -1138,7 +1154,265 @@ def patches_phases(dev, card, named):
           f" set-up (parse and build) {setup:.3f} s apart", flush=True)
     return dict(paths_per_sec=stats["paths_per_sec"],
                 seconds=stats["seconds"], mrse=m, mean_ratio_err=ratio,
-                tri_launches=launches["tri_intersect"])
+                tri_launches=launches["tri_intersect"], desc=desc)
+
+
+def big_pool(which, device):
+    """The meshes of phases 31-33 on both triangle routes: "sphere", the
+    1,280 triangles of a subdivision-3 icosphere, or "soup", 4,096 seeded
+    small triangles in the unit box. Returns dict(pool (the brute-force
+    rows), n_real, bvh8 (the BVH8 tables of the same triangles), lo, hi)."""
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.ops import bvh as bvh_mod
+    from pbrt_tpu_torch.ops import bvh8
+    from pbrt_tpu_torch.ops import tri_intersect as ti
+    if which == "sphere":
+        v, f, _n = scenes.make_sphere_mesh((0.0, 0.0, 0.0), 1.0, subdiv=3)
+        tri = v[f].reshape(-1, 9)
+    else:
+        rs = np.random.RandomState(31)
+        p0 = rs.uniform(-1, 1, (4096, 1, 3))
+        tri = (p0 + rs.normal(scale=0.05, size=(4096, 3, 3))).reshape(-1, 9)
+    tri = tri.astype(np.float32)
+    p = (tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
+    lo = np.minimum(np.minimum(p[0], p[1]), p[2])
+    hi = np.maximum(np.maximum(p[0], p[1]), p[2])
+    return dict(pool=torch.as_tensor(ti.pad_triangles(tri), device=device),
+                n_real=len(tri),
+                bvh8=bvh8.build_bvh8(lo, hi, bvh_mod.pack_tri_geo(*p),
+                                     device=device),
+                lo=lo.min(axis=0), hi=hi.max(axis=0))
+
+
+def record_calls(module, name, run):
+    """The positional and keyword arguments of every call of module.name
+    made while run() runs."""
+    calls = []
+    fn = getattr(module, name)
+
+    def recording(*a, **k):
+        calls.append((a, k))
+        return fn(*a, **k)
+    setattr(module, name, recording)
+    try:
+        run()
+    finally:
+        setattr(module, name, fn)
+    return calls
+
+
+def wave_queries(module, name, any_hit_arg, desc, max_depth, device):
+    """One wave of desc's scene (as many sample indices as fit 2^18 lanes)
+    through render: the calls it makes to the kernel wrapper module.name,
+    split into closest-hit queries (the camera rays, then each bounce) and
+    any-hit queries (the shadow rays)."""
+    from pbrt_tpu_torch import samplers as smp
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    W, H = desc.camera.width, desc.camera.height
+    m = 1
+    while m * 2 * W * H <= render.MAX_WAVE_LANES and \
+            desc.sampler.spp % (m * 2) == 0:
+        m *= 2
+    calls = record_calls(module, name, lambda: render.render(
+        desc.scene, desc.camera, device=device,
+        sampler=smp.make_sampler("zsobol", spp=m, full_resolution=(W, H)),
+        opts=path_mod.PathOptions(max_depth=max_depth)))
+    closest = [c for c in calls if not c[0][any_hit_arg]]
+    shadow = [c for c in calls if c[0][any_hit_arg]]
+    return closest, shadow, W * H * m
+
+
+def redesign_phases(dev, card, named, cornell, descs):
+    """Phases 31-34: the triangle kernel above one tile and on both routes
+    of the sphere scene, its times at the launch size beside the BVH8
+    kernel's, and kernels 4, 8 and 9 on the queries of one wave of their
+    render paths. descs: the parsed meshfield, instances, hair and patches
+    scenes. Returns what the kernels line needs."""
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.ops import bvh2
+    from pbrt_tpu_torch.ops import bvh8
+    from pbrt_tpu_torch.ops import curves
+    from pbrt_tpu_torch.ops import tri_intersect as ti
+    t_start = time.perf_counter()
+    # ---- 31. the triangle kernel against its plain version ----
+    pools = {w: big_pool(w, dev) for w in ("sphere", "soup")}
+    n31 = BIG_POOL_RAYS
+    err31 = 0.0
+    for which, pl_ in pools.items():
+        o, d = seeded_box_rays(pl_["lo"], pl_["hi"], n31, dev, seed=31)
+        for any_hit, t_max in ((False, 1e30), (True, 1.5)):
+            tv = torch.full((n31,), t_max, device=dev)
+            got = ti.tri_intersect(pl_["pool"], o, d, tv, pl_["n_real"],
+                                   any_hit)
+            want = ti.tri_intersect_plain(pl_["pool"], o, d, tv,
+                                          pl_["n_real"], any_hit)
+            torch.cuda.synchronize()
+            same = got[1] == want[1]
+            agree = same.float().mean().item()
+            hit = same & (want[1] >= 0)
+            ok = torch.allclose(got[0][hit], want[0][hit], rtol=1e-5, atol=0)
+            exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            err = (got[0][hit] - want[0][hit]).abs().max().item() \
+                if bool(hit.any()) else 0.0
+            err31 = max(err31, err)
+            print(f"[31 tri_intersect] {which}, {pl_['n_real']} triangles, "
+                  f"any_hit={any_hit}: prim equal on {agree * 100:.4f}% of "
+                  f"{n31} rays, hit share "
+                  f"{(want[1] >= 0).float().mean().item():.4f}, max |dt| "
+                  f"{err:.3g}; t, prim, b1, b2 bit-equal {exact}",
+                  flush=True)
+            check(agree >= 0.9999 and ok and exact,
+                  f"tri_intersect at {pl_['n_real']} triangles differs from "
+                  "its plain version")
+    small = (("cornell", cornell.tri_pallas, cornell.mega.n_tris),
+             ("hair", descs["hair"].scene.tri_pallas,
+              descs["hair"].scene.n_tris),
+             ("patches", descs["patches"].scene.tri_pallas,
+              descs["patches"].scene.n_tris))
+    o, d, t_any = seeded_rays(1 << 16, dev, seed=31)
+    for label, pool, n_real in small:
+        for any_hit, tv in ((False, torch.full_like(t_any, 1e30)),
+                            (True, t_any)):
+            got = ti.tri_intersect(pool, o, d, tv, n_real, any_hit)
+            want = ti.tri_intersect_plain(pool, o, d, tv, n_real, any_hit)
+            exact = all(torch.equal(g, w) for g, w in zip(got, want))
+            print(f"[31 tri_intersect] {label}'s {n_real} triangles, "
+                  f"any_hit={any_hit}: t, prim, b1, b2 bit-equal {exact} on "
+                  f"{o.shape[0]} rays", flush=True)
+            check(exact, f"tri_intersect on {label}'s pool differs from its "
+                  "plain version")
+
+    # ---- 32. the sphere scene on both routes ----
+    imgs = {}
+    for force in (None, True):
+        sphere, scam = scenes.make_furnace_sphere(
+            albedo=0.8, width=200, height=200, subdiv=3, device=dev,
+            force_bvh=force)
+        reset_counts(named.values())
+        imgs[force], sstats = render.render(
+            sphere, scam, spp=16, device=dev,
+            opts=path_mod.PathOptions(max_depth=5))
+        launches = {c: k.launches for c, k in named.items() if k.launches}
+        plain = sum(k.plain for k in named.values())
+        print(f"[32 sphere] force_bvh={force}: {sphere.n_tris} triangles, "
+              f"launches {launches}, plain-version runs {plain}; "
+              f"{sstats['paths_per_sec']:.6g} paths/s, image mean "
+              f"{float(imgs[force].mean()):.6g}", flush=True)
+        route = "bvh8" if force else "tri_intersect"
+        check(set(launches) == {route} and plain == 0,
+              f"the sphere scene with force_bvh={force} left the {route} "
+              "route")
+        if force is None:
+            sphere_launches = launches.get("tri_intersect", 0)
+    a, b = imgs[None], imgs[True]
+    check(a.shape == (200, 200, 3) and bool(np.isfinite(a).all()),
+          "sphere: render output shape or values")
+    rel = (np.abs(a - b) / np.maximum(np.abs(b), 1e-3)).max(axis=-1)
+    within = float((rel <= 1e-4).mean())
+    mean_rel = abs(float(a.mean()) / float(b.mean()) - 1.0)
+    print(f"[32 sphere] brute force against BVH8: {within * 100:.4f}% of "
+          f"pixels within rel 1e-4 (floor 1e-3), max rel {rel.max():.3g}, "
+          f"means differ by {mean_rel:.3g}", flush=True)
+    check(within >= 0.999 and mean_rel < 1e-3,
+          "the sphere scene's two routes give different images")
+
+    # ---- 33. times at the launch size ----
+    n33 = LAUNCH_RAYS
+    tri_ms = {}
+    for label, pool, n_real, lo, hi, b8 in (
+            (32, cornell.tri_pallas, cornell.mega.n_tris, None, None, None),
+            *((pl_["n_real"], pl_["pool"], pl_["n_real"], pl_["lo"],
+               pl_["hi"], pl_["bvh8"]) for pl_ in pools.values())):
+        if lo is None:
+            o, d, _t = seeded_rays(n33, dev, seed=8)
+        else:
+            o, d = seeded_box_rays(lo, hi, n33, dev, seed=33)
+        tv = torch.full((n33,), 1e30, device=dev)
+        out = ti.tri_intersect(pool, o, d, tv, n_real, False)
+        k_ms = cuda_ms(lambda: ti.tri_intersect(pool, o, d, tv, n_real,
+                                                False), reps=20, warmup=3)
+        bare_ms = cuda_ms(lambda: ti._launch(pool, o, d, tv, n_real, False,
+                                             out=out), reps=20, warmup=3)
+        b_ms, b_by = bound(n33 * (28 + 16) + 4 * pool.numel(),
+                           n33 * n_real * TRI_OPS)
+        b8_ms = None if b8 is None else cuda_ms(
+            lambda: bvh8.bvh8_intersect(b8, o, d, tv, False), reps=20,
+            warmup=3)
+        tri_ms[label] = dict(ms=k_ms, bare_ms=bare_ms, bound_ms=b_ms,
+                             bound_by=b_by, bvh8_ms=b8_ms)
+        print(f"[33 times] card {card}: tri_intersect at {label} triangles "
+              f"x {n33} rays, closest hit: {k_ms:.4f} ms through the "
+              f"wrapper, {bare_ms:.4f} ms the bare launch (outputs allocated"
+              f" once), bound {b_ms:.5f} ms by {b_by}"
+              + ("" if b8_ms is None else
+                 f"; the BVH8 kernel on the same mesh and rays {b8_ms:.4f} "
+                 f"ms ({k_ms / b8_ms:.1f}x faster)"), flush=True)
+
+    # ---- 34. kernels 4, 8 and 9 on one wave's own queries ----
+    wave_ms = {}
+    for label, module, fn_name, arg, key, depth in (
+            ("bvh8", bvh8, "bvh8_intersect", 4, "meshfield", 4),
+            ("two_level", bvh2, "two_level_intersect", 7, "instances", 3),
+            ("curves", curves, "curves_intersect", 5, "hair", 5)):
+        closest, shadow, lanes = wave_queries(module, fn_name, arg,
+                                              descs[key], depth, dev)
+        fn = getattr(module, fn_name)
+        ms = [[cuda_ms(lambda: fn(*a, **k), reps=10, warmup=2)
+               for a, k in group] for group in (closest, shadow)]
+        # a launch's bound at this size: the rays in, the hits out and the
+        # tables once (bytes; at 2^20 rays the operations lay below them)
+        sc_ = descs[key].scene
+        tables, out_bytes = {
+            "bvh8": lambda: ((sc_.bvh8.nodes_f, sc_.bvh8.nodes_q,
+                              sc_.bvh8.tris, sc_.bvh8.prim_indices), 16),
+            "two_level": lambda: ((sc_.tlas_nodes, sc_.inst_rows,
+                                   sc_.tri_geo_tlas), 20),
+            "curves": lambda: ((sc_.curve_nodes, sc_.curve_segs), 8)}[label]()
+        b_ms, _by = bound(lanes * (28 + out_bytes)
+                          + sum(4 * x.numel() for x in tables), 0)
+        wave_ms[label] = dict(
+            lanes=lanes, camera_ms=ms[0][0], bounce_ms=ms[0][1:],
+            shadow_ms=ms[1], launches=len(closest) + len(shadow),
+            sum_ms=sum(ms[0]) + sum(ms[1]), bound_ms=b_ms)
+        print(f"[34 wave] card {card}: {label} on one {key} wave of {lanes} "
+              f"lanes: camera rays {ms[0][0]:.4f} ms, bounces "
+              f"{[round(x, 4) for x in ms[0][1:]]} ms, shadow rays "
+              f"{[round(x, 4) for x in ms[1]]} ms; "
+              f"{wave_ms[label]['launches']} launches, "
+              f"{wave_ms[label]['sum_ms']:.4f} ms in all; a launch's bound "
+              f"at this size {b_ms:.5f} ms (bytes)", flush=True)
+        if label != "curves":
+            continue
+        hair = descs[key].scene
+        for what, (a, k) in (("camera rays", closest[0]),
+                             ("first bounce", closest[1]),
+                             ("first shadow query", shadow[0])):
+            t_k, seg_k = fn(*a, **k)
+            t_p, seg_p = curves.curves_intersect_plain(
+                hair.curve_nodes, hair.curve_segs, a[2], a[3],
+                torch.as_tensor(a[4], device=dev).expand(a[2].shape[0]),
+                a[5])
+            torch.cuda.synchronize()
+            hit_eq = torch.equal(seg_k >= 0, seg_p >= 0)
+            exact = torch.equal(seg_k, seg_p) and torch.equal(t_k, t_p)
+            print(f"[34 wave] curves, hair wave's {what} (any_hit={a[5]}): "
+                  f"hit share {(seg_p >= 0).float().mean().item():.4f}, hit "
+                  f"equal {hit_eq}, t and segment bit-equal {exact}; plain "
+                  f"work {curves.counter.work}", flush=True)
+            check(hit_eq and (exact or a[5]),
+                  f"curves on the hair wave's {what} differs from the plain "
+                  "version")
+    print(f"[34 wave] phases 31-34 took {time.perf_counter() - t_start:.1f} "
+          "s", flush=True)
+    return dict(tri_ms=tri_ms, tri_err=err31, sphere_launches=sphere_launches,
+                wave_ms=wave_ms)
 
 
 def main():
@@ -1527,6 +1801,9 @@ def main():
     pt = patches_phases(dev, card, named)
     print(f"[30 times] phases 26-30 took {time.perf_counter() - t_new:.1f} "
           "s", flush=True)
+    rd = redesign_phases(dev, card, named, scene, dict(
+        meshfield=desc, instances=idesc, hair=cr["desc"],
+        patches=pt.pop("desc")))
 
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]
@@ -1566,6 +1843,26 @@ def main():
         print(f"[bounds] card {card}: {what} bound {b_ms:.5f} ms by {b_by}, "
               f"kernel {k_ms:.4f} ms ({b_ms / k_ms * 100:.2f}% of the "
               "bound)", flush=True)
+    # what a render loses in each kernel: its launches x (a launch's time at
+    # the size the render launches - its bound); the triangle kernel by its
+    # bare launch (the wrapper's time is host work)
+    tri32 = rd["tri_ms"][32]
+    for what, n_launch, k_ms, b_ms in (
+            ("megawave (cornell)", launches["megawave"], mw_ms, mw_bound[0]),
+            ("megawave_rays (rays-in cornell)", ri["launches"], ri["ms"],
+             ri["bound"][0]),
+            ("tri_intersect (general-wave cornell, 32 triangles)",
+             glaunch["tri_intersect"], tri32["bare_ms"], tri32["bound_ms"]),
+            *((f"{name} ({path})", n, w["sum_ms"] / w["launches"],
+               w["bound_ms"]) for name, path, n, w in (
+                ("bvh8", "meshfield", mlaunch["bvh8"], rd["wave_ms"]["bvh8"]),
+                ("two_level", "instances", ilaunch["two_level"],
+                 rd["wave_ms"]["two_level"]),
+                ("curves", "hair", cr["launches"],
+                 rd["wave_ms"]["curves"])))):
+        print(f"[launches x gap] card {card}: {what}: {n_launch} launches x "
+              f"({k_ms:.4f} - {b_ms:.5f}) ms = {n_launch * (k_ms - b_ms):.2f} "
+              "ms a render", flush=True)
     kernels = [
         dict(name="megawave", route="cuda",
              source="pbrt_tpu_torch/csrc/megawave.cu",
@@ -1584,7 +1881,13 @@ def main():
              ms=ti_ms, plain_ms=ti_plain_ms, bound_ms=ti_bound[0],
              bound_by=ti_bound[1], library_ms=None,
              hair_launches=cr["tri_launches"],
-             hair_max_abs_err=cr["tri_err"]),
+             hair_max_abs_err=cr["tri_err"],
+             # phases 31-33: 160,000 rays at 32, 1,280 and 4,096 triangles
+             # (ms through the wrapper, bare_ms the launch alone, bvh8_ms
+             # the BVH8 kernel on the same mesh and rays); the sphere
+             # render's launches
+             by_triangles=rd["tri_ms"], big_pool_max_abs_err=rd["tri_err"],
+             sphere_launches=rd["sphere_launches"]),
         # launches: the meshfield render (phase 8); ms: closest hit at
         # 2^20 rays (any hit in any_hit_ms)
         dict(name="bvh8", route="cuda",
@@ -1593,7 +1896,9 @@ def main():
              launches=mlaunch["bvh8"], max_abs_err=b8_err,
              ms=b8_ms[False][0], plain_ms=b8_ms[False][1],
              bound_ms=b8_bound[0], bound_by=b8_bound[1], library_ms=None,
-             any_hit_ms=b8_ms[True][0], any_hit_plain_ms=b8_ms[True][1]),
+             any_hit_ms=b8_ms[True][0], any_hit_plain_ms=b8_ms[True][1],
+             # phase 34: the queries of one meshfield wave
+             wave=rd["wave_ms"]["bvh8"]),
         # launches: none on a render path (only tests reach the reference's
         # kernel too); its checks and times: phases 12 and 15, closest hit
         # on meshfield's binary BVH at 2^20 rays
@@ -1615,7 +1920,8 @@ def main():
              any_hit_ms=k8_ms["grid64", True][0],
              any_hit_plain_ms=k8_ms["grid64", True][1],
              golden_ms=k8_ms["golden", False][0],
-             golden_plain_ms=k8_ms["golden", False][1]),
+             golden_plain_ms=k8_ms["golden", False][1],
+             wave=rd["wave_ms"]["two_level"]),
         # launches: the hair render (phase 18); ms: closest hit on the hair
         # tables at 2^20 rays (any hit in any_hit_ms); max_abs_err: t of
         # the kernel against the plain version
@@ -1626,7 +1932,8 @@ def main():
              ms=cr["ms"][False][0], plain_ms=cr["ms"][False][1],
              bound_ms=cr["bound"][0], bound_by=cr["bound"][1],
              library_ms=None, any_hit_ms=cr["ms"][True][0],
-             any_hit_plain_ms=cr["ms"][True][1]),
+             any_hit_plain_ms=cr["ms"][True][1],
+             wave=rd["wave_ms"]["curves"]),
         # the rays-in entry of megawave.cu; launches: the 64 waves of phase
         # 23; ms: one 160,000-lane wave at depth 5 (the in-kernel-camera
         # entry on the same lanes in full_camera_ms); max_abs_err: against

@@ -12,7 +12,8 @@ sampler's alias rows and pmf table; "c2w_m" (4, 4); "tan_half_fov" ();
 "tris_b8", "prim_indices" (the BVH8 tables) on the BVH route;
 "tlas_nodes", "inst_rows", "tri_geo_tlas" (the two-level tables) for an
 instanced scene; "curve_nodes", "curve_segs", "curve_mats" (the curve
-tables) for a scene with curves; "blp_rows" (K, 14) for a scene with
+tables; the curve kernel's own node table is derived from them) for a
+scene with curves; "blp_rows" (K, 14) for a scene with
 bilinear patches; "attr", "light", "mat" (the reference's
 megawave.scene_tables) for a megakernel scene.
 meta: "ls_kind", "n_lights", "scene_radius", "inf_indices", "light_tags",
@@ -32,6 +33,7 @@ from . import device as dev_mod
 from . import lightsamplers as lsamp
 from . import samplers as smp
 from .ops import bvh as bvh_mod
+from .ops import curves as curves_mod
 from .ops import tlas as tlas_mod
 from .ops.bvh8 import BVH8
 from .ops.megawave import MegaMeta
@@ -63,8 +65,10 @@ def from_jax_scene(arrays: dict, meta: dict, device="cuda"):
                          arrays["tlas_nodes"], arrays["inst_rows"], root),
                      has_instances=True)
     if "curve_nodes" in arrays:
+        curve_nodes = t("curve_nodes")
         extra.update(
-            curve_nodes=t("curve_nodes"), curve_segs=t("curve_segs"),
+            curve_nodes=curve_nodes, curve_segs=t("curve_segs"),
+            curve_wide=curves_mod.wide_nodes(curve_nodes),
             curve_mats=t("curve_mats", np.int64),
             curve_depth=bvh_mod.bvh_max_depth(arrays["curve_nodes"]),
             has_curves=True)

@@ -48,39 +48,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kLanes = 128;          // floats a page row
 constexpr int kTile = 8 * kLanes;    // a block's tile of x and out
-// an mbarrier wait that lasts this long (ns) traps: a page arrives in
-// microseconds
-constexpr unsigned long long kWaitNs = 2000000000ull;
 
 enum Copy { kLd = 0, kCpAsync = 1, kBulk = 2 };
 enum Variant { kSlice = 0, kFull = 1, kTwoHop = 2 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bars, int n) {
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < n; ++i) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       smem_addr(bars + i))
-                   : "memory");
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-}
+using pbrt_tpu_torch::bulk_start;
+using pbrt_tpu_torch::mbar_init;
+using pbrt_tpu_torch::mbar_wait;
+using pbrt_tpu_torch::smem_addr;
 
 // Starts the copy of n16 float4 from src (global) to dst (shared). Every
 // thread of the block calls it. ld: the copy itself; cp_async: the
@@ -100,17 +82,7 @@ __device__ __forceinline__ void copy_start(int copy, float4* dst,
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   } else if (threadIdx.x == 0) {
-    const uint32_t bytes = static_cast<uint32_t>(n16) * 16u;
-    const uint32_t b = smem_addr(bar);
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-        "r"(bytes)
-        : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(b)
-        : "memory");
+    bulk_start(dst, src, static_cast<uint32_t>(n16) * 16u, bar);
   }
 }
 
@@ -120,24 +92,8 @@ __device__ __forceinline__ void copy_start(int copy, float4* dst,
 __device__ __forceinline__ void copy_wait(int copy, uint64_t* bar,
                                           uint32_t parity, int pending) {
   if (copy == kBulk) {
-    const uint32_t b = smem_addr(bar);
-    unsigned long long start = 0ull;   // set at the first failed poll
-    for (;;) {
-      uint32_t done;
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-          "selp.u32 %0, 1, 0, p;\n"
-          "}\n"
-          : "=r"(done)
-          : "r"(b), "r"(parity)
-          : "memory");
-      if (done) return;
-      const unsigned long long now = global_ns();
-      if (start == 0ull) start = now;
-      if (now - start > kWaitNs) __trap();
-    }
+    mbar_wait(bar, parity);
+    return;
   }
   if (copy == kCpAsync) {
     if (pending) {

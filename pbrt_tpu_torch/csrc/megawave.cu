@@ -229,8 +229,8 @@ megawave_kernel(const float* __restrict__ g_cam, const float* __restrict__ g_tri
                 int n_dims, int max_depth, int rr_start, int B, int log2_spp,
                 int ls_uniform, FilterConst fc) {
   // ---- block-wide copy of the read-only tables into shared memory ----
-  extern __shared__ float smem[];
-  float* s_tri = smem;
+  extern __shared__ __align__(16) float smem[];
+  float* s_tri = smem;   // first, so its rows keep the 16 B alignment
   float* s_attr = s_tri + n_tris * kTriFloats;
   float* s_light = s_attr + n_real * kAttrCols;
   float* s_mat = s_light + n_lights * kLightCols;

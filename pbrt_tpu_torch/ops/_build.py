@@ -68,8 +68,9 @@ SIGNATURES = {
         "bvh2_intersect_launch": [_P] * 11 + [_I] * 4 + [_P],
     },
     "curves": {
-        # nodes, segs, o, d, t_max, t, seg, n, any_hit, stream
-        "curves_intersect_launch": [_P] * 7 + [_I] * 2 + [_P],
+        # nodes, wide, segs, o, d, t_max, t, seg, next_ray, n, any_hit,
+        # refill_idle, min_walkers, stream
+        "curves_intersect_launch": [_P] * 9 + [_I] * 4 + [_P],
     },
     "dma_probe": {
         # pages, x, out, n_pages, rows, page, variant, copy, reduce, blocks,

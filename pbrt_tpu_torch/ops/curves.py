@@ -12,8 +12,10 @@ case): the closest approach of the ray to the segment's chord, inside half
 the lerped width; t at the axis depth, pulled toward the viewer by the
 tube profile for a cylinder.
 
-Traversal semantics, shared by the plain version (`curves_intersect_plain`)
-and the kernel (csrc/curves.cu), one ray at a time with a 64-entry stack:
+Traversal semantics of the plain version (`curves_intersect_plain`), one
+ray at a time with a 64-entry stack; the kernel (csrc/curves.cu) walks a
+table with both children's boxes in the parent (`wide_nodes`) and gives
+the same bits (its header note says why):
 - a visit tests the node's slab (ops/bvh8._slab, the 1.0000004 slack)
   against the running t_best;
 - an interior node hit pushes its far child and descends into the near
@@ -30,7 +32,9 @@ as the reference's packet_intersect_curves does, for u, v, the normal, the
 axis and the curve id.
 
 `curves_intersect` is the wrapper: CPU tensors run the plain version; CUDA
-tensors launch the kernel, or raise.
+tensors launch the kernel, or raise. The kernel's table is derived from
+the node rows by `wide_nodes`; a scene keeps it beside them
+(`Scene.curve_wide`) and passes it as `wide=`.
 """
 from __future__ import annotations
 
@@ -54,8 +58,46 @@ SUBDIV = 3
 # a binary tree of depth D needs at most D - 1 entries of the 64-entry
 # stack (STACK) in this walk
 MAX_DEPTH = STACK
+WIDE_COLS = 16
+# a warp of the kernel (csrc/curves.cu) refills when this many of its lanes
+# are idle, and its lanes that hold a leaf wait for the others while at
+# least this many still walk
+REFILL_IDLE = 8
+MIN_WALKERS = 8
 
 counter = LaunchCounter()
+
+
+def wide_nodes(nodes):
+    """The kernel's node table, derived from the reference-layout rows
+    nodes (Nn, 8) on their device: one row an interior node, in the order
+    of the rows they come from (depth first, the root is row 0),
+    (Nw, WIDE_COLS) int32: columns 0-5 the left child's box and 6-11 the
+    right child's (the bits of the float32 rows they come from), 12 and 13
+    the children's refs, 14 the node's split axis, 15 zero. The left child
+    of node i is node i + 1, the right one node roff. A ref >= 0 is the
+    child's row in this table; a ref < 0 is a leaf, ~ref = roff << 3 |
+    min(nprim, MAX_LEAF). A tree whose root is a leaf has no rows."""
+    nodes = nodes.reshape(-1, 8)
+    roff = torch.round(nodes[:, 6]).to(torch.int64)
+    meta = torch.round(nodes[:, 7]).to(torch.int64)
+    nprim, axis = meta >> 2, meta & 3
+    interior = nprim == 0
+    if int(roff.max()) >= 1 << 28:
+        raise ValueError("curves: a leaf ref holds segment offsets below "
+                         "2^28")
+    order = torch.nonzero(interior).squeeze(1)
+    ref = torch.where(interior, torch.cumsum(interior, 0) - 1,
+                      ~(roff << 3 | torch.clamp(nprim, max=MAX_LEAF)))
+    left, right = order + 1, roff[order]
+    wide = torch.zeros((order.numel(), WIDE_COLS), dtype=torch.int32,
+                       device=nodes.device)
+    wide[:, 0:6] = nodes[left, :6].contiguous().view(torch.int32)
+    wide[:, 6:12] = nodes[right, :6].contiguous().view(torch.int32)
+    wide[:, 12] = ref[left].to(torch.int32)
+    wide[:, 13] = ref[right].to(torch.int32)
+    wide[:, 14] = axis[order].to(torch.int32)
+    return wide
 
 
 def bezier_eval(cp, u):
@@ -252,53 +294,67 @@ def curves_intersect_plain(nodes, segs, o, d, t_max, any_hit: bool):
 
 
 def curves_intersect(nodes, segs, o, d, t_max, any_hit: bool = False, *,
-                     depth: int):
+                     depth: int, wide=None):
     """Closest (or any) hit through the curve BVH. nodes (Nn, 8), segs (S,
     SEG_COLS) in leaf order, o, d (N, 3), t_max (N,) or a scalar; depth:
-    the tree's depth (ops/bvh.bvh_max_depth), held to the stack. Returns
-    (t (N,) = inf on a miss, seg (N,) int32 = -1 on a miss)."""
+    the tree's depth (ops/bvh.bvh_max_depth), held to the stack; wide: the
+    kernel's table (wide_nodes(nodes); derived here when not given, which a
+    caller with many queries avoids by keeping it). Returns (t (N,) = inf
+    on a miss, seg (N,) int32 = -1 on a miss)."""
     t_max, cuda = _prepare("curves_intersect", o, d, t_max, (nodes, segs),
                            depth, MAX_DEPTH)
     if not cuda:
         return curves_intersect_plain(nodes, segs, o, d, t_max, any_hit)
-    return _launch(nodes, segs, o, d, t_max, any_hit)
+    if wide is None:
+        wide = wide_nodes(nodes)
+    return _launch(nodes, wide, segs, o, d, t_max, any_hit)
 
 
-def _launch(nodes, segs, o, d, t_max, any_hit):
+def _launch(nodes, wide, segs, o, d, t_max, any_hit, *,
+            refill_idle=REFILL_IDLE, min_walkers=MIN_WALKERS, lib=None):
+    """lib: a build of csrc/curves.cu other than the package's own (a
+    tuning tool's)."""
     import ctypes
     from . import _build
     for x in (nodes, segs, o, d, t_max):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError("curves: float32 contiguous tensors only")
-    if nodes.numel() % 8 or segs.numel() % SEG_COLS:
+    if nodes.numel() % 8 or nodes.numel() == 0 or segs.numel() % SEG_COLS:
         raise ValueError(f"curves: node rows of 8 and segment rows of "
                          f"{SEG_COLS} floats")
-    if nodes.data_ptr() % 16 or segs.data_ptr() % 16:
+    if (wide.dtype != torch.int32 or not wide.is_contiguous()
+            or wide.device != nodes.device or wide.numel() % WIDE_COLS):
+        raise ValueError(f"curves: wide must be wide_nodes(nodes), int32 "
+                         f"rows of {WIDE_COLS}")
+    if nodes.data_ptr() % 16 or segs.data_ptr() % 16 or wide.data_ptr() % 16:
         raise ValueError("curves: node and segment rows must be 16-byte "
                          "aligned")
-    lib = _build.load_library("curves")
+    lib = lib or _build.load_library("curves")
     N = o.shape[0]
     t = torch.empty((N,), dtype=torch.float32, device=o.device)
     seg = torch.empty((N,), dtype=torch.int32, device=o.device)
     if N == 0:
         return t, seg
+    next_ray = torch.empty((1,), dtype=torch.int32, device=o.device)
     with torch.cuda.device(o.device):
         err = lib.curves_intersect_launch(
-            nodes.data_ptr(), segs.data_ptr(), o.data_ptr(), d.data_ptr(),
-            t_max.data_ptr(), t.data_ptr(), seg.data_ptr(), N, int(any_hit),
+            nodes.data_ptr(), wide.data_ptr(), segs.data_ptr(), o.data_ptr(),
+            d.data_ptr(), t_max.data_ptr(), t.data_ptr(), seg.data_ptr(),
+            next_ray.data_ptr(), N, int(any_hit), refill_idle, min_walkers,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _build.check(err, "curves_intersect")
     counter.launches += 1
     return t, seg
 
 
-def intersect_curves(nodes, segs, o, d, t_max, *, depth: int):
+def intersect_curves(nodes, segs, o, d, t_max, *, depth: int, wide=None):
     """Closest curve hit with its attributes (reference
     packet_intersect_curves): the query's t and winning segment, then one
     re-run of segment_test on the gathered winner row (bound t * 1.0001 +
     1e-5) for u, v and the normal. Returns dict(hit, t (inf on a miss), u,
     v, n, axis (the segment's unit chord), curve_id (-1 on a miss))."""
-    t, seg = curves_intersect(nodes, segs, o, d, t_max, False, depth=depth)
+    t, seg = curves_intersect(nodes, segs, o, d, t_max, False, depth=depth,
+                              wide=wide)
     hit = seg >= 0
     rows = segs.reshape(-1, SEG_COLS)[torch.clamp(seg, min=0).to(torch.int64)]
     r = segment_test(o, d, torch.where(hit, t * 1.0001 + 1e-5, 0.0), rows)

@@ -9,7 +9,9 @@ unroll), and the scan stops after the first group with a hit, returning
 that group's closest hit — so both versions report the same triangle.
 
 `tri_intersect` is the wrapper: CPU tensors run `tri_intersect_plain`;
-CUDA tensors launch the kernel of csrc/tri_intersect.cu, or raise.
+CUDA tensors launch the kernel of csrc/tri_intersect.cu, or raise. The
+kernel streams the pool through shared memory in tiles, so a pool of any
+size launches.
 The megakernel runs the same test from csrc/tri_intersect.cuh.
 """
 from __future__ import annotations
@@ -107,18 +109,23 @@ def tri_intersect(tri, o, d, t_max, n_real: int, any_hit: bool = False):
     return _launch(tri, o, d, t_max, n_real, any_hit)
 
 
-def _launch(tri, o, d, t_max, n_real, any_hit):
+def _launch(tri, o, d, t_max, n_real, any_hit, out=None):
+    """out: (t, prim, b1, b2) to write into (a timing loop's, allocated
+    once); allocated here when None."""
     import ctypes
     from . import _build
     for x in (tri, o, d, t_max):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError("tri_intersect: float32 contiguous tensors only")
+    if tri.data_ptr() % 16:
+        raise ValueError("tri_intersect: the pool must be 16-byte aligned")
     lib = _build.load_library("tri_intersect")
     N = o.shape[0]
-    t = torch.empty((N,), dtype=torch.float32, device=o.device)
-    prim = torch.empty((N,), dtype=torch.int32, device=o.device)
-    b1 = torch.empty_like(t)
-    b2 = torch.empty_like(t)
+    if out is None:
+        t = torch.empty((N,), dtype=torch.float32, device=o.device)
+        prim = torch.empty((N,), dtype=torch.int32, device=o.device)
+        out = (t, prim, torch.empty_like(t), torch.empty_like(t))
+    t, prim, b1, b2 = out
     if N == 0:
         return t, prim, b1, b2
     with torch.cuda.device(o.device):

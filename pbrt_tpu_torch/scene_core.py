@@ -74,9 +74,11 @@ class Scene:
     stack the tables need; None (0, False) without instances. Scenes with
     curves (ops/curves.py): curve_nodes (M, 8) the curve BVH, curve_segs
     (S, 16) its sub-segment rows in leaf order, curve_mats (C,) int64 the
-    material of each curve id, curve_depth the tree's depth; None (0,
-    False) without curves. blp_rows (K, 14) the exact bilinear patches
-    [p00, p10, p01, p11, material, -1]; None (False) without patches.
+    material of each curve id, curve_depth the tree's depth, curve_wide
+    (W, 16) int32 the curve kernel's own node table (curves.wide_nodes of
+    curve_nodes); None (0, False) without curves. blp_rows (K, 14) the
+    exact bilinear patches [p00, p10, p01, p11, material, -1]; None (False)
+    without patches.
     bxdf_tags: the BxDF tags of the material pool."""
     tri_all: torch.Tensor
     tri_pallas: torch.Tensor
@@ -104,6 +106,7 @@ class Scene:
     curve_segs: torch.Tensor = None
     curve_mats: torch.Tensor = None
     curve_depth: int = 0
+    curve_wide: torch.Tensor = None
     has_curves: bool = False
     blp_rows: torch.Tensor = None
     has_blps: bool = False
@@ -471,7 +474,9 @@ class SceneBuilder:
             tri_pallas = t(ti.pad_triangles(tri_geo[:, :9]))
         if self.curve_seg_rows:
             nodes, segs, depth = self._curve_pool()
-            extra.update(curve_nodes=t(nodes), curve_segs=t(segs),
+            nodes = t(nodes)
+            extra.update(curve_nodes=nodes, curve_segs=t(segs),
+                         curve_wide=crv.wide_nodes(nodes),
                          curve_mats=torch.as_tensor(
                              np.asarray(self.curve_mat_list, np.int64),
                              device=device),
@@ -662,7 +667,8 @@ def _merge_curve_hits(scene: Scene, o, d, t_max, out):
     curve's material, no light."""
     t_best = torch.where(out["hit"], out["t"], t_max)
     rc = crv.intersect_curves(scene.curve_nodes, scene.curve_segs, o, d,
-                              t_best, depth=scene.curve_depth)
+                              t_best, depth=scene.curve_depth,
+                              wide=scene.curve_wide)
     hit_c = rc["hit"] & (rc["t"] < t_best)
     h = hit_c[:, None]
     n_c = rc["n"]
@@ -695,7 +701,8 @@ def intersect_p(scene: Scene, o, d, t_max):
     if scene.has_curves:
         _t, seg = crv.curves_intersect(scene.curve_nodes, scene.curve_segs,
                                        o, d, t_max, True,
-                                       depth=scene.curve_depth)
+                                       depth=scene.curve_depth,
+                                       wide=scene.curve_wide)
         occluded = occluded | (seg >= 0)
     return occluded
 

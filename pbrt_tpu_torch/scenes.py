@@ -124,16 +124,20 @@ def make_sphere_mesh(center, radius, subdiv=3):
 
 
 def make_furnace_sphere(albedo=1.0, env_radiance=1.0, width=64, height=64,
-                        subdiv=3, device="cuda"):
+                        subdiv=3, device="cuda", force_bvh=True):
     """The white furnace: a unit diffuse sphere under a uniform
     environment. With albedo 1 and enough bounces every pixel, on the
-    sphere or not, equals env_radiance."""
+    sphere or not, equals env_radiance. force_bvh: the triangle route
+    (SceneBuilder.build; True, the BVH8 kernel, is the reference's choice
+    here; None leaves the 1,280 triangles of subdiv 3 to the brute-force
+    kernel)."""
     b = sc.SceneBuilder()
     m = b.materials.add_diffuse((albedo, albedo, albedo))
     v, f, n = make_sphere_mesh((0, 0, 0), 1.0, subdiv)
     b.add_mesh(v, f, m, normals=n)
     b.add_uniform_infinite_light(spc.ConstantSpectrum(env_radiance))
-    scene = b.build(light_sampler="uniform", force_bvh=True, device=device)
+    scene = b.build(light_sampler="uniform", force_bvh=force_bvh,
+                    device=device)
     cam = cam_mod.make_camera(
         "perspective",
         camera_from_world=tfm.look_at((0, 0, -4), (0, 0, 0),

@@ -57,6 +57,49 @@ def test_tri_intersect_kernel_matches_plain(cuda_device, any_hit):
                                atol=0)
 
 
+def _big_pool(which, device):
+    """Pools above one shared-memory tile: a subdivision-3 icosphere through
+    SceneBuilder with the default force_bvh=None (1,280 triangles: the
+    brute-force route), or a seeded soup of 4,096 triangles, both inside the
+    box +-1. Returns (pool, n_real)."""
+    from pbrt_tpu_torch.scene_core import BVH_MIN_TRIS, SceneBuilder
+    if which == "sphere1280":
+        b = SceneBuilder()
+        v, f, nrm = scenes.make_sphere_mesh((0.0, 0.0, 0.0), 1.0, subdiv=3)
+        b.add_mesh(v, f, b.materials.add_diffuse((0.5, 0.5, 0.5)),
+                   normals=nrm)
+        b.add_uniform_infinite_light(spc.ConstantSpectrum(1.0))
+        scene = b.build(light_sampler="uniform", device=device)
+        assert scene.n_tris == 1280 and scene.tri_pallas is not None
+        return scene.tri_pallas, scene.n_tris
+    rs = np.random.RandomState(31)
+    p0 = rs.uniform(-1, 1, (BVH_MIN_TRIS, 1, 3))
+    tri = (p0 + rs.normal(scale=0.05, size=(BVH_MIN_TRIS, 3, 3))).reshape(
+        BVH_MIN_TRIS, 9)
+    return torch.as_tensor(ti.pad_triangles(tri), device=device), BVH_MIN_TRIS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("which", ["sphere1280", "soup4096"])
+def test_tri_intersect_kernel_above_one_tile(cuda_device, which, any_hit):
+    """Pools of 1,280 and 4,096 triangles, which a scene built with the
+    default force_bvh sends to the triangle kernel: the launch succeeds and
+    t, prim, b1 and b2 are bit-equal to the plain version."""
+    pool, n_real = _big_pool(which, cuda_device)
+    n = 1 << 14
+    o, d = _box_rays((-2, -2, -2), (2, 2, 2), n, 33, cuda_device)
+    t_max = torch.full((n,), 1.5 if any_hit else 1e30, device=cuda_device)
+    before = ti.counter.launches
+    got = ti.tri_intersect(pool, o, d, t_max, n_real, any_hit)
+    torch.cuda.synchronize()
+    assert ti.counter.launches == before + 1
+    want = ti.tri_intersect_plain(pool, o, d, t_max, n_real, any_hit)
+    assert 0.05 < (want[1] >= 0).float().mean().item() < 0.95
+    for g, w, name in zip(got, want, ("t", "prim", "b1", "b2")):
+        assert torch.equal(g, w), name
+
+
 def _uniform_light_box(device):
     """A floor, a back wall and two lamps under the uniform light sampler
     (the megakernel's other light-pick branch), seen by the cornell
@@ -254,6 +297,54 @@ def test_curve_kernel_matches_plain(cuda_device, any_hit):
         assert torch.equal(got[k], want[k]), k
     assert torch.equal(got["curve_id"], torch.where(
         seg_p >= 0, rows[:, 14].round().long(), -1))
+
+
+@pytest.mark.cuda
+def test_curve_kernel_matches_plain_on_a_wave_s_rays(cuda_device):
+    """The curve queries of one hair wave (a 512-strand patch, 64x64, depth
+    3): the camera rays' and every bounce's closest-hit query and the
+    shadow rays' any-hit queries, as the wave hands them to the kernel,
+    bit-equal to the plain version (the hit flag at any hit)."""
+    import sys
+    from pathlib import Path
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.ops import curves
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root / "tools"))
+    from hair_scene import hair_scene_text
+    desc = parser.parse_string(hair_scene_text(512, 1, 64, 64, 1),
+                               device=cuda_device)
+    s = desc.scene
+    queries = []
+    kernel = curves.curves_intersect
+
+    def recording(nodes, segs, o, d, t_max, any_hit=False, **kw):
+        queries.append((o, d, t_max, any_hit))
+        return kernel(nodes, segs, o, d, t_max, any_hit, **kw)
+    curves.curves_intersect = recording
+    try:
+        pix = torch.arange(64 * 64, device=cuda_device)
+        path_mod.render_wave(s, desc.camera, desc.sampler,
+                             flt.make_filter("gaussian"), pix,
+                             torch.zeros_like(pix),
+                             path_mod.PathOptions(max_depth=3))
+    finally:
+        curves.curves_intersect = kernel
+    closest = [q for q in queries if not q[3]]
+    assert len(closest) >= 3 and len(queries) > len(closest)
+    for o, d, t_max, any_hit in queries:
+        t, seg = kernel(s.curve_nodes, s.curve_segs, o, d, t_max, any_hit,
+                        depth=s.curve_depth, wide=s.curve_wide)
+        t_p, seg_p = curves.curves_intersect_plain(
+            s.curve_nodes, s.curve_segs, o, d,
+            torch.as_tensor(t_max, device=cuda_device).expand(o.shape[0]),
+            any_hit)
+        assert torch.equal(seg >= 0, seg_p >= 0)
+        if not any_hit:
+            assert torch.equal(seg, seg_p) and torch.equal(t, t_p)
+    # the bounce rays do hit the fur
+    assert (kernel(s.curve_nodes, s.curve_segs, *closest[1][:3],
+                   depth=s.curve_depth)[1] >= 0).float().mean().item() > 0.01
 
 
 @pytest.mark.cuda

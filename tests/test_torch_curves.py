@@ -18,6 +18,10 @@ curve parts of scene_core and the parser).
   _segment_test on the port's winning rows gives the port's u and v bit
   for bit and n within 2 ulp (its normalisations round apart). A tree
   deeper than the stack is refused.
+- The curve kernel's own node table (wide_nodes): every child box, ref and
+  axis bit-equal to the reference-layout rows it was derived from, in
+  their order; the kernel's walk over it, emulated a ray at a time
+  in float32, gives the plain version's t and segment bit for bit.
 - SceneBuilder and the parser: every curve table (nodes, leaf-ordered
   segments, curve materials), the triangle rows, the material, light and
   spectrum pools and the scene radius bit-equal to the reference's; the
@@ -302,8 +306,9 @@ def test_convert_carries_the_curve_tables():
     arrays, meta = export(dj.scene, dj.camera, dj.sampler)
     scene, _cam, _smp = convert.from_jax_scene(arrays, meta, device="cpu")
     _compare_tables(scene, dj.scene)
-    assert scene.curve_depth == parser.parse_string(
-        text, device="cpu").scene.curve_depth
+    own = parser.parse_string(text, device="cpu").scene
+    assert scene.curve_depth == own.curve_depth
+    assert torch.equal(scene.curve_wide, own.curve_wide)
 
 
 @pytest.mark.parametrize("shape", [
@@ -382,3 +387,158 @@ def test_intersect_with_curves_matches_reference(mixed):
                                jnp.asarray(t_sh))
     assert 0.05 < float(np.asarray(occl_ref).mean()) < 0.95
     np.testing.assert_array_equal(occl.numpy(), np.asarray(occl_ref))
+
+
+# ---------------------------------------------------------------------------
+# The curve kernel's own node table (curves.wide_nodes) and its walk
+
+def _curve_tables(which):
+    if which == "patch":
+        return _patch_tables()[0]
+    if which == "seeded60":
+        return _build_pair()[1].build(device="cpu")
+    if which == "snippet":
+        return parser.parse_string(SNIPPET, device="cpu").scene
+    return parser.parse_string(hair_scene_text(24, 3, 8, 8, 1),
+                               device="cpu").scene
+
+
+@pytest.mark.parametrize("which", ["patch", "seeded60", "snippet", "hair24"])
+def test_wide_nodes_match_the_rows_they_come_from(which):
+    """Every interior node has one wide row; its child boxes, refs and axis
+    are bit-equal to the reference-layout rows of its children (left: the
+    next row, right: row roff); a leaf child's ref keeps roff and nprim;
+    the rows are in the node table's own (depth-first) order."""
+    s = _curve_tables(which)
+    nodes = s.curve_nodes.numpy()
+    wide = s.curve_wide.numpy()
+    assert np.array_equal(wide, crv.wide_nodes(s.curve_nodes).numpy())
+    roff = np.round(nodes[:, 6]).astype(np.int64)
+    meta = np.round(nodes[:, 7]).astype(np.int64)
+    nprim, axis = meta >> 2, meta & 3
+    interior = np.flatnonzero(nprim == 0)
+    assert wide.dtype == np.int32 and wide.shape == (len(interior),
+                                                     crv.WIDE_COLS)
+    assert len(interior) > 1 and nprim.max() <= crv.MAX_LEAF
+    # walk the table from row 0 and recover the node each row stands for
+    node_of = np.full(len(wide), -1, np.int64)
+    node_of[0] = 0
+    seen_leaves = 0
+    for w in range(len(wide)):       # depth-first: parents come first
+        i = node_of[w]
+        assert i >= 0 and nprim[i] == 0
+        assert wide[w, 14] == axis[i] and wide[w, 15] == 0
+        for child, cols, ref in ((i + 1, slice(0, 6), wide[w, 12]),
+                                 (roff[i], slice(6, 12), wide[w, 13])):
+            np.testing.assert_array_equal(
+                wide[w, cols], nodes[child, :6].view(np.int32))
+            if nprim[child] == 0:
+                assert ref > w and node_of[ref] == -1
+                node_of[ref] = child
+            else:
+                assert ref < 0
+                assert (~ref >> 3, ~ref & 7) == (roff[child], nprim[child])
+                seen_leaves += 1
+    assert sorted(node_of) == sorted(interior)
+    assert seen_leaves == (nprim > 0).sum()
+    # the table's order is the node table's
+    np.testing.assert_array_equal(node_of, interior)
+    # an interior left child is the next row
+    left_interior = wide[:, 12] >= 0
+    np.testing.assert_array_equal(wide[left_interior, 12],
+                                  np.flatnonzero(left_interior) + 1)
+
+
+def test_wide_nodes_of_a_single_leaf():
+    nodes = torch.tensor([[0, 0, 0, 1, 1, 1, 0, 3 << 2]], dtype=torch.float32)
+    assert crv.wide_nodes(nodes).shape == (0, crv.WIDE_COLS)
+
+
+def _slab32(box, o, inv, t_best):
+    """ops/bvh8._slab on one box, in float32, with the entry distance."""
+    f = np.float32
+    t0 = (box[0:3] - o) * inv
+    t1 = (box[3:6] - o) * inv
+    tmin = max(max(min(t0[0], t1[0]), min(t0[1], t1[1])),
+               max(min(t0[2], t1[2]), f(0)))
+    tmax = min(min(max(t0[0], t1[0]), max(t0[1], t1[1])),
+               min(max(t0[2], t1[2]), t_best))
+    return bool(tmin <= tmax * f(1.0000004)), f(tmin)
+
+
+def _wide_walk(scene, o, d, t_max, any_hit):
+    """The curve kernel's walk (csrc/curves.cu), one ray at a time in
+    float32: the root's box from the node rows, then the wide table; a far
+    child is pushed with its entry distance and tested again when popped
+    (entry <= t_best * 1.0000004)."""
+    f = np.float32
+    nodes = scene.curve_nodes.numpy()
+    wide = scene.curve_wide.numpy()
+    boxes = wide[:, :12].copy().view(np.float32)
+    segs = scene.curve_segs
+    t_out = np.full(len(o), np.inf, np.float32)
+    seg_out = np.full(len(o), -1, np.int32)
+    root_nprim = int(round(float(nodes[0, 7]))) >> 2
+    root = 0 if root_nprim == 0 else ~(int(round(float(nodes[0, 6]))) << 3
+                                       | root_nprim)
+    with np.errstate(all="ignore"):
+        for r in range(len(o)):
+            inv = f(1) / np.where(d[r] == 0, f(1e-20), d[r])
+            t_best, seg, stack = f(t_max[r]), -1, []
+            if not _slab32(nodes[0, :6], o[r], inv, t_best)[0]:
+                continue
+            cur = root
+            while cur is not None:
+                nxt = None
+                if cur >= 0:
+                    hl, tl = _slab32(boxes[cur, 0:6], o[r], inv, t_best)
+                    hr, tr = _slab32(boxes[cur, 6:12], o[r], inv, t_best)
+                    neg = d[r, wide[cur, 14]] < 0
+                    near, far = ((wide[cur, 13], hr), (wide[cur, 12], hl, tl)) \
+                        if neg else ((wide[cur, 12], hl), (wide[cur, 13], hr,
+                                                           tr))
+                    if near[1]:
+                        if far[1]:
+                            stack.append((int(far[0]), far[2]))
+                        nxt = int(near[0])
+                    elif far[1]:
+                        nxt = int(far[0])
+                else:
+                    roff, m = ~cur >> 3, ~cur & 7
+                    orr = torch.as_tensor(o[r:r + 1])
+                    fr = crv._ray_frame(torch.as_tensor(d[r:r + 1]))
+                    for k in range(m):
+                        t, inside = crv._segment_core(
+                            segs[roff + k:roff + k + 1], orr, *fr)[:2]
+                        t = f(t.item())
+                        if bool(inside) and t > f(crv.T_MIN) and t < t_best:
+                            t_best, seg = t, roff + k
+                            if any_hit:
+                                break
+                    if any_hit and seg >= 0:
+                        break
+                while nxt is None and stack:
+                    ref, tmin = stack.pop()
+                    if tmin <= t_best * f(1.0000004):
+                        nxt = ref
+                cur = nxt
+            if seg >= 0:
+                t_out[r], seg_out[r] = t_best, seg
+    return t_out, seg_out
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_wide_walk_matches_plain(any_hit):
+    """The kernel's walk over the wide table gives the plain version's t
+    and segment bit for bit, closest and any hit."""
+    s = _patch_tables()[0]
+    o, d = _patch_rays(384, 21, s.curve_segs)
+    t_max = np.full(len(o), 2.0 if any_hit else 1e30, np.float32)
+    t_p, seg_p = crv.curves_intersect_plain(
+        s.curve_nodes, s.curve_segs, torch.as_tensor(o), torch.as_tensor(d),
+        torch.as_tensor(t_max), any_hit)
+    t_w, seg_w = _wide_walk(s, o, d, t_max, any_hit)
+    assert 0.1 < (seg_p.numpy() >= 0).mean() < 0.9
+    np.testing.assert_array_equal(seg_w, seg_p.numpy())
+    np.testing.assert_array_equal(t_w.view(np.uint32),
+                                  t_p.numpy().view(np.uint32))

@@ -124,6 +124,7 @@ def test_port_imports_no_jax(tmp_path):
         "import hair_scene\n"
         "import terrain_rays\n"
         "import torch_dma_probe\n"
+        "import torch_redesign_ab\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in\n"
         "            ('torch', 'jax', 'pbrt_tpu', 'pbrt_tpu_torch')]\n"
         "import torch\n"
@@ -158,6 +159,15 @@ def test_port_imports_no_jax(tmp_path):
         "                        device='cpu',\n"
         "                        opts=path.PathOptions(max_depth=2))\n"
         "assert curves.counter.plain == 4 and img4.mean() > 0\n"
+        "assert desc.scene.curve_wide.shape[1] == curves.WIDE_COLS\n"
+        "sph, scam = scenes.make_furnace_sphere(width=4, height=4,\n"
+        "                                       force_bvh=None, device='cpu')\n"
+        "from pbrt_tpu_torch.ops import tri_intersect\n"
+        "before = tri_intersect.counter.plain\n"
+        "img6, _ = render.render(sph, scam, spp=1, device='cpu',\n"
+        "                        opts=path.PathOptions(max_depth=2))\n"
+        "assert sph.n_tris == 1280 and sph.tri_pallas is not None\n"
+        "assert tri_intersect.counter.plain > before and img6.mean() > 0\n"
         "lo, hi, tri = terrain_rays.terrain_triangles(12)\n"
         "V, _F = terrain_rays.make_terrain(12)\n"
         "o, d = (torch.as_tensor(a) for a in\n"

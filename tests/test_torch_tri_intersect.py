@@ -80,3 +80,88 @@ def test_pad_triangles_matches_reference():
                                   np.asarray(jpi.pad_triangles(v)))
     assert scene.tri_pallas.numel() == 32 * 16
 
+
+
+def _pool(n_tris, seed):
+    """A pool of n_tris triangles and 1,024 seeded rays from its box +-1:
+    the 1,280 triangles of a subdivision-3 icosphere (the pool a scene
+    built with the default force_bvh hands the kernel), else a seeded soup
+    of small triangles in the unit box."""
+    rs = np.random.RandomState(seed)
+    if n_tris == 1280:
+        v, f, _n = scenes.make_sphere_mesh((0.0, 0.0, 0.0), 1.0, subdiv=3)
+        tri = v[f].reshape(-1, 9)
+    else:
+        p0 = rs.uniform(-1, 1, (n_tris, 1, 3))
+        tri = (p0 + rs.normal(scale=0.05, size=(n_tris, 3, 3))).reshape(-1, 9)
+    assert len(tri) == n_tris
+    o = rs.uniform(-2, 2, (1024, 3)).astype(np.float32)
+    d = rs.normal(size=(1024, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return tri.astype(np.float32), o, d
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n_tris", [772, 1280, 4096])
+def test_plain_matches_reference_kernel_above_768_triangles(n_tris, any_hit):
+    """Pools larger than 48 KB of rows, which the reference's kernel takes
+    (run here in interpret mode): prim equal, t within rtol 1e-5, the
+    barycentrics within atol 5e-5."""
+    tri, o, d = _pool(n_tris, n_tris)
+    pool = ti.pad_triangles(tri)
+    assert pool.size == n_tris * 16
+    t_max = np.full(len(o), 1.5 if any_hit else 1e30, np.float32)
+    want = jpi.brute_force_intersect(jnp.asarray(pool), jnp.asarray(o),
+                                     jnp.asarray(d), jnp.asarray(t_max),
+                                     n_real=n_tris, any_hit=any_hit,
+                                     interpret=True)
+    t, k, b1, b2 = ti.tri_intersect(torch.as_tensor(pool), torch.as_tensor(o),
+                                    torch.as_tensor(d),
+                                    torch.as_tensor(t_max), n_tris, any_hit)
+    hit = np.asarray(want["hit"])
+    assert 0.02 < hit.mean() < 0.95
+    np.testing.assert_array_equal(k.numpy(), np.asarray(want["prim"]))
+    np.testing.assert_allclose(t.numpy()[hit], np.asarray(want["t"])[hit],
+                               rtol=1e-5)
+    # the barycentric numerators cancel (triangles of size 0.05 seen from
+    # a distance of 3: an error of some 60 ulp), and XLA contracts
+    # multiply-adds where torch rounds twice: atol 5e-5
+    np.testing.assert_allclose(b1.numpy(), np.asarray(want["b1"]), rtol=1e-5,
+                               atol=5e-5)
+    np.testing.assert_allclose(b2.numpy(), np.asarray(want["b2"]), rtol=1e-5,
+                               atol=5e-5)
+
+
+def test_brute_force_and_bvh_routes_agree_on_1280_triangles():
+    """The subdivision-3 icosphere through scene_core.intersect and
+    intersect_p on the CPU, built with the default force_bvh (1,280
+    triangles: the brute-force pool) and with force_bvh=True (BVH8): the
+    same hits. The two routes' lower t bounds differ (1e-6 and 1e-5), which
+    no ray from outside the sphere reaches."""
+    from pbrt_tpu_torch import scene_core as sc
+    brute, _cam = scenes.make_furnace_sphere(subdiv=3, force_bvh=None,
+                                             device="cpu")
+    tree, _cam = scenes.make_furnace_sphere(subdiv=3, force_bvh=True,
+                                            device="cpu")
+    assert brute.n_tris == 1280 and brute.tri_pallas is not None
+    assert brute.bvh8 is None and tree.bvh8 is not None
+    _tri, o, d = _pool(1280, 5)
+    # origins outside the unit sphere, half of the rays aimed into it
+    keep = np.linalg.norm(o, axis=1) > 1.05
+    o, d = o[keep], d[keep]
+    aim = -o[::2] + 0.7 * d[::2]
+    d[::2] = aim / np.linalg.norm(aim, axis=1, keepdims=True)
+    o, d = torch.as_tensor(o), torch.as_tensor(d)
+    far = torch.full((len(o),), 1e30)
+    a, b = sc.intersect(brute, o, d, far), sc.intersect(tree, o, d, far)
+    hit = a["hit"].numpy()
+    assert 0.05 < hit.mean() < 0.95
+    np.testing.assert_array_equal(hit, b["hit"].numpy())
+    np.testing.assert_array_equal(a["prim"].numpy()[hit],
+                                  b["prim"].numpy()[hit])
+    for k in ("t", "p", "ng", "ns", "uv"):
+        np.testing.assert_allclose(a[k].numpy()[hit], b[k].numpy()[hit],
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    near = torch.full((len(o),), 2.5)
+    np.testing.assert_array_equal(sc.intersect_p(brute, o, d, near).numpy(),
+                                  sc.intersect_p(tree, o, d, near).numpy())

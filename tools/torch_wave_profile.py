@@ -24,7 +24,12 @@ Prints the card's name and power limit, then for each scene
      (scene_core.intersect), the NEE shadow queries (intersect_p), the
      rest of the wave (shading: emission, lights, BSDF, roulette), and
      the film (sensor projection and add); hair also times the hair
-     BxDF's evaluations and samples (part of shading) on their own;
+     BxDF's evaluations and samples (part of shading) on their own, and
+     the curve kernel's launches (CUDA events around
+     ops/curves.curves_intersect) inside the closest-hit and the shadow
+     queries: the kernel's share of "intersect", the rest being tensor code
+     (the triangle query's hit records, the gathered re-test of the winning
+     segment, the merge);
   2. --renders full renders, unprofiled: paths/s of each;
   3. a render of --profiled-spp samples under torch.profiler: wall time,
      the sum of device self times and their ratio (the device busy share;
@@ -105,6 +110,32 @@ class StageTimers:
         else:
             setattr(module, name, fn)
 
+    def wrap_events(self, module, name, key_of):
+        """Bracket every call of module.name with CUDA events (no
+        synchronize); event_ms() sums them by key_of(args)."""
+        import torch
+        fn = getattr(module, name)
+        self.events = []
+
+        def timed(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            try:
+                return fn(*a, **k)
+            finally:
+                ev[1].record()
+                self.events.append((key_of(a), *ev))
+        self._saved.append((module, name, fn))
+        setattr(module, name, timed)
+
+    def event_ms(self):
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for key, a, b in self.events:
+            out[key] = out.get(key, 0.0) + a.elapsed_time(b)
+        return out
+
     def restore(self):
         for module, name, fn in reversed(self._saved):
             self._set(module, name, fn)
@@ -123,6 +154,7 @@ def profile_parsed(args, dev, name, max_depth, path=None):
     from pbrt_tpu_torch import scene_core as sc
     from pbrt_tpu_torch.integrators import path as path_mod
     from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.ops import curves as crv
     from pbrt_tpu_torch.scene import parser
 
     root = Path(__file__).resolve().parent.parent
@@ -144,8 +176,10 @@ def profile_parsed(args, dev, name, max_depth, path=None):
     pix = torch.arange(W * H, device=dev).repeat(m)
     si = torch.arange(W * H * m, device=dev) // (W * H)
     hair = bxdfs.BXDF_HAIR in scene.bxdf_tags
+    kernel_names = ("curve kernel, closest hit", "curve kernel, any hit") \
+        if scene.has_curves else ()
     names = ("sampler dims", "camera", "intersect", "NEE shadow", "shading",
-             "film") + (("hair BxDF",) if hair else ())
+             "film") + (("hair BxDF",) if hair else ()) + kernel_names
     per_wave = {k: [] for k in names}
     for rep in range(args.reps + 1):
         timers = StageTimers()
@@ -158,6 +192,9 @@ def profile_parsed(args, dev, name, max_depth, path=None):
         if hair:
             timers.wrap(bxdfs._F_PDF_FNS, bxdfs.BXDF_HAIR, "hair BxDF")
             timers.wrap(bxdfs, "_hair_sample", "hair BxDF")
+        if scene.has_curves:
+            timers.wrap_events(crv, "curves_intersect",
+                               lambda a: kernel_names[bool(a[5])])
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -176,6 +213,8 @@ def profile_parsed(args, dev, name, max_depth, path=None):
         timers.ms["film"] = (time.perf_counter() - t) * 1e3
         timers.ms["shading"] = wave_ms - sum(
             v for k, v in timers.ms.items() if k != "film")
+        if scene.has_curves:   # inside "intersect" and "NEE shadow"
+            timers.ms.update(timers.event_ms())
         if rep:   # the first wave is the warm-up
             for k in names:
                 per_wave[k].append(timers.ms.get(k, 0.0))
@@ -187,6 +226,14 @@ def profile_parsed(args, dev, name, max_depth, path=None):
         share = stage_ms["hair BxDF"] / (stage_ms["hair BxDF"]
                                          + stage_ms["shading"])
         print(f"{name}: the hair BxDF is {share:.4f} of shading",
+              flush=True)
+    if scene.has_curves:
+        k_ms = stage_ms[kernel_names[0]]
+        print(f"{name}: the curve kernel's launches are {k_ms:.4f} ms of the "
+              f"{stage_ms['intersect']:.4f} ms of \"intersect\" "
+              f"({k_ms / stage_ms['intersect']:.4f}; the rest is tensor "
+              f"code), and {stage_ms[kernel_names[1]]:.4f} ms of the "
+              f"{stage_ms['NEE shadow']:.4f} ms of \"NEE shadow\"",
               flush=True)
     renders = [render.render(scene, cam, sampler=sampler, device=dev,
                              opts=opts)[1]["paths_per_sec"]
