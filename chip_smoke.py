@@ -18,7 +18,11 @@ Phases, each of which raises on failure (exit code 1):
      the MRSE and mean-ratio gates of tools/golden.py, and written to
      pbrt_tpu_torch/_build/;
   6. times with CUDA events at the main path's wave shape (160,000 lanes):
-     each kernel beside its plain version, and the render in paths/s;
+     each kernel beside its plain version, and the render in paths/s; the
+     megakernel's bound from the plain version's count of its work on the
+     same lanes (closest-hit and shadow tests, shading, the sampler's
+     integer work) and the warp busy share of the plain version's
+     schedule (a path a thread, 32 lanes in a row);
   7. the BVH8 kernel against its plain version on the card: meshfield's
      BVH8, 2^20 seeded rays from the world box +-1, closest hit (t_max
      1e30) and any hit (t_max 30);
@@ -93,8 +97,8 @@ Phases, each of which raises on failure (exit code 1):
  25. times with CUDA events: the forest kernel, the binned query (each
      round's kernel, the pre-pass and the schedule apart), the whole-tree
      kernel on the same rays, each plain version, the rays-in megakernel
-     beside the in-kernel-camera one, and the page bytes staged beside the
-     tables' bytes;
+     beside the in-kernel-camera one (and its bound, as phase 6's), and the
+     page bytes staged beside the tables' bytes;
  26. the dma_probe library's ptxas report: registers, spills of its four
      entries;
  27. the page-copy probes against their plain versions, bit for bit, and
@@ -183,6 +187,9 @@ PATCH_GATE_MEAN_RATIO = 0.02
 # unit of work, counted from the kernels' sources
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# INT32: 64 lanes an SM against the FP32 pipe's 128 (Hopper white paper),
+# half the f32 rate
+PEAK_INT32_PER_S = 33.5e12
 SLAB_OPS = 26           # 6 sub, 6 mul, 6 min/max, 6 for tmin/tmax, 2 test
 TRI_OPS = 60            # Moeller-Trumbore on rows with precomputed edges
 TRI_RAW_OPS = 64        # on raw vertices: 6 edge subtractions, no tolerance
@@ -208,6 +215,30 @@ TERRAIN_PLAIN = {("raster", False): 1 << 20, ("raster", True): 1 << 16,
 # width, 2 for hw^2/4, 1 test, 3 for z, 3 for the edge, 2 for z_hit, 2 for
 # t, 3 tests
 SEG_OPS = 75
+# csrc/megawave.cu, f32 operations of one unit of its work besides the
+# triangle tests (a division, square root or transcendental counts one),
+# each unit as the plain version counts it (ops/megawave._path_loop):
+# the camera section a lane (pixel decode, filter sample, pinhole);
+# shading a hit (hit point, error bounds, normal, frame, albedo at 4
+# wavelengths, the light sample and its pdfs, f and Le); an emissive hit's
+# MIS; a shadow ray's origin offset and length; an unoccluded ray's
+# contribution; a BSDF sample (concentric disk, pdf, beta); the next ray's
+# direction and offset origin (a lane that goes on); a roulette draw
+MEGA_CAMERA_OPS = 178
+MEGA_SHADE_OPS = 276
+MEGA_EMIT_OPS = 48
+MEGA_SHADOW_RAY_OPS = 49
+MEGA_UNOCCLUDED_OPS = 25
+MEGA_BSDF_OPS = 52
+MEGA_NEXT_RAY_OPS = 53
+MEGA_RR_OPS = 17
+# and the sampler's integer operations: a 1D draw (index shuffle 14, the
+# product of dimension 0 as a bit reversal 1, scramble 12), a 2D draw (the
+# product of dimension 1 as four byte-table lookups 9, a second scramble
+# 12), the pixel decode (28)
+MEGA_D1_INT_OPS = 27
+MEGA_D2_INT_OPS = 48
+MEGA_CAMERA_INT_OPS = 28
 # what the TPU copy probes check (tools/exp_dma_var.py, exp_dma_var2.py)
 # or print (exp_dma_min.py: row means at stages 1-2, then at stages 3-4)
 PROBE_VALUES = {"var": 4096.0, "var2": [8192.0, 12288.0, 16384.0, 20480.0],
@@ -302,11 +333,78 @@ def gate(img, golden, shape, max_mrse, max_ratio, label):
     return m, ratio
 
 
-def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by): the least time of the work on the card."""
+def bound(n_bytes, n_ops, n_int_ops=0):
+    """(bound_ms, bound_by): the least time of the work on the card: its
+    bytes, its f32 operations or its INT32 operations (separate pipes) at
+    their peak rates, whichever takes longest."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    t_ops = max(n_ops / PEAK_F32_PER_S, n_int_ops / PEAK_INT32_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def megawave_bound(w, work):
+    """The megakernel's bound on wave w from the plain version's count of
+    its work on the same lanes: (bound_ms, bound_by) and its parts. Bytes:
+    lam, le, mi (and o, d) read and L (and fw) written once a lane, the
+    tables once. f32 operations: the closest-hit tests of live lanes, the
+    shadow rays' tests (groups of four up to the first with a hit, all
+    when unoccluded), the shading (MEGA_*_OPS); INT32: the sampler's."""
+    n = w.lam.shape[0]
+    camera = w.o is None
+    n_bytes = n * (16 + 16 + 4 + 16 + (4 if camera else 24)) + 4 * sum(
+        x.numel() for x in (w.tri, w.attr, w.light, w.mat)) + 4 * w.seeds.size
+    closest = work["live_lane_depths"] * w.n_real * TRI_OPS
+    shadow = work["shadow_tests"] * TRI_OPS
+    shading = (work["hits"] * MEGA_SHADE_OPS
+               + work["emissions"] * MEGA_EMIT_OPS
+               + work["shadow_rays"] * MEGA_SHADOW_RAY_OPS
+               + work["unoccluded"] * MEGA_UNOCCLUDED_OPS
+               + work["bsdf_samples"] * MEGA_BSDF_OPS
+               + sum(work["live_by_depth"][1:]) * MEGA_NEXT_RAY_OPS
+               + work["rr_draws"] * MEGA_RR_OPS
+               + (n * MEGA_CAMERA_OPS if camera else 0))
+    int_ops = (work["hits"] * (MEGA_D1_INT_OPS + MEGA_D2_INT_OPS)
+               + work["bsdf_samples"] * MEGA_D2_INT_OPS
+               + work["rr_draws"] * MEGA_D1_INT_OPS
+               + (n * (MEGA_D2_INT_OPS + MEGA_CAMERA_INT_OPS) if camera
+                  else 0))
+    b_ms, b_by = bound(n_bytes, closest + shadow + shading, int_ops)
+    return dict(bound_ms=b_ms, bound_by=b_by, bound_ops_closest=closest,
+                bound_ops_shadow=shadow, bound_ops_shading=shading,
+                bound_int_ops=int_ops,
+                bound_parts_ms=dict(
+                    bytes=n_bytes / PEAK_BYTES_PER_S * 1e3,
+                    closest=closest / PEAK_F32_PER_S * 1e3,
+                    shadow=shadow / PEAK_F32_PER_S * 1e3,
+                    shading=shading / PEAK_F32_PER_S * 1e3,
+                    int32=int_ops / PEAK_INT32_PER_S * 1e3))
+
+
+def megawave_bare_ms(w, reps=50):
+    """Mean ms of the megakernel's launch alone on wave w: its arguments
+    prepared once (ops/megawave.launch_args), no wrapper host work."""
+    from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.ops import megawave
+    lib = _build.load_library("megawave")
+    args, _L, _fw, _keep = megawave.launch_args(w)
+    return cuda_ms(lambda: _build.check(lib.megawave_launch(*args),
+                                        "megawave"), reps=reps, warmup=3)
+
+
+def show_megawave_bound(label, card, b, work):
+    """The bound's parts, and from the plain version's count (work) the
+    live lanes at each depth and the warp busy share of its schedule: one
+    path a thread, 32 consecutive lanes side by side, as the kernel ran
+    before its persistent grid (the persistent kernel's own share is not
+    measured)."""
+    print(f"[{label}] card {card}: bound {b['bound_ms']:.5f} ms by "
+          f"{b['bound_by']}; parts, ms at peak: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in b["bound_parts_ms"].items())
+          + f"; f32 operations: closest hit {b['bound_ops_closest']}, shadow "
+          f"{b['bound_ops_shadow']}, shading {b['bound_ops_shading']}; INT32 "
+          f"{b['bound_int_ops']}; live lanes by depth {work['live_by_depth']}"
+          "; warp busy share of the plain schedule (a path a thread, 32 "
+          f"lanes in a row) {work['warp_busy_share']:.4f}", flush=True)
 
 
 def traversal_bound(work, n_rays, out_bytes, tables, tri_ops=TRI_RAW_OPS,
@@ -625,7 +723,8 @@ def rays_in_phases(dev, card, libs, counters, scene, cam, w6, stats):
     L3p, _ = megawave.wave_full_plain(w22)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    live = megawave.counter.work["live_lane_depths"]
+    k3_work = megawave.counter.work
+    k3_bound = megawave_bound(w22, k3_work)
     L2, _fw2 = megawave.wave_full(w6)
     # the in-kernel camera's own rays (the plain version's camera, which
     # phase 6 holds to the kernel's bit for bit) through the rays-in entry
@@ -700,17 +799,16 @@ def rays_in_phases(dev, card, libs, counters, scene, cam, w6, stats):
     # ---- 25 (megakernels). times at the main path's wave ----
     k3_ms = cuda_ms(lambda: megawave.wave_full(w22), reps=20, warmup=3)
     k2_ms = cuda_ms(lambda: megawave.wave_full(w6), reps=20, warmup=3)
+    k3_bare_ms = megawave_bare_ms(w22)
     k3_plain_ms = cuda_ms(lambda: megawave.wave_full_plain(w22), reps=2)
     print(f"[25 times] card {card}: megakernel v1 (rays in) {k3_ms:.4f} ms "
-          f"vs v2 (in-kernel camera) {k2_ms:.4f} ms vs plain "
+          f"through the wrapper, {k3_bare_ms:.4f} ms the bare launch, vs v2 "
+          f"(in-kernel camera) {k2_ms:.4f} ms through the wrapper, vs plain "
           f"{k3_plain_ms:.4f} ms per 160,000-lane wave", flush=True)
-    n = w22.lam.shape[0]
-    # lam, le, mi, o, d in; L out; the pool and its attributes once
-    k3_bound = bound(n * (16 + 16 + 4 + 24 + 16)
-                     + 4 * (w22.tri.numel() + w22.attr.numel()),
-                     live * w22.n_real * TRI_OPS)
+    show_megawave_bound("25 megakernel v1 bound", card, k3_bound, k3_work)
     return dict(launches=launches["megawave"], err=err, ms=k3_ms,
                 plain_ms=k3_plain_ms, full_camera_ms=k2_ms, bound=k3_bound,
+                bare_ms=k3_bare_ms,
                 render=dict(paths_per_sec=pps, seconds=dt, mrse=m,
                             mean_ratio_err=ratio))
 
@@ -1558,8 +1656,10 @@ def main():
                                flt.make_filter("gaussian"), px, py, si, lam,
                                max_depth=5)
     mw_err = max(mw_err, compare_wave(w6, "6 megakernel 400x400x1"))
-    mw_live = megawave.counter.work["live_lane_depths"]
+    mw_work = megawave.counter.work
+    mw_bound = megawave_bound(w6, mw_work)
     mw_ms = cuda_ms(lambda: megawave.wave_full(w6), reps=20, warmup=3)
+    mw_bare_ms = megawave_bare_ms(w6)
     mw_plain_ms = cuda_ms(lambda: megawave.wave_full_plain(w6), reps=3)
     o6, d6, _t = seeded_rays(n_pix, dev, seed=8)
     far6 = torch.full_like(_t, 1e30)
@@ -1568,10 +1668,12 @@ def main():
                     warmup=3)
     ti_plain_ms = cuda_ms(lambda: ti.tri_intersect_plain(
         scene.tri_pallas, o6, d6, far6, n_real, False), reps=5)
-    print(f"[6 times] card {card}: megakernel {mw_ms:.4f} ms/wave vs plain "
+    print(f"[6 times] card {card}: megakernel {mw_ms:.4f} ms/wave through "
+          f"the wrapper, {mw_bare_ms:.4f} ms the bare launch, vs plain "
           f"{mw_plain_ms:.4f} ms ({n_pix} lanes, depth 5); tri_intersect "
           f"{ti_ms:.4f} ms vs plain {ti_plain_ms:.4f} ms ({n_pix} rays); "
           f"render {stats['paths_per_sec']:.6g} paths/s", flush=True)
+    show_megawave_bound("6 megakernel bound", card, mw_bound, mw_work)
 
     # ---- 7. BVH8 kernel vs plain, meshfield, 2^20 rays ----
     mesh = parser.parse_file(MESH_SCENE, device=dev).scene
@@ -1808,13 +1910,9 @@ def main():
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]
     check(not bad, f"imported modules of the JAX stack: {bad}")
-    # bounds, from this run's inputs: the megakernel's closest-hit tests of
-    # live lanes only (its shading and shadow tests are not counted), the
-    # triangle kernel's n_rays x n_real tests, the BVH queries' visits
-    n6 = w6.lam.shape[0]
-    mw_bound = bound(n6 * (16 + 16 + 8 + 16 + 4)
-                     + 4 * (w6.tri.numel() + w6.attr.numel()),
-                     mw_live * n_real * TRI_OPS)
+    # bounds, from this run's inputs: the megakernels' work as their plain
+    # version counted it (megawave_bound), the triangle kernel's n_rays x
+    # n_real tests, the BVH queries' visits
     ti_bound = bound(n_pix * (28 + 16) + 4 * scene.tri_pallas.numel(),
                      n_pix * n_real * TRI_OPS)
     b8_bound = traversal_bound(b8_work, n_rays, 16,
@@ -1826,7 +1924,9 @@ def main():
     k8_bound = traversal_bound(k8_work["grid64", False], n_rays, 20,
                                (grid.tlas_nodes, grid.inst_rows,
                                 grid.tri_geo_tlas))
-    for what, (b_ms, b_by), k_ms in (("megawave", mw_bound, mw_ms),
+    for what, (b_ms, b_by), k_ms in (("megawave", (mw_bound["bound_ms"],
+                                                   mw_bound["bound_by"]),
+                                      mw_bare_ms),
                                      ("tri_intersect", ti_bound, ti_ms),
                                      ("bvh8", b8_bound, b8_ms[False][0]),
                                      ("bvh2", k7_bound, k7_ms[False][0]),
@@ -1834,8 +1934,10 @@ def main():
                                       k8_ms["grid64", False][0]),
                                      ("curves", cr["bound"],
                                       cr["ms"][False][0]),
-                                     ("megawave_rays", ri["bound"],
-                                      ri["ms"]),
+                                     ("megawave_rays",
+                                      (ri["bound"]["bound_ms"],
+                                       ri["bound"]["bound_by"]),
+                                      ri["bare_ms"]),
                                      ("bvh8_forest", tr["forest"]["bound"],
                                       tr["forest"]["ms"]),
                                      ("bvh8_binned", tr["binned"]["bound"],
@@ -1844,13 +1946,14 @@ def main():
               f"kernel {k_ms:.4f} ms ({b_ms / k_ms * 100:.2f}% of the "
               "bound)", flush=True)
     # what a render loses in each kernel: its launches x (a launch's time at
-    # the size the render launches - its bound); the triangle kernel by its
-    # bare launch (the wrapper's time is host work)
+    # the size the render launches - its bound); the triangle kernel and
+    # the megakernels by their bare launch (the wrapper's time is host work)
     tri32 = rd["tri_ms"][32]
     for what, n_launch, k_ms, b_ms in (
-            ("megawave (cornell)", launches["megawave"], mw_ms, mw_bound[0]),
-            ("megawave_rays (rays-in cornell)", ri["launches"], ri["ms"],
-             ri["bound"][0]),
+            ("megawave (cornell)", launches["megawave"], mw_bare_ms,
+             mw_bound["bound_ms"]),
+            ("megawave_rays (rays-in cornell)", ri["launches"],
+             ri["bare_ms"], ri["bound"]["bound_ms"]),
             ("tri_intersect (general-wave cornell, 32 triangles)",
              glaunch["tri_intersect"], tri32["bare_ms"], tri32["bound_ms"]),
             *((f"{name} ({path})", n, w["sum_ms"] / w["launches"],
@@ -1864,12 +1967,16 @@ def main():
               f"({k_ms:.4f} - {b_ms:.5f}) ms = {n_launch * (k_ms - b_ms):.2f} "
               "ms a render", flush=True)
     kernels = [
+        # ms through the wrapper, bare_ms the launch alone (its arguments
+        # prepared once: the launches x gap line's); bound_* from the plain
+        # version's count of the work on phase 6's wave (megawave_bound)
         dict(name="megawave", route="cuda",
              source="pbrt_tpu_torch/csrc/megawave.cu",
              replaces="pbrt_tpu/ops/megawave.py:559",
              launches=launches["megawave"], max_abs_err=mw_err,
-             ms=mw_ms, plain_ms=mw_plain_ms, bound_ms=mw_bound[0],
-             bound_by=mw_bound[1], library_ms=None),
+             ms=mw_ms, bare_ms=mw_bare_ms, plain_ms=mw_plain_ms,
+             library_ms=None,
+             **mw_bound),
         # launches: the general-wave cornell render (phase 9), the hair
         # render's in hair_launches (phase 18); max_abs_err: cornell's pool
         # (phase 3), the hair pool's in hair_max_abs_err (phase 17); its
@@ -1942,8 +2049,8 @@ def main():
              source="pbrt_tpu_torch/csrc/megawave.cu",
              replaces="pbrt_tpu/ops/megawave.py:531",
              launches=ri["launches"], max_abs_err=ri["err"], ms=ri["ms"],
-             plain_ms=ri["plain_ms"], bound_ms=ri["bound"][0],
-             bound_by=ri["bound"][1], library_ms=None,
+             bare_ms=ri["bare_ms"], plain_ms=ri["plain_ms"], library_ms=None,
+             **ri["bound"],
              full_camera_ms=ri["full_camera_ms"]),
         # launches: phase 24's four queries; ms and plain_ms: 2^20 raster
         # rays, closest hit, on the terrain (every set's kernel in ms_all)

@@ -42,10 +42,14 @@ SIGNATURES = {
         "tri_intersect_launch": [_P] * 8 + [_I] * 4 + [_P],
     },
     "megawave": {
-        # cam, tri, attr, light, mat, seeds, sobol01, mi, lam, le, o, d, L,
-        # fw, n, n_tris, n_real, n_mats, n_lights, n_dims, max_depth,
-        # rr_start, B, log2_spp, ls_uniform, 9 filter constants, stream
-        "megawave_launch": [_P] * 14 + [_I] * 11 + [_F] * 9 + [_P],
+        # cam, tri, attr, light, mat, seeds, sobol, mi, lam, le, o, d, L,
+        # fw, next_lane, n, n_tris, n_real, n_mats, n_lights, n_dims,
+        # max_depth, rr_start, B, log2_spp, ls_uniform, 9 filter constants,
+        # stream
+        "megawave_launch": [_P] * 15 + [_I] * 11 + [_F] * 9 + [_P],
+        # n, n_tris, n_real, n_mats, n_lights, n_dims, then out: blocks,
+        # blocks an SM, threads a block
+        "megawave_grid": [_I] * 6 + [_P] * 3,
     },
     "bvh8": {
         # nodes_f, nodes_q, tris, prim_indices, o, d, t_max, t, prim, b1,

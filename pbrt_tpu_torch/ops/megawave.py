@@ -14,7 +14,8 @@ camera ray.
 `wave_full` is the wrapper: CPU tensors run `wave_full_plain`, which is the
 reference's `_wave_kernel_full` / `_wave_kernel` + `_path_loop` as tensor
 ops over all lanes; CUDA tensors launch csrc/megawave.cu (one kernel, the
-camera section switched off when rays are given), or raise. The triangle,
+camera section switched off when rays are given; persistent warps that
+start a new lane when a path ends), or raise. The triangle,
 attribute, light and material tables keep the reference layouts
 (`scene_tables`). What the reference did for the TPU only -- one-hot row
 selects, ints held as f32, compile-time depth unrolling and ablation knobs
@@ -42,7 +43,7 @@ from ..utils import rng as prng
 from ..utils.math import (INV_PI, next_float_down, next_float_up,
                           power_heuristic, safe_div)
 from . import LaunchCounter
-from .tri_intersect import tri_intersect_plain
+from .tri_intersect import GROUP, tri_intersect_plain
 
 # per-triangle attribute row: p0(3) p1(3) p2(3) mat light
 ATTR_COLS = 11
@@ -101,12 +102,45 @@ def sobol_cols01() -> np.ndarray:
     return np.concatenate([m[0][:32], m[1][:32]]).astype(np.uint32)
 
 
+@functools.lru_cache(maxsize=1)
+def sobol_table() -> np.ndarray:
+    """(1024,) uint32, the kernel's Sobol' table: dimension 1's four
+    256-entry byte tables (entry b of table k: the xor of the columns
+    8k + i whose bit i is set in b), so that its product is four lookups.
+    Dimension 0's product is the bit reversal and needs no table."""
+    cols = sobol_cols01()[32:]
+    b = np.arange(256)[:, None]
+    bits = ((b >> np.arange(8)) & 1).astype(bool)            # (256, 8)
+    table = np.concatenate([np.bitwise_xor.reduce(
+        np.where(bits, cols[8 * k:8 * k + 8], 0), axis=1)
+        for k in range(4)]).astype(np.uint32)
+    table.setflags(write=False)
+    return table
+
+
+def _on_card(a: np.ndarray, device) -> torch.Tensor:
+    """u32 values as int32 bits on the card (the kernel reads uint32)."""
+    return torch.as_tensor(a.view(np.int32).copy(), device=device)
+
+
 @functools.lru_cache(maxsize=16)
-def _device_tables(device: torch.device, seed: int, max_depth: int):
-    """The seed table and the Sobol' columns on the card, as int32 holding
-    the u32 bits, uploaded once per (device, seed, max_depth)."""
-    return tuple(torch.as_tensor(a.view(np.int32).copy(), device=device)
-                 for a in (seed_table(seed, max_depth), sobol_cols01()))
+def _device_seeds(device: torch.device, seed: int, max_depth: int):
+    """The seed table on the card, uploaded once per (device, seed,
+    max_depth)."""
+    return _on_card(seed_table(seed, max_depth), device)
+
+
+@functools.lru_cache(maxsize=4)
+def _device_sobol(device: torch.device):
+    """The Sobol' table on the card, uploaded once per device."""
+    return _on_card(sobol_table(), device)
+
+
+@functools.lru_cache(maxsize=8)
+def _next_lane(device: torch.device, stream: int):
+    """The kernel's lane counter: one int32 a (device, stream), which each
+    launch zeroes on its stream before the kernel reads it."""
+    return torch.empty((1,), dtype=torch.int32, device=device)
 
 
 def scene_tables(scene):
@@ -340,8 +374,8 @@ def _camera_rays(w: FullWave, zs: _ZSobol):
 def wave_full_plain(w: FullWave):
     """Plain PyTorch version of the megakernel: all lanes, all depths, as
     masked tensor ops (reference _path_loop). Returns (L (N, 4), fw (N,),
-    None when rays were given). counter.work["live_lane_depths"]: the
-    closest-hit queries of lanes still alive, the ones the kernel runs."""
+    None when rays were given). counter.work: what the kernel runs on these
+    inputs (`_path_loop`), for its bound."""
     counter.plain += 1
     zs = _ZSobol(w.mi, w.seeds, w.B)
     if w.o is None:
@@ -350,15 +384,36 @@ def wave_full_plain(w: FullWave):
         o = tuple(w.o[:, c] for c in range(3))
         d = tuple(w.d[:, c] for c in range(3))
         fw = None
-    L, live = _path_loop(w, zs, o, d)
-    counter.work = dict(live_lane_depths=live)
+    L, counter.work = _path_loop(w, zs, o, d)
     return L, fw
+
+
+def _warp_busy_share(path_len: torch.Tensor) -> float:
+    """The share of a warp's issue slots in the bounce loop that run a live
+    path when 32 consecutive lanes trace side by side: the sum of the
+    lanes' path lengths over 32 x the longest, summed over warps."""
+    n = path_len.shape[0]
+    lens = torch.nn.functional.pad(path_len, (0, -n % 32)).reshape(-1, 32)
+    longest = int(lens.amax(dim=1).sum())
+    return int(lens.sum()) / (32 * longest) if longest else 1.0
 
 
 def _path_loop(w: FullWave, zs: _ZSobol, o, d):
     """Every depth of every lane from camera rays o, d (component tuples).
-    Returns (L (N, 4), the closest-hit queries of live lanes)."""
-    live = 0
+    Returns (L (N, 4), work): the kernel's work on these lanes, each count
+    summed over lane-depths. live_lane_depths: closest-hit queries (lanes
+    still alive), live_by_depth: the same per depth; hits: lanes shaded
+    (the frame, albedo and the light sample of next-event estimation);
+    emissions: emissive hits weighed by MIS; shadow_rays, shadow_tests:
+    the shadow rays cast and the triangles their any-hit scans test (the
+    groups of four up to the first that holds a hit, every real triangle
+    when unoccluded); unoccluded: light contributions added; bsdf_samples,
+    rr_draws: BSDF samples and roulette draws; warp_busy_share
+    (`_warp_busy_share`)."""
+    work = dict(live_by_depth=[], hits=0, emissions=0, shadow_rays=0,
+                shadow_tests=0, unoccluded=0, bsdf_samples=0, rr_draws=0)
+    path_len = torch.zeros(w.lam.shape[0], dtype=torch.int64,
+                           device=w.lam.device)
     attr_rows = w.attr.reshape(-1, ATTR_COLS)
     light_rows = w.light.reshape(-1, LIGHT_COLS)
     mat_rows = w.mat.reshape(-1, 3)
@@ -372,7 +427,8 @@ def _path_loop(w: FullWave, zs: _ZSobol, o, d):
     t_far = torch.full_like(ones, 1e30)
 
     for depth in range(w.max_depth):
-        live += int(active.sum())
+        work["live_by_depth"].append(int(active.sum()))
+        path_len += active
         # --- closest hit over the pool ---
         _t, k, b1, b2 = tri_intersect_plain(
             w.tri, torch.stack(o, -1), torch.stack(d, -1), t_far, w.n_real,
@@ -405,6 +461,8 @@ def _path_loop(w: FullWave, zs: _ZSobol, o, d):
         w_emit = ones if depth == 0 else power_heuristic(1.0, prev_pdf, 1.0,
                                                          pdf_light)
         emask = is_emitter & emit_ok
+        work["hits"] += int(hit.sum())
+        work["emissions"] += int(emask.sum())
         L = [L[c] + torch.where(emask, beta[c] * Le_in[c] * esc * w_emit,
                                 0.0) for c in range(4)]
         active = hit
@@ -474,7 +532,14 @@ def _path_loop(w: FullWave, zs: _ZSobol, o, d):
         _t, k_sh, _b1, _b2 = tri_intersect_plain(
             w.tri, torch.stack(o_sh, -1), torch.stack(wi, -1),
             dist_sh * 0.999, w.n_real, any_hit=True)
+        work["shadow_rays"] += int(contrib_ok.sum())
+        tested = torch.where(k_sh >= 0, torch.clamp(
+            (k_sh // GROUP + 1) * GROUP, max=w.n_real), w.n_real)
+        work["shadow_tests"] += int(tested[contrib_ok].sum())
         contrib_ok = contrib_ok & ~(k_sh >= 0)
+        work["unoccluded"] += int(contrib_ok.sum())
+        if depth + 1 < w.max_depth:
+            work["bsdf_samples"] += int(active.sum())
         inv_pl = safe_div(power_heuristic(1.0, pdf_l, 1.0, pdf_b), pdf_l)
         L = [L[c] + torch.where(contrib_ok,
                                 beta[c] * f[c] * Le_l[c] * inv_pl, 0.0)
@@ -499,6 +564,7 @@ def _path_loop(w: FullWave, zs: _ZSobol, o, d):
 
         # --- Russian roulette on beta ---
         if depth >= w.rr_start and depth + 1 < w.max_depth:
+            work["rr_draws"] += int(active.sum())
             u_rr = zs.d1(base + 6)
             bmax = torch.maximum(torch.maximum(beta[0], beta[1]),
                                  torch.maximum(beta[2], beta[3]))
@@ -515,15 +581,53 @@ def _path_loop(w: FullWave, zs: _ZSobol, o, d):
             o = _offset_origin(p, p_err, ng, wi_w)
             d = wi_w
 
-    return torch.stack(L, dim=-1), live
+    work["live_lane_depths"] = sum(work["live_by_depth"])
+    work["warp_busy_share"] = _warp_busy_share(path_len)
+    return torch.stack(L, dim=-1), work
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernel launch
 
-def _launch(w: FullWave):
+def grid(w: FullWave) -> dict:
+    """The kernel's persistent grid for wave w on its card: blocks,
+    blocks_per_sm, threads (a block), resident_lanes (threads in flight at
+    once: blocks x threads when the wave fills the card)."""
     import ctypes
     from . import _build
+    lib = _build.load_library("megawave")
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(w.lam.device):
+        err = lib.megawave_grid(
+            w.mi.shape[0], w.tri.numel() // 16, w.n_real, w.n_mats,
+            w.n_lights, n_dims(w.max_depth), *(ctypes.byref(x) for x in out))
+    _build.check(err, "megawave_grid")
+    blocks, per_sm, threads = (x.value for x in out)
+    return dict(blocks=blocks, blocks_per_sm=per_sm, threads=threads,
+                resident_lanes=blocks * threads)
+
+
+def _launch(w: FullWave, *, out=None):
+    """out: (L, fw) to write into (fw None for rays in)."""
+    from . import _build
+    lib = _build.load_library("megawave")
+    with torch.cuda.device(w.lam.device):
+        args, L, fw, _keep = launch_args(w, out=out)
+        if args is None:
+            return L, fw
+        err = lib.megawave_launch(*args)
+    _build.check(err, "megawave")
+    counter.launches += 1
+    return L, fw
+
+
+def launch_args(w: FullWave, *, out=None):
+    """The arguments of megawave_launch for wave w on the current device's
+    current stream:
+    (args, L, fw, keep), args None when the wave is empty; keep holds the
+    tensors args points into. A timing tool calls the library with them
+    again to time the launch without the wrapper's host work."""
+    import ctypes
     rays = w.o is not None
     names = ("tri", "attr", "light", "mat", "lam", "le") + \
         (("o", "d") if rays else ("cam",))
@@ -539,37 +643,39 @@ def _launch(w: FullWave):
     if not rays and w.cam.numel() != CAM_COLS:
         raise ValueError("megawave: camera table must have 19 entries")
     dev = w.lam.device
-    lib = _build.load_library("megawave")
     # u32 values reinterpreted as int32 (the kernel reads uint32)
     mi32 = torch.where(w.mi >= 2 ** 31, w.mi - 2 ** 32, w.mi) \
         .to(torch.int32).contiguous()
-    seeds, cols = _device_tables(dev, w.seed, w.max_depth)
+    seeds, sobol = _device_seeds(dev, w.seed, w.max_depth), _device_sobol(dev)
     # float4 access: the kernel needs 16-byte aligned (N, 4) rows
     lam, le = (x if x.data_ptr() % 16 == 0 else x.clone()
                for x in (w.lam, w.le))
-    L = torch.empty((N, 4), dtype=torch.float32, device=dev)
-    fw = None if rays else torch.empty((N,), dtype=torch.float32, device=dev)
+    if out is None:
+        L = torch.empty((N, 4), dtype=torch.float32, device=dev)
+        fw = None if rays else torch.empty((N,), dtype=torch.float32,
+                                           device=dev)
+    else:
+        L, fw = out
     if N == 0:
-        return L, fw
+        return None, L, fw, ()
+    stream = torch.cuda.current_stream()
+    next_lane = _next_lane(dev, stream.cuda_stream)
     # the filter's constants, read only when the kernel makes the rays
     c = dict.fromkeys(("s2", "inv_2s2", "norm", "zx", "zy", "ex", "ey", "rx",
                        "ry"), 0.0) if rays else flt.gaussian_constants(w.filt)
     F = ctypes.c_float
-    with torch.cuda.device(dev):
-        err = lib.megawave_launch(
-            None if rays else w.cam.data_ptr(), w.tri.data_ptr(),
-            w.attr.data_ptr(), w.light.data_ptr(), w.mat.data_ptr(),
-            seeds.data_ptr(), cols.data_ptr(), mi32.data_ptr(),
-            lam.data_ptr(), le.data_ptr(),
-            w.o.data_ptr() if rays else None,
-            w.d.data_ptr() if rays else None, L.data_ptr(),
-            None if rays else fw.data_ptr(),
-            N, w.tri.numel() // 16, w.n_real, w.n_mats, w.n_lights,
-            seeds.shape[0], w.max_depth, w.rr_start, w.B, w.log2_spp,
-            int(w.ls_uniform),
-            F(c["s2"]), F(c["inv_2s2"]), F(c["norm"]), F(c["zx"]),
-            F(c["zy"]), F(c["ex"]), F(c["ey"]), F(c["rx"]), F(c["ry"]),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, "megawave")
-    counter.launches += 1
-    return L, fw
+    args = (
+        None if rays else w.cam.data_ptr(), w.tri.data_ptr(),
+        w.attr.data_ptr(), w.light.data_ptr(), w.mat.data_ptr(),
+        seeds.data_ptr(), sobol.data_ptr(), mi32.data_ptr(),
+        lam.data_ptr(), le.data_ptr(),
+        w.o.data_ptr() if rays else None,
+        w.d.data_ptr() if rays else None, L.data_ptr(),
+        None if rays else fw.data_ptr(), next_lane.data_ptr(),
+        N, w.tri.numel() // 16, w.n_real, w.n_mats, w.n_lights,
+        seeds.shape[0], w.max_depth, w.rr_start, w.B, w.log2_spp,
+        int(w.ls_uniform),
+        F(c["s2"]), F(c["inv_2s2"]), F(c["norm"]), F(c["zx"]),
+        F(c["zy"]), F(c["ex"]), F(c["ey"]), F(c["rx"]), F(c["ry"]),
+        ctypes.c_void_p(stream.cuda_stream))
+    return args, L, fw, (mi32, lam, le, next_lane, seeds, sobol)

@@ -1,6 +1,7 @@
 """Built-in scenes (counterpart of pbrt_tpu/scenes.py), with the
 reference's geometry, materials and cameras: the Cornell box of the main
-path, and the two furnace scenes whose images are known analytically."""
+path, a box lit under the uniform light sampler, and the two furnace
+scenes whose images are known analytically."""
 from __future__ import annotations
 
 import numpy as np
@@ -61,6 +62,25 @@ def make_cornell_box(width=400, height=400, light_scale=1.0,
                                       (0, 1, 0)).inverse(),
         width=width, height=height, fov=38.5)
     return scene, cam
+
+
+def make_uniform_light_box(device="cuda"):
+    """A floor, a back wall and two lamps under the uniform light sampler
+    (the megakernel's other light-pick branch), in the Cornell box's frame:
+    make_cornell_box's camera sees it. Returns the scene."""
+    b = sc.SceneBuilder()
+    m = b.materials.add_diffuse((0.6, 0.5, 0.4))
+    quad = [[0, 1, 2], [0, 2, 3]]
+    b.add_mesh([(556, 0, 0), (0, 0, 0), (0, 0, 560), (556, 0, 560)], quad, m)
+    b.add_mesh([(556, 0, 560), (0, 0, 560), (0, 549, 560), (556, 549, 560)],
+               quad, m)
+    lamp = pcolor.RGBIlluminantSpectrum((8.0, 8.0, 8.0))
+    for x0 in (100, 350):
+        # wound so the emitting side faces down
+        b.add_mesh([(x0, 500, 200), (x0 + 100, 500, 200),
+                    (x0 + 100, 500, 330), (x0, 500, 330)], quad, m,
+                   emission=lamp)
+    return b.build(light_sampler="uniform", device=device)
 
 
 def make_furnace_plane(albedo=0.5, env_radiance=1.0, width=64, height=64,

@@ -100,33 +100,12 @@ def test_tri_intersect_kernel_above_one_tile(cuda_device, which, any_hit):
         assert torch.equal(g, w), name
 
 
-def _uniform_light_box(device):
-    """A floor, a back wall and two lamps under the uniform light sampler
-    (the megakernel's other light-pick branch), seen by the cornell
-    camera."""
-    from pbrt_tpu_torch.scene_core import SceneBuilder
-    from pbrt_tpu_torch.utils import color as pcolor
-    b = SceneBuilder()
-    m = b.materials.add_diffuse((0.6, 0.5, 0.4))
-    quad = [[0, 1, 2], [0, 2, 3]]
-    b.add_mesh([(556, 0, 0), (0, 0, 0), (0, 0, 560), (556, 0, 560)], quad, m)
-    b.add_mesh([(556, 0, 560), (0, 0, 560), (0, 549, 560), (556, 549, 560)],
-               quad, m)
-    lamp = pcolor.RGBIlluminantSpectrum((8.0, 8.0, 8.0))
-    for x0 in (100, 350):
-        # wound so the emitting side faces down
-        b.add_mesh([(x0, 500, 200), (x0 + 100, 500, 200),
-                    (x0 + 100, 500, 330), (x0, 500, 330)], quad, m,
-                   emission=lamp)
-    return b.build(light_sampler="uniform", device=device)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("light_sampler", ["power", "uniform"])
 def test_megakernel_matches_plain(cuda_device, light_sampler):
     scene, cam = scenes.make_cornell_box(W, H, device=cuda_device)
     if light_sampler == "uniform":
-        scene = _uniform_light_box(cuda_device)
+        scene = scenes.make_uniform_light_box(cuda_device)
         assert scene.mega.ls_uniform
     sampler = smp.make_sampler("zsobol", spp=SPP, full_resolution=(W, H))
     pix = torch.arange(W * H, device=cuda_device).repeat(SPP)
@@ -367,6 +346,59 @@ def test_megakernel_rays_in_matches_plain(cuda_device):
     assert megawave.counter.launches == before + 1 and fw is None
     L_p, fw_p = megawave.wave_full_plain(w)
     assert fw_p is None and torch.equal(L, L_p)
+
+
+def _cornell_wave(entry, n, device):
+    """n lanes of the main path's cornell wave (400x400, 64 spp, sample
+    index 37, one sample more a pass over the pixels), camera rays made in
+    the kernel or given from the general wave's front end."""
+    from pbrt_tpu_torch.integrators import path as path_mod
+    scene, cam = scenes.make_cornell_box(400, 400, device=device)
+    sampler = smp.make_sampler("zsobol", spp=64, full_resolution=(400, 400))
+    filt = flt.make_filter("gaussian")
+    lane = torch.arange(n, device=device)
+    pix, si = lane % (400 * 400), 37 + lane // (400 * 400)
+    px, py, swl = path_mod.camera_lanes(cam, sampler, pix, si)
+    if entry == "camera":
+        return megawave.prepare_full(scene, sampler, cam, filt, px, py, si,
+                                     swl.lam, max_depth=5)
+    o, d, _w = path_mod.camera_rays(cam, sampler, filt, px, py, si)
+    return megawave.prepare_rays(scene, sampler, px, py, si, o, d, swl.lam,
+                                 max_depth=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["1", "127", "129", "resident-1",
+                                  "resident+1", "160000"])
+@pytest.mark.parametrize("entry", ["camera", "rays"])
+def test_megakernel_writes_every_lane_once(cuda_device, entry, size):
+    """The persistent grid: with L (and the filter weight) filled with NaN
+    first, every lane is written, L equal to the plain version bit for bit
+    and the filter weight within test_megakernel_matches_plain's tolerance
+    (its exp rounds apart from torch's), at sizes around a block and around
+    the threads the card holds at once (a lane the counter hands out after
+    the grid's first ones)."""
+    if size.startswith("resident"):
+        resident = megawave.grid(_cornell_wave(entry, 160000, cuda_device))
+        n = resident["resident_lanes"] + (1 if size.endswith("+1") else -1)
+    else:
+        n = int(size)
+    w = _cornell_wave(entry, n, cuda_device)
+    g = megawave.grid(w)
+    assert g["blocks"] * g["threads"] >= min(n, g["resident_lanes"])
+    L = torch.full((n, 4), float("nan"), device=cuda_device)
+    fw = None if entry == "rays" else torch.full((n,), float("nan"),
+                                                 device=cuda_device)
+    before = megawave.counter.launches
+    got = megawave._launch(w, out=(L, fw))
+    torch.cuda.synchronize()
+    assert megawave.counter.launches == before + 1 and got[0] is L
+    assert not bool(torch.isnan(L).any())
+    L_p, fw_p = megawave.wave_full_plain(w)
+    assert torch.equal(L, L_p)
+    if fw is not None:
+        assert not bool(torch.isnan(fw).any())
+        torch.testing.assert_close(fw, fw_p, rtol=1e-5, atol=1e-6)
 
 
 def _terrain(device, n=101, n_rays=1 << 14):

@@ -100,6 +100,45 @@ def test_plain_megakernel_matches_reference(lanes):
     assert _rel(fw.numpy(), fw_ref).max() < 1e-4
 
 
+def _jax_uniform_light_box():
+    """scenes.make_uniform_light_box, built by the reference's builder."""
+    from pbrt_tpu.scene_core import SceneBuilder
+    from pbrt_tpu.utils import color as jcolor
+    b = SceneBuilder()
+    m = b.materials.add_diffuse((0.6, 0.5, 0.4))
+    quad = [[0, 1, 2], [0, 2, 3]]
+    b.add_mesh([(556, 0, 0), (0, 0, 0), (0, 0, 560), (556, 0, 560)], quad, m)
+    b.add_mesh([(556, 0, 560), (0, 0, 560), (0, 549, 560), (556, 549, 560)],
+               quad, m)
+    lamp = jcolor.RGBIlluminantSpectrum((8.0, 8.0, 8.0))
+    for x0 in (100, 350):
+        b.add_mesh([(x0, 500, 200), (x0 + 100, 500, 200),
+                    (x0 + 100, 500, 330), (x0, 500, 330)], quad, m,
+                   emission=lamp)
+    return b.build(light_sampler="uniform")
+
+
+def test_plain_megakernel_matches_reference_uniform_light_box(lanes):
+    """The megakernel's uniform light pick: the port's uniform light box
+    (the card tests' second scene) against the same scene built by the
+    reference, on the 16x16 wave's lanes."""
+    px, py, si, lam, _L, _fw = lanes
+    _s, jcam, jsampler, _a, _m = export_cornell(W, H, SPP)
+    L_ref, fw_ref = (np.array(x) for x in jmw.trace_full(
+        _jax_uniform_light_box(), jsampler, jcam,
+        jflt.make_filter("gaussian"), *(jnp.asarray(a) for a in
+                                        (px, py, si, lam)),
+        max_depth=MAX_DEPTH, rr_start=1, interpret=True))
+    scene = scenes.make_uniform_light_box(device="cpu")
+    assert scene.mega.ls_uniform and scene.mega.n_lights == 4
+    _c, sampler, cam, filt, *rest = _port_inputs(lanes)
+    L, fw = megawave.trace_full(scene, sampler, cam, filt, *rest,
+                                max_depth=MAX_DEPTH, rr_start=1)
+    assert (L_ref > 0).mean() > 0.25
+    assert _rel(L.numpy(), L_ref).max() < 1e-4
+    assert _rel(fw.numpy(), fw_ref).max() < 1e-4
+
+
 def test_eligible_full_matches_reference_rule():
     scene, cam = scenes.make_cornell_box(8, 8, device="cpu")
     for spp, ok in ((4, True), (1 << 26, True), (1 << 27, False)):
@@ -241,3 +280,80 @@ def test_megakernel_false_and_render_wave_never_reach_trace(ray_lanes,
     assert calls == []
     with pytest.raises(ValueError, match="megakernel"):
         paths("yes")
+
+
+# ---------------------------------------------------------------------------
+# The kernel's Sobol' products (csrc/megawave.cu, ZSobol::product0/1) and
+# the plain version's count of the kernel's work.
+
+def _brev32(v):
+    v = v.astype(np.uint64)
+    out = np.zeros_like(v)
+    for i in range(32):
+        out |= ((v >> np.uint64(i)) & np.uint64(1)) << np.uint64(31 - i)
+    return out.astype(np.uint32)
+
+
+def _bytes_product(idx, tables):
+    """The kernel's four byte-table lookups of dimension 1."""
+    t = tables.reshape(4, 256)
+    return (t[0][idx & 255] ^ t[1][(idx >> np.uint32(8)) & 255]
+            ^ t[2][(idx >> np.uint32(16)) & 255] ^ t[3][idx >> np.uint32(24)])
+
+
+@pytest.mark.parametrize("B", [8, 24, 32])
+def test_sobol_table_forms_match_the_matrix_products(B):
+    """Dimension 0's columns are 1 << (31 - i), so its product is the bit
+    reversal; dimension 1's four byte tables give its 32-step product bit
+    for bit: on seeded indices of B bits, on 0 and on 2^B - 1, against the
+    port's and the reference's sobol_sample_u32."""
+    from pbrt_tpu.utils import lowdiscrepancy as jld
+    from pbrt_tpu_torch.utils import lowdiscrepancy as ld
+    table = megawave.sobol_table()
+    assert table.shape == (1024,) and table.dtype == np.uint32
+    assert np.array_equal(megawave.sobol_cols01()[:32], np.uint32(1)
+                          << np.arange(31, -1, -1, dtype=np.uint32))
+    top = (1 << B) - 1
+    rs = np.random.RandomState(B)
+    idx = np.concatenate([[0, top], rs.randint(0, top + 1, 4096,
+                                               dtype=np.int64)])
+    idx = idx.astype(np.uint32)
+    for dim, got in ((0, _brev32(idx)), (1, _bytes_product(idx, table))):
+        port = ld.sobol_sample_u32(torch.as_tensor(idx.astype(np.int64)),
+                                   dim).numpy().astype(np.uint32)
+        ref = np.asarray(jld.sobol_sample_u32(jnp.asarray(idx), dim),
+                         np.uint32)
+        assert np.array_equal(port, ref)
+        assert np.array_equal(got, ref), dim
+
+
+def test_plain_work_counts(lanes):
+    """The kernel's work as the plain version counts it: the per-depth live
+    counts sum to live_lane_depths and shrink with depth; a shadow scan
+    tests at least one group of four and at most every real triangle; the
+    warp busy share is the share of live lanes in 32-lane warps."""
+    scene, sampler, cam, filt, px, py, si, lam = _port_inputs(lanes)
+    w = megawave.prepare_full(scene, sampler, cam, filt, px, py, si, lam,
+                              max_depth=MAX_DEPTH, rr_start=1)
+    megawave.wave_full_plain(w)
+    work = megawave.counter.work
+    live = work["live_by_depth"]
+    n, n_real = W * H, w.n_real
+    assert len(live) == MAX_DEPTH and live[0] == n
+    assert sum(live) == work["live_lane_depths"]
+    assert all(a >= b for a, b in zip(live, live[1:])) and live[-1] > 0
+    assert work["hits"] <= work["live_lane_depths"]
+    assert 0 < work["shadow_rays"] <= work["hits"]
+    assert work["unoccluded"] <= work["shadow_rays"]
+    assert (4 * work["shadow_rays"] <= work["shadow_tests"]
+            <= n_real * work["shadow_rays"])
+    # an unoccluded ray tests every real triangle
+    assert work["shadow_tests"] >= n_real * work["unoccluded"]
+    assert work["bsdf_samples"] <= work["hits"]
+    assert work["rr_draws"] <= work["bsdf_samples"]
+    assert 0 < work["emissions"] <= work["hits"]
+    # busy share: live lane-depths over 32 x each warp's longest path
+    assert sum(live) / (MAX_DEPTH * n) <= work["warp_busy_share"] <= 1.0
+    lens = torch.tensor([[4] + [1] * 31, [2] * 32])
+    assert megawave._warp_busy_share(lens.reshape(-1)) == \
+        (4 + 31 + 64) / (32 * (4 + 2))

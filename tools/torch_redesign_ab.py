@@ -12,7 +12,9 @@ pbrt_tpu_torch/_build/ as ab_*.so. (pbrt_tpu_torch only; no jax.)
 
 Every time is the median of --reps rounds with the range beside it; a
 round times each variant once, in the order old, new, new, old (CUDA events
-around --inner launches), so drift hits both alike. Sections (--only):
+around --inner launches), so drift hits both alike. --reps 0 times nothing:
+it builds, prints the ptxas reports and checks every variant against the
+parent. Sections (--only):
   tri      the triangle kernel at 32 (cornell), 1,280 (a subdivision-3
            icosphere) and 4,096 (a seeded soup) triangles x 160,000 rays,
            closest and any hit: through the wrapper and as the bare launch
@@ -20,7 +22,13 @@ around --inner launches), so drift hits both alike. Sections (--only):
            kernel where it launches at all; the BVH8 kernel on the same
            meshes and rays;
   mega     the two megakernels (in-kernel camera, rays in) on the main
-           path's 160,000-lane cornell wave at depth 5;
+           path's 160,000-lane cornell wave at depth 5, the parent kernel
+           against this tree's, through the wrappers and as the bare
+           launches (arguments prepared once); L and the filter weight
+           equal to the parent's there and on the 64x64x16 cornell waves of
+           both light samplers, with this tree's grid and the warp busy
+           share of the plain version's schedule (one path a thread, 32
+           consecutive lanes side by side);
   curves   the curve kernel on the hair scene's 524,288 segments: 2^20 box
            rays and one hair wave's own queries (camera rays, bounces, the
            shadow rays), the parent kernel against this tree's: as the
@@ -43,8 +51,8 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the parent's entry points (the triangle kernel's and the megakernel's are
-# this tree's too)
+# the parent's entry points (the triangle kernel's is this tree's too; the
+# megakernel's is the one before its persistent grid)
 PARENT_SIGNATURES = {
     "tri_intersect": ("tri_intersect_launch", [_P] * 8 + [_I] * 4 + [_P]),
     "megawave": ("megawave_launch", [_P] * 14 + [_I] * 11 + [_F] * 9 + [_P]),
@@ -81,15 +89,21 @@ def build_extra(parent: Path, curve_builds) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{key}: nvcc failed:\n{log}")
-        print(f"{key[0]} {key[1]}: " + "; ".join(
-            ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln), flush=True)
+        print(f"{key[0]} {key[1]}: {ptxas_lines(log)}", flush=True)
         lib = ctypes.CDLL(str(out))
         fn_name, argtypes = jobs[key][2]
         fn = getattr(lib, fn_name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[key[0]][key[1]] = lib
     return libs
+
+
+def ptxas_lines(log):
+    """The registers, stack frame and spill lines of an nvcc -Xptxas -v
+    log."""
+    return "; ".join(ln.strip() for ln in log.splitlines()
+                     if "registers" in ln or "spill" in ln
+                     or "stack frame" in ln)
 
 
 class use_library:
@@ -118,6 +132,8 @@ def alternate(variants: dict, reps: int, inner: int) -> dict:
     for fn in variants.values():
         fn()
     torch.cuda.synchronize()
+    if not reps:
+        return {}
     samples = {k: [] for k in names}
     for _ in range(reps):
         seen = {k: [] for k in names}
@@ -192,13 +208,61 @@ def section_tri(args, dev, parent):
     return out
 
 
+def parent_args(w):
+    """The parent megakernel's launch arguments for wave w (its signature:
+    one block a 128 lanes, the Sobol' columns copied on every launch):
+    (args, L, fw, keep), as megawave.launch_args."""
+    import torch
+    from pbrt_tpu_torch import filters as flt
+    from pbrt_tpu_torch.ops import megawave
+    rays = w.o is not None
+    N = w.mi.shape[0]
+    dev = w.lam.device
+    mi32 = torch.where(w.mi >= 2 ** 31, w.mi - 2 ** 32, w.mi) \
+        .to(torch.int32).contiguous()
+    seeds = megawave._device_seeds(dev, w.seed, w.max_depth)
+    cols = megawave._on_card(megawave.sobol_cols01(), dev)
+    L = torch.empty((N, 4), dtype=torch.float32, device=dev)
+    fw = None if rays else torch.empty((N,), dtype=torch.float32, device=dev)
+    c = dict.fromkeys(("s2", "inv_2s2", "norm", "zx", "zy", "ex", "ey", "rx",
+                       "ry"), 0.0) if rays else flt.gaussian_constants(w.filt)
+    args = (
+        None if rays else w.cam.data_ptr(), w.tri.data_ptr(),
+        w.attr.data_ptr(), w.light.data_ptr(), w.mat.data_ptr(),
+        seeds.data_ptr(), cols.data_ptr(), mi32.data_ptr(),
+        w.lam.data_ptr(), w.le.data_ptr(),
+        w.o.data_ptr() if rays else None, w.d.data_ptr() if rays else None,
+        L.data_ptr(), None if rays else fw.data_ptr(), N,
+        w.tri.numel() // 16, w.n_real, w.n_mats, w.n_lights, seeds.shape[0],
+        w.max_depth, w.rr_start, w.B, w.log2_spp, int(w.ls_uniform),
+        *(_F(c[k]) for k in ("s2", "inv_2s2", "norm", "zx", "zy", "ex", "ey",
+                             "rx", "ry")),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    return args, L, fw, (mi32, seeds, cols)
+
+
+def bare_launch(lib, args, what):
+    """A launch with arguments prepared once: the device's share."""
+    from pbrt_tpu_torch.ops import _build
+    return lambda: _build.check(lib.megawave_launch(*args), what)
+
+
+def parent_megawave(lib, w):
+    """The parent's megakernel on wave w through its host work."""
+    args, L, fw, _keep = parent_args(w)
+    bare_launch(lib, args, "parent megawave")()
+    return L, fw
+
+
 def section_mega(args, dev, parent):
     import torch
     from pbrt_tpu_torch import filters as flt
     from pbrt_tpu_torch import samplers as smp
     from pbrt_tpu_torch import scenes
     from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.ops import _build
     from pbrt_tpu_torch.ops import megawave
+    from pbrt_tpu_torch.utils import spectrum as spc
     scene, cam = scenes.make_cornell_box(400, 400, device=dev)
     sampler = smp.make_sampler("zsobol", spp=64, full_resolution=(400, 400))
     filt = flt.make_filter("gaussian")
@@ -210,16 +274,50 @@ def section_mega(args, dev, parent):
         scene, sampler, cam, filt, px, py, si, swl.lam, max_depth=5),
         "rays in": megawave.prepare_rays(scene, sampler, px, py, si, o, d,
                                          swl.lam, max_depth=5)}
+    # the waves of tests/test_torch_cuda.py::test_megakernel_matches_plain:
+    # 64x64, 16 spp, both light samplers; checked, untimed
+    w64, spp64 = 64, 16
+    cam64 = scenes.make_cornell_box(w64, w64, device=dev)[1]
+    sampler64 = smp.make_sampler("zsobol", spp=spp64,
+                                 full_resolution=(w64, w64))
+    pix = torch.arange(w64 * w64, device=dev).repeat(spp64)
+    si = torch.arange(w64 * w64 * spp64, device=dev) // (w64 * w64)
+    px, py = pix % w64, pix // w64
+    lam = spc.sample_visible_wavelengths(
+        smp.sample_1d(sampler64, px, py, si, 5)).lam
+    checked = {f"64x64x16 {label}": megawave.prepare_full(
+        sc, sampler64, cam64, filt, px, py, si, lam, max_depth=5)
+        for label, sc in (
+            ("power", scenes.make_cornell_box(w64, w64, device=dev)[0]),
+            ("uniform", scenes.make_uniform_light_box(dev)))}
+    new_lib = _build.load_library("megawave")
     out = {}
-    for label, w in waves.items():
-        def old():
-            with use_library("megawave", parent["megawave"]):
-                return megawave.wave_full(w)
-        same = torch.equal(old()[0], megawave.wave_full(w)[0])
-        out[label] = dict(equal_to_parent=same, **show(
-            f"megakernel, {label}, 160,000 lanes, depth 5 (L bit-equal to "
-            f"the parent's: {same})",
-            alternate({"old": old, "new": lambda: megawave.wave_full(w)},
+    for label, w in {**waves, **checked}.items():
+        L0, fw0 = parent_megawave(parent["megawave"], w)
+        L1, fw1 = megawave._launch(w)
+        same = torch.equal(L0, L1) and (fw0 is None or torch.equal(fw0, fw1))
+        megawave.wave_full_plain(w)
+        share = megawave.counter.work["warp_busy_share"]
+        grid = megawave.grid(w)
+        print(f"megakernel, {label}: L and filter weight equal to the "
+              f"parent's: {same}; grid {grid}; warp busy share of the plain "
+              f"version's schedule {share:.4f}", flush=True)
+        if not same:
+            raise RuntimeError(f"megakernel, {label}: differs from the "
+                               "parent kernel")
+        out[label] = dict(equal_to_parent=same, grid=grid,
+                          plain_warp_busy_share=share)
+        if label not in waves:
+            continue
+        # through the wrappers, then the launches alone
+        old_args, new_args = parent_args(w), megawave.launch_args(w)
+        out[label].update(show(
+            f"megakernel, {label}, 160,000 lanes, depth 5",
+            alternate({"old": lambda: parent_megawave(parent["megawave"], w),
+                       "new": lambda: megawave.wave_full(w),
+                       "old bare": bare_launch(parent["megawave"],
+                                               old_args[0], "parent"),
+                       "new bare": bare_launch(new_lib, new_args[0], "new")},
                       args.reps, args.inner)))
     return out
 
@@ -322,16 +420,15 @@ def main():
     print(f"card: {card}", flush=True)
     from pbrt_tpu_torch.ops import _build
     for name, (_path, log) in _build.build(list(PARENT_SIGNATURES)).items():
-        print(f"this tree {name}: " + "; ".join(
-            ln.strip() for ln in log.splitlines() if "registers" in ln),
-            flush=True)
+        print(f"this tree {name}: {ptxas_lines(log)}", flush=True)
     libs = build_extra(args.parent, sorted({b[0] for b in
                                             args.curve_builds}))
     dev = torch.device("cuda", 0)
     out = dict(card=card, reps=args.reps, inner=args.inner)
-    for name, fn in (("tri", section_tri), ("mega", section_mega)):
-        if name in args.only:
-            out[name] = fn(args, dev, libs["parent"])
+    if "tri" in args.only:
+        out["tri"] = section_tri(args, dev, libs["parent"])
+    if "mega" in args.only:
+        out["mega"] = section_mega(args, dev, libs["parent"])
     if "curves" in args.only:
         out["curves"] = section_curves(args, dev, libs["parent"],
                                        libs["curves"])
