@@ -25,7 +25,8 @@ Phases, each of which raises on failure (exit code 1):
      schedule (a path a thread, 32 lanes in a row);
   7. the BVH8 kernel against its plain version on the card: meshfield's
      BVH8, 2^20 seeded rays from the world box +-1, closest hit (t_max
-     1e30) and any hit (t_max 30);
+     1e30: t, prim, b1, b2 bit for bit) and any hit (t_max 30: the hit
+     flag);
   8. the meshfield path through the user entry points
      (scene.parser.parse_file -> integrators.render.render): 200x200,
      32 spp, max depth 4, every closest and shadow query through the BVH8
@@ -34,24 +35,27 @@ Phases, each of which raises on failure (exit code 1):
   9. cornell through the general wave (PathOptions(megakernel=False)):
      400x400, 64 spp, max depth 5, every query through the triangle
      kernel, launch counts read around it, gated like phase 5;
- 10. times with CUDA events: the BVH8 kernel and its plain version at 2^20
-     rays, closest and any hit, and the two renders in paths/s;
- 11. the bvh2 library's ptxas report: registers, stack frame and spills of
-     its two entries (single level, two levels);
+ 10. times with CUDA events: the BVH8 kernel (through the wrapper and as
+     the bare launch, arguments prepared once) and its plain version at
+     2^20 rays, closest and any hit, and the two renders in paths/s;
+ 11. the bvh8 and bvh2 libraries' ptxas reports: registers, stack frame
+     and spills of the BVH8 kernel and of bvh2's two kernels (single
+     level, two levels);
  12. the single-level bvh2 kernel against its plain version: meshfield's
      binary BVH, the 2^20 rays of phase 7, closest and any hit (t_max 30);
  13. the two-level bvh2 kernel against its plain version: meshfield's
      triangles as one prototype instanced 64 times on an 8x8 grid, each
      turned about y by a seeded angle, and the instances golden's own
-     tables, 2^20 rays from each world box +-1, closest and any hit;
+     tables, 2^20 rays from each world box +-1, closest hit (t, prim, b1,
+     b2, inst bit for bit) and any hit (the hit flag);
  14. the instances path through the user entry points (parse_file ->
      render): 200x200, 32 spp, max depth 3, every closest and shadow query
      through the two-level kernel, launch counts read around it, the image
      gated against goldens/instances_200_32spp.exr and written to
      pbrt_tpu_torch/_build/;
  15. times with CUDA events: both bvh2 entries and their plain versions
-     beside the BVH8 kernel on the same rays, and the instances render in
-     paths/s;
+     (the two-level one also as the bare launch) beside the BVH8 kernel on
+     the same rays, and the instances render in paths/s;
  16. the curves library's ptxas report: registers, stack frame, spills;
  17. the curve kernel against its plain version on the card: the "hair"
      scene (tools/hair_scene.py: 8,192 strands, 65,536 curve spans,
@@ -139,14 +143,21 @@ Phases, each of which raises on failure (exit code 1):
  33. times with CUDA events at the launch size, 160,000 box rays, closest
      hit: the triangle kernel through its wrapper and as the bare launch
      (outputs allocated once) at 32, 1,280 and 4,096 triangles, each with
-     its bound, and the BVH8 kernel on the same two meshes and rays;
+     its bound, and the BVH8 kernel on the same two meshes and rays, bit-
+     equal there to its plain version (closest hit, and any hit at t_max
+     1.5);
  34. one wave of meshfield, instances and hair (160,000 lanes each): the
      queries the wave hands the BVH8, two-level and curve kernels (camera
      rays, each bounce, the shadow rays), recorded and timed again with
-     CUDA events; the curve kernel on the hair wave's camera rays, first
-     bounce and first shadow query bit-equal to its plain version (the hit
-     flag at any hit).
-Phase 2 builds every kernel (one nvcc per source, all started together)
+     CUDA events through the wrapper and as the bare launch; the BVH8 and
+     two-level kernels on every query bit-equal to their plain versions
+     (the hit flag at any hit), each query's bound from the plain
+     version's count of its work (traversal_bound); the curve kernel on the hair wave's camera rays,
+     first bounce and first shadow query bit-equal to its plain version.
+A bare launch (the launch alone, its arguments prepared once) is timed
+queued: its launches are enqueued behind a spin kernel, so that the card
+runs them back to back and the time is the device's, whatever the host
+takes to make them (cuda_ms). Phase 2 builds every kernel (one nvcc per source, all started together)
 and the host BVH builder (g++). The line before the last is a JSON object
 with one entry per kernel, each with its bound: the larger of the bytes it
 must move over 3.35 TB/s and the f32 operations this run's rays needed
@@ -193,6 +204,7 @@ PEAK_INT32_PER_S = 33.5e12
 SLAB_OPS = 26           # 6 sub, 6 mul, 6 min/max, 6 for tmin/tmax, 2 test
 TRI_OPS = 60            # Moeller-Trumbore on rows with precomputed edges
 TRI_RAW_OPS = 64        # on raw vertices: 6 edge subtractions, no tolerance
+TRI_OPS_EDGES = TRI_RAW_OPS - 6  # the same, edges subtracted at upload
 BVH8_CHILD_OPS = 12 + SLAB_OPS   # dequantise a child box, then its slab
 ENTER_OPS = 39          # a ray through w2o (33) and its 3 inverse dirs
 FOREST_CHILD_OPS = SLAB_OPS      # the forest's children are not quantised
@@ -258,14 +270,25 @@ def mrse(img, ref):
                  .mean())
 
 
-def cuda_ms(fn, reps, warmup=1):
-    """Mean milliseconds per call of fn over reps calls, CUDA events."""
+# cycles of the spin kernel a queued timing puts ahead of each of its
+# launches (~0.11 ms at the H100's 1.755 GHz: more than the host takes to
+# enqueue one)
+QUEUE_SPIN = 200_000
+
+
+def cuda_ms(fn, reps, warmup=1, queued=False):
+    """Mean milliseconds per call of fn over reps calls, CUDA events.
+    queued: the calls are enqueued behind a spin kernel, so that the card
+    runs them back to back and the time is the device's alone, whatever
+    the host takes to launch them."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_SPIN * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -380,6 +403,17 @@ def megawave_bound(w, work):
                     int32=int_ops / PEAK_INT32_PER_S * 1e3))
 
 
+def bare_ms(lib_name, entry, args, reps=20):
+    """Mean ms of a launch alone: the library's entry point called with
+    arguments prepared once (a wrapper's launch_args), no wrapper host
+    work, the launches queued (cuda_ms) so that the host's launch cost is
+    not counted either."""
+    from pbrt_tpu_torch.ops import _build
+    fn = getattr(_build.load_library(lib_name), entry)
+    return cuda_ms(lambda: _build.check(fn(*args), entry), reps=reps,
+                   warmup=3, queued=True)
+
+
 def megawave_bare_ms(w, reps=50):
     """Mean ms of the megakernel's launch alone on wave w: its arguments
     prepared once (ops/megawave.launch_args), no wrapper host work."""
@@ -388,7 +422,8 @@ def megawave_bare_ms(w, reps=50):
     lib = _build.load_library("megawave")
     args, _L, _fw, _keep = megawave.launch_args(w)
     return cuda_ms(lambda: _build.check(lib.megawave_launch(*args),
-                                        "megawave"), reps=reps, warmup=3)
+                                        "megawave"), reps=reps, warmup=3,
+                   queued=True)
 
 
 def show_megawave_bound(label, card, b, work):
@@ -418,6 +453,14 @@ def traversal_bound(work, n_rays, out_bytes, tables, tri_ops=TRI_RAW_OPS,
     return bound(n_bytes, n_ops)
 
 
+def two_level_bound_tables(scene):
+    """The tables the two-level query must read, for traversal_bound: the
+    node rows, 10 floats a triangle (tri_geo_tlas: p0, p1, p2, id) and 14
+    words an instance (w2o, BLAS root, id), not the kernel's padded rows."""
+    return (scene.tlas_nodes, scene.tri_geo_tlas,
+            scene.tlas_kernel.insts[:, :14])
+
+
 def hold_to_plain(got, want, label, n_rays, any_hit):
     """A BVH kernel's result against its plain version's: hit equal on >=
     99.99% of rays; closest hit: prim equal on >= 99.99%, t (and inst)
@@ -444,6 +487,31 @@ def hold_to_plain(got, want, label, n_rays, any_hit):
         check(agree >= 0.9999, f"{label}: prim agreement {agree}")
         check(t_exact and inst_exact,
               f"{label}: t or inst differs where prim is equal")
+    return err
+
+
+def hold_bits(got, want, label, any_hit):
+    """A BVH kernel's outputs against its plain version's, bit for bit:
+    the hit flag at any hit; t, prim, b1, b2 (and inst) at closest hit.
+    got: the wrapper's dict or the launch's tuple; want: the plain
+    version's tuple (t, prim, b1, b2[, inst]). Returns max |dt| where both
+    hit (0 when bit-equal)."""
+    import torch
+    names = ("t", "prim", "b1", "b2", "inst")
+    if isinstance(got, dict):
+        got = tuple(got[k] for k in names if k in got)
+    torch.cuda.synchronize()
+    hit_eq = torch.equal(got[1] >= 0, want[1] >= 0)
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    both = (got[1] >= 0) & (want[1] >= 0)
+    err = (got[0][both] - want[0][both]).abs().max().item() \
+        if bool(both.any()) else 0.0
+    print(f"[{label}] any_hit={any_hit}: {got[0].shape[0]} rays, hit share "
+          f"{(want[1] >= 0).float().mean().item():.4f}, hit flag equal "
+          f"{hit_eq}, {', '.join(names[:len(got)])} bit-equal {exact}",
+          flush=True)
+    check(hit_eq and (exact or any_hit),
+          f"{label} (any_hit={any_hit}) differs from its plain version")
     return err
 
 
@@ -1323,6 +1391,85 @@ def wave_queries(module, name, any_hit_arg, desc, max_depth, device):
     return closest, shadow, W * H * m
 
 
+def bvh_wave(label, scene, closest, shadow, arg, card, dev):
+    """Phase 34 for the BVH8 ("bvh8") or two-level ("two_level") kernel on
+    the queries of one wave (the wrapper's recorded calls, o, d, t_max the
+    three arguments before any_hit, at position arg): each query's bare
+    launch (arguments prepared once) beside the wrapper, the kernel bit-equal
+    to its plain version, and the query's bound from the plain version's
+    count of its work on those rays (traversal_bound). Returns the wave's
+    dict entries."""
+    import torch
+    from pbrt_tpu_torch.ops import bvh2
+    from pbrt_tpu_torch.ops import bvh8
+    if label == "bvh8":
+        b8 = scene.bvh8
+        tables = (b8.nodes_f, b8.nodes_q, b8.tris, b8.prim_indices)
+
+        def launch(o, d, tv, any_hit):
+            return bvh8._launch(b8, o, d, tv, any_hit)
+
+        def bare(o, d, tv, any_hit, out):
+            return bare_ms("bvh8", "bvh8_intersect_launch", bvh8.launch_args(
+                b8, o, d, tv, any_hit, out=out)[0])
+
+        def plain(o, d, tv, any_hit):
+            return bvh8.bvh8_intersect_plain(b8, o, d, tv, any_hit), \
+                bvh8.counter.work
+        kw = dict(out_bytes=16, tri_ops=TRI_OPS,
+                  visit_ops=8 * BVH8_CHILD_OPS)
+    else:
+        kt = scene.tlas_kernel
+        tables = two_level_bound_tables(scene)
+        args = (scene.tlas_nodes, scene.inst_rows, scene.tri_geo_tlas,
+                scene.tlas_root)
+
+        def launch(o, d, tv, any_hit):
+            return bvh2._launch_two_level(scene.tlas_nodes, kt,
+                                          scene.tlas_root, o, d, tv, any_hit)
+
+        def bare(o, d, tv, any_hit, out):
+            return bare_ms("bvh2", "two_level_launch", bvh2.launch_args(
+                scene.tlas_nodes, kt, scene.tlas_root, o, d, tv, any_hit,
+                out=out)[0])
+
+        def plain(o, d, tv, any_hit):
+            return bvh2.two_level_plain(*args, o, d, tv, any_hit), \
+                bvh2.counter_two_level.work
+        kw = dict(out_bytes=20, tri_ops=TRI_OPS_EDGES)
+    names = ["camera rays"] + [f"bounce {i}" for i in range(1, len(closest))]
+    names += [f"shadow {i}" for i in range(1, len(shadow) + 1)]
+    queries = []
+    for name, (a, _k) in zip(names, closest + shadow):
+        o, d = a[arg - 3].contiguous(), a[arg - 2].contiguous()
+        tv = torch.as_tensor(a[arg - 1], dtype=torch.float32, device=dev)
+        tv = tv.expand(o.shape[0]).contiguous()
+        any_hit = bool(a[arg])
+        res = launch(o, d, tv, any_hit)
+        want, work = plain(o, d, tv, any_hit)
+        hold_bits(res, want, f"34 wave {label} {name}", any_hit)
+        b_ms, b_by = traversal_bound(work, o.shape[0], kw["out_bytes"],
+                                     tables, tri_ops=kw["tri_ops"],
+                                     visit_ops=kw.get("visit_ops", SLAB_OPS))
+        queries.append(dict(query=name, rays=o.shape[0], any_hit=any_hit,
+                            bare_ms=bare(o, d, tv, any_hit, res),
+                            bound_ms=b_ms, bound_by=b_by,
+                            hit_share=(want[1] >= 0).float().mean().item(),
+                            work=work))
+    ms = [q["bare_ms"] for q in queries]
+    entry = dict(queries=queries, bare_sum_ms=sum(ms),
+                 bound_sum_ms=sum(q["bound_ms"] for q in queries))
+    entry["bound_ms"] = entry["bound_sum_ms"] / len(queries)
+    print(f"[34 wave] card {card}: {label} on one wave: bare launches "
+          + ", ".join(f"{q['query']} {q['bare_ms']:.4f} ms (bound "
+                      f"{q['bound_ms']:.5f} by {q['bound_by']})"
+                      for q in queries)
+          + f"; {len(queries)} launches, {entry['bare_sum_ms']:.4f} ms in all "
+          f"({entry['bound_sum_ms'] / entry['bare_sum_ms'] * 100:.1f}% of the "
+          "bound); every query bit-equal to the plain version", flush=True)
+    return entry
+
+
 def redesign_phases(dev, card, named, cornell, descs):
     """Phases 31-34: the triangle kernel above one tile and on both routes
     of the sphere scene, its times at the launch size beside the BVH8
@@ -1436,18 +1583,25 @@ def redesign_phases(dev, card, named, cornell, descs):
         out = ti.tri_intersect(pool, o, d, tv, n_real, False)
         k_ms = cuda_ms(lambda: ti.tri_intersect(pool, o, d, tv, n_real,
                                                 False), reps=20, warmup=3)
-        bare_ms = cuda_ms(lambda: ti._launch(pool, o, d, tv, n_real, False,
-                                             out=out), reps=20, warmup=3)
+        t_bare = cuda_ms(lambda: ti._launch(pool, o, d, tv, n_real, False,
+                                            out=out), reps=20, warmup=3,
+                         queued=True)
         b_ms, b_by = bound(n33 * (28 + 16) + 4 * pool.numel(),
                            n33 * n_real * TRI_OPS)
         b8_ms = None if b8 is None else cuda_ms(
             lambda: bvh8.bvh8_intersect(b8, o, d, tv, False), reps=20,
             warmup=3)
-        tri_ms[label] = dict(ms=k_ms, bare_ms=bare_ms, bound_ms=b_ms,
+        if b8 is not None:
+            for any_hit, t_b8 in ((False, tv), (True, torch.full_like(
+                    tv, 1.5))):
+                hold_bits(bvh8.bvh8_intersect(b8, o, d, t_b8, any_hit),
+                          bvh8.bvh8_intersect_plain(b8, o, d, t_b8, any_hit),
+                          f"33 bvh8 at {label} triangles", any_hit)
+        tri_ms[label] = dict(ms=k_ms, bare_ms=t_bare, bound_ms=b_ms,
                              bound_by=b_by, bvh8_ms=b8_ms)
         print(f"[33 times] card {card}: tri_intersect at {label} triangles "
               f"x {n33} rays, closest hit: {k_ms:.4f} ms through the "
-              f"wrapper, {bare_ms:.4f} ms the bare launch (outputs allocated"
+              f"wrapper, {t_bare:.4f} ms the bare launch (outputs allocated"
               f" once), bound {b_ms:.5f} ms by {b_by}"
               + ("" if b8_ms is None else
                  f"; the BVH8 kernel on the same mesh and rays {b8_ms:.4f} "
@@ -1464,30 +1618,48 @@ def redesign_phases(dev, card, named, cornell, descs):
         fn = getattr(module, fn_name)
         ms = [[cuda_ms(lambda: fn(*a, **k), reps=10, warmup=2)
                for a, k in group] for group in (closest, shadow)]
-        # a launch's bound at this size: the rays in, the hits out and the
-        # tables once (bytes; at 2^20 rays the operations lay below them)
-        sc_ = descs[key].scene
-        tables, out_bytes = {
-            "bvh8": lambda: ((sc_.bvh8.nodes_f, sc_.bvh8.nodes_q,
-                              sc_.bvh8.tris, sc_.bvh8.prim_indices), 16),
-            "two_level": lambda: ((sc_.tlas_nodes, sc_.inst_rows,
-                                   sc_.tri_geo_tlas), 20),
-            "curves": lambda: ((sc_.curve_nodes, sc_.curve_segs), 8)}[label]()
-        b_ms, _by = bound(lanes * (28 + out_bytes)
-                          + sum(4 * x.numel() for x in tables), 0)
         wave_ms[label] = dict(
             lanes=lanes, camera_ms=ms[0][0], bounce_ms=ms[0][1:],
             shadow_ms=ms[1], launches=len(closest) + len(shadow),
-            sum_ms=sum(ms[0]) + sum(ms[1]), bound_ms=b_ms)
+            sum_ms=sum(ms[0]) + sum(ms[1]))
+        if label != "curves":
+            print(f"[34 wave] card {card}: {label} on one {key} wave of "
+                  f"{lanes} lanes, through the wrapper: camera rays "
+                  f"{ms[0][0]:.4f} ms, bounces "
+                  f"{[round(x, 4) for x in ms[0][1:]]} ms, shadow rays "
+                  f"{[round(x, 4) for x in ms[1]]} ms; "
+                  f"{wave_ms[label]['sum_ms']:.4f} ms in all", flush=True)
+            wave_ms[label].update(bvh_wave(label, descs[key].scene, closest,
+                                           shadow, arg, card, dev))
+            continue
+        # the curve kernel: a launch's bound at this size, the rays in, the
+        # hits out and the tables once (bytes)
+        sc_ = descs[key].scene
+        b_ms, _by = bound(lanes * (28 + 8) + sum(
+            4 * x.numel() for x in (sc_.curve_nodes, sc_.curve_segs)), 0)
+        # the device's time a query: its bare launch (arguments prepared
+        # once, no wrapper work), queued
+        dev_ms = []
+        for a, _k in closest + shadow:
+            o, d = a[2].contiguous(), a[3].contiguous()
+            tv = torch.as_tensor(a[4], dtype=torch.float32, device=dev)
+            tv = tv.expand(o.shape[0]).contiguous()
+            kargs, _out, _keep = curves.launch_args(
+                sc_.curve_nodes, sc_.curve_wide, sc_.curve_segs, o, d, tv,
+                bool(a[5]))
+            dev_ms.append(bare_ms("curves", "curves_intersect_launch",
+                                  kargs))
+        wave_ms[label].update(bound_ms=b_ms, bare_ms=dev_ms,
+                              bare_sum_ms=sum(dev_ms))
         print(f"[34 wave] card {card}: {label} on one {key} wave of {lanes} "
               f"lanes: camera rays {ms[0][0]:.4f} ms, bounces "
               f"{[round(x, 4) for x in ms[0][1:]]} ms, shadow rays "
               f"{[round(x, 4) for x in ms[1]]} ms; "
               f"{wave_ms[label]['launches']} launches, "
-              f"{wave_ms[label]['sum_ms']:.4f} ms in all; a launch's bound "
-              f"at this size {b_ms:.5f} ms (bytes)", flush=True)
-        if label != "curves":
-            continue
+              f"{wave_ms[label]['sum_ms']:.4f} ms in all, "
+              f"{wave_ms[label]['bare_sum_ms']:.4f} ms the bare launches "
+              f"(queued); a launch's bound at this size {b_ms:.5f} ms "
+              "(bytes)", flush=True)
         hair = descs[key].scene
         for what, (a, k) in (("camera rays", closest[0]),
                              ("first bounce", closest[1]),
@@ -1685,28 +1857,11 @@ def main():
     b8_err = 0.0
     for any_hit, t_max in ((False, 1e30), (True, 30.0)):
         got = bvh8.bvh8_intersect(b8, o7, d7, t_max, any_hit)
-        t_p, prim_p, _b1, _b2 = bvh8.bvh8_intersect_plain(
+        want = bvh8.bvh8_intersect_plain(
             b8, o7, d7, torch.full((n_rays,), t_max, device=dev), any_hit)
-        torch.cuda.synchronize()
         if not any_hit:
             b8_work = bvh8.counter.work
-        hit_agree = (got["hit"] == (prim_p >= 0)).float().mean().item()
-        same = got["prim"] == prim_p
-        agree = same.float().mean().item()
-        hit = same & (prim_p >= 0)
-        t_exact = torch.equal(got["t"][hit], t_p[hit])
-        err = (got["t"][hit] - t_p[hit]).abs().max().item() \
-            if bool(hit.any()) else 0.0
-        b8_err = max(b8_err, err)
-        print(f"[7 bvh8] any_hit={any_hit}: hit equal on "
-              f"{hit_agree * 100:.4f}%, prim equal on {agree * 100:.4f}% of "
-              f"{n_rays} rays, hit share "
-              f"{(prim_p >= 0).float().mean().item():.4f}, t bit-equal "
-              f"where prim equal: {t_exact}, max |dt| {err:.3g}", flush=True)
-        check(hit_agree >= 0.9999, f"bvh8 hit agreement {hit_agree}")
-        if not any_hit:
-            check(agree >= 0.9999, f"bvh8 prim agreement {agree}")
-            check(t_exact, "bvh8 t differs where prim is equal")
+        b8_err = max(b8_err, hold_bits(got, want, "7 bvh8", any_hit))
 
     # ---- 8. meshfield through the entry points ----
     reset_counts(counters)
@@ -1756,11 +1911,14 @@ def main():
         tv = torch.full((n_rays,), t_max, device=dev)
         k_ms = cuda_ms(lambda: bvh8.bvh8_intersect(b8, o7, d7, tv, any_hit),
                        reps=20, warmup=3)
+        b_ms = bare_ms("bvh8", "bvh8_intersect_launch",
+                       bvh8.launch_args(b8, o7, d7, tv, any_hit)[0])
         p_ms = cuda_ms(lambda: bvh8.bvh8_intersect_plain(b8, o7, d7, tv,
                                                          any_hit), reps=2)
-        b8_ms[any_hit] = (k_ms, p_ms)
+        b8_ms[any_hit] = (k_ms, p_ms, b_ms)
         print(f"[10 times] card {card}: bvh8 any_hit={any_hit} kernel "
-              f"{k_ms:.4f} ms ({n_rays / k_ms / 1e3:.2f} Mrays/s) vs plain "
+              f"{k_ms:.4f} ms through the wrapper, {b_ms:.4f} ms the bare "
+              f"launch ({n_rays / b_ms / 1e3:.2f} Mrays/s) vs plain "
               f"{p_ms:.4f} ms ({n_rays / p_ms / 1e3:.3f} Mrays/s), {n_rays} "
               "rays", flush=True)
     print(f"[10 times] card {card}: meshfield 200x200x32 "
@@ -1768,15 +1926,16 @@ def main():
           f"400x400x64 {gstats['paths_per_sec']:.6g} paths/s; cornell "
           f"megakernel {stats['paths_per_sec']:.6g} paths/s", flush=True)
 
-    # ---- 11. the bvh2 library's ptxas report ----
+    # ---- 11. the bvh8 and bvh2 libraries' ptxas reports ----
     # (an empty log: the library was built before this run)
-    entries = [ln.strip() for ln in libs["bvh2"][1].splitlines()
-               if "Function properties" in ln or "stack frame" in ln
-               or "registers" in ln]
-    print(f"[11 bvh2 build] ptxas, single- and two-level entries: {entries}",
-          flush=True)
-    check(not entries or sum("registers" in ln for ln in entries) == 2,
-          "bvh2: ptxas reported other than two entries")
+    for name, what, n_entries in (("bvh8", "the BVH8 kernel", 1),
+                                  ("bvh2", "single- and two-level kernels",
+                                   2)):
+        entries = ptxas_entries(libs[name][1])
+        print(f"[11 {name} build] ptxas, {what}: {entries}", flush=True)
+        check(not entries or sum("registers" in ln for ln in entries)
+              == n_entries, f"{name}: ptxas reported other than {n_entries} "
+              "entries")
 
     # ---- 12. single-level bvh2 kernel vs plain, meshfield, 2^20 rays ----
     mtri = mesh.tri_all[:, :9].cpu().numpy()
@@ -1823,13 +1982,12 @@ def main():
         for any_hit, t_max in ((False, 1e30), (True, 30.0)):
             tv = torch.full((n_rays,), t_max, device=dev)
             got = bvh2.two_level_intersect(*tables, o8, d8, tv, any_hit,
-                                           depth=sc8.tlas_depth)
-            want = dict(zip(("t", "prim", "b1", "b2", "inst"),
-                            bvh2.two_level_plain(*tables, o8, d8, tv,
-                                                 any_hit)))
+                                           depth=sc8.tlas_depth,
+                                           kernel=sc8.tlas_kernel)
+            want = bvh2.two_level_plain(*tables, o8, d8, tv, any_hit)
             k8_work[label, any_hit] = bvh2.counter_two_level.work
-            k8_err = max(k8_err, hold_to_plain(
-                got, want, f"13 two_level {label}", n_rays, any_hit))
+            k8_err = max(k8_err, hold_bits(got, want, f"13 two_level {label}",
+                                           any_hit))
         print(f"[13 two_level] {label} plain-version work, closest / any: "
               f"{k8_work[label, False]} / {k8_work[label, True]}",
               flush=True)
@@ -1877,17 +2035,22 @@ def main():
         for label, (sc8, o8, d8) in k8_rays.items():
             tables = (sc8.tlas_nodes, sc8.inst_rows, sc8.tri_geo_tlas,
                       sc8.tlas_root)
+            kargs = bvh2.launch_args(sc8.tlas_nodes, sc8.tlas_kernel,
+                                     sc8.tlas_root, o8, d8, tv, any_hit)[0]
             k8_ms[label, any_hit] = (
                 cuda_ms(lambda: bvh2.two_level_intersect(
-                    *tables, o8, d8, tv, any_hit, depth=sc8.tlas_depth),
-                    reps=20, warmup=3),
+                    *tables, o8, d8, tv, any_hit, depth=sc8.tlas_depth,
+                    kernel=sc8.tlas_kernel), reps=20, warmup=3),
                 cuda_ms(lambda: bvh2.two_level_plain(
-                    *tables, o8, d8, tv, any_hit), reps=1))
-            k_ms, p_ms = k8_ms[label, any_hit]
+                    *tables, o8, d8, tv, any_hit), reps=1),
+                bare_ms("bvh2", "two_level_launch", kargs))
+            k_ms, p_ms, b_ms = k8_ms[label, any_hit]
             print(f"[15 times] card {card}: two_level {label} any_hit="
-                  f"{any_hit} kernel {k_ms:.4f} ms ({n_rays / k_ms / 1e3:.2f}"
-                  f" Mrays/s) vs plain {p_ms:.4f} ms "
-                  f"({n_rays / p_ms / 1e3:.3f} Mrays/s)", flush=True)
+                  f"{any_hit} kernel {k_ms:.4f} ms through the wrapper, "
+                  f"{b_ms:.4f} ms the bare launch "
+                  f"({n_rays / b_ms / 1e3:.2f} Mrays/s) vs plain "
+                  f"{p_ms:.4f} ms ({n_rays / p_ms / 1e3:.3f} Mrays/s)",
+                  flush=True)
     print(f"[15 times] card {card}: instances 200x200x32 depth 3 "
           f"{istats['paths_per_sec']:.6g} paths/s", flush=True)
 
@@ -1922,16 +2085,16 @@ def main():
     k7_bound = traversal_bound(k7_work[False], n_rays, 16,
                                (k7["nodes"], k7["tris"]))
     k8_bound = traversal_bound(k8_work["grid64", False], n_rays, 20,
-                               (grid.tlas_nodes, grid.inst_rows,
-                                grid.tri_geo_tlas))
+                               two_level_bound_tables(grid),
+                               tri_ops=TRI_OPS_EDGES)
     for what, (b_ms, b_by), k_ms in (("megawave", (mw_bound["bound_ms"],
                                                    mw_bound["bound_by"]),
                                       mw_bare_ms),
                                      ("tri_intersect", ti_bound, ti_ms),
-                                     ("bvh8", b8_bound, b8_ms[False][0]),
+                                     ("bvh8", b8_bound, b8_ms[False][2]),
                                      ("bvh2", k7_bound, k7_ms[False][0]),
                                      ("two_level", k8_bound,
-                                      k8_ms["grid64", False][0]),
+                                      k8_ms["grid64", False][2]),
                                      ("curves", cr["bound"],
                                       cr["ms"][False][0]),
                                      ("megawave_rays",
@@ -1956,7 +2119,8 @@ def main():
              ri["bare_ms"], ri["bound"]["bound_ms"]),
             ("tri_intersect (general-wave cornell, 32 triangles)",
              glaunch["tri_intersect"], tri32["bare_ms"], tri32["bound_ms"]),
-            *((f"{name} ({path})", n, w["sum_ms"] / w["launches"],
+            *((f"{name} ({path})", n,
+               w.get("bare_sum_ms", w["sum_ms"]) / w["launches"],
                w["bound_ms"]) for name, path, n, w in (
                 ("bvh8", "meshfield", mlaunch["bvh8"], rd["wave_ms"]["bvh8"]),
                 ("two_level", "instances", ilaunch["two_level"],
@@ -2001,9 +2165,11 @@ def main():
              source="pbrt_tpu_torch/csrc/bvh8.cu",
              replaces="pbrt_tpu/ops/pallas_bvh8.py:793",
              launches=mlaunch["bvh8"], max_abs_err=b8_err,
-             ms=b8_ms[False][0], plain_ms=b8_ms[False][1],
+             ms=b8_ms[False][0], bare_ms=b8_ms[False][2],
+             plain_ms=b8_ms[False][1],
              bound_ms=b8_bound[0], bound_by=b8_bound[1], library_ms=None,
-             any_hit_ms=b8_ms[True][0], any_hit_plain_ms=b8_ms[True][1],
+             any_hit_ms=b8_ms[True][0], any_hit_bare_ms=b8_ms[True][2],
+             any_hit_plain_ms=b8_ms[True][1],
              # phase 34: the queries of one meshfield wave
              wave=rd["wave_ms"]["bvh8"]),
         # launches: none on a render path (only tests reach the reference's
@@ -2022,11 +2188,14 @@ def main():
              replaces="pbrt_tpu/ops/pallas_bvh.py:521",
              launches=ilaunch["two_level"], max_abs_err=k8_err,
              ms=k8_ms["grid64", False][0],
+             bare_ms=k8_ms["grid64", False][2],
              plain_ms=k8_ms["grid64", False][1], bound_ms=k8_bound[0],
              bound_by=k8_bound[1], library_ms=None,
              any_hit_ms=k8_ms["grid64", True][0],
+             any_hit_bare_ms=k8_ms["grid64", True][2],
              any_hit_plain_ms=k8_ms["grid64", True][1],
              golden_ms=k8_ms["golden", False][0],
+             golden_bare_ms=k8_ms["golden", False][2],
              golden_plain_ms=k8_ms["golden", False][1],
              wave=rd["wave_ms"]["two_level"]),
         # launches: the hair render (phase 18); ms: closest hit on the hair

@@ -10,12 +10,12 @@ arrays: "tri_all" (T, 27); "mat_pool" (M, 22); "lights_packed" (L, 24);
 sampler's alias rows and pmf table; "c2w_m" (4, 4); "tan_half_fov" ();
 "tri_pallas" (T'*16,) on the brute-force route; "nodes_f", "nodes_q",
 "tris_b8", "prim_indices" (the BVH8 tables) on the BVH route;
-"tlas_nodes", "inst_rows", "tri_geo_tlas" (the two-level tables) for an
-instanced scene; "curve_nodes", "curve_segs", "curve_mats" (the curve
-tables; the curve kernel's own node table is derived from them) for a
-scene with curves; "blp_rows" (K, 14) for a scene with
-bilinear patches; "attr", "light", "mat" (the reference's
-megawave.scene_tables) for a megakernel scene.
+"tlas_nodes", "inst_rows", "tri_geo_tlas" (the two-level tables; the
+kernel's own are derived from them) for an instanced scene;
+"curve_nodes", "curve_segs", "curve_mats" (the curve tables; the curve
+kernel's own node table is derived from them) for a scene with curves;
+"blp_rows" (K, 14) for a scene with bilinear patches; "attr", "light",
+"mat" (the reference's megawave.scene_tables) for a megakernel scene.
 meta: "ls_kind", "n_lights", "scene_radius", "inf_indices", "light_tags",
 "n_tris", "bxdf_tags" (the material pool's tag set); "bvh8" (n_nodes,
 n_tris, depth) on the BVH route; "tlas_root" for an instanced scene;
@@ -33,6 +33,7 @@ from . import device as dev_mod
 from . import lightsamplers as lsamp
 from . import samplers as smp
 from .ops import bvh as bvh_mod
+from .ops import bvh2 as bvh2_mod
 from .ops import curves as curves_mod
 from .ops import tlas as tlas_mod
 from .ops.bvh8 import BVH8
@@ -64,6 +65,8 @@ def from_jax_scene(arrays: dict, meta: dict, device="cuda"):
                      tlas_depth=tlas_mod.stack_depth(
                          arrays["tlas_nodes"], arrays["inst_rows"], root),
                      has_instances=True)
+        extra["tlas_kernel"] = bvh2_mod.kernel_tables(
+            extra["inst_rows"], extra["tri_geo_tlas"])
     if "curve_nodes" in arrays:
         curve_nodes = t("curve_nodes")
         extra.update(

@@ -55,6 +55,8 @@ SIGNATURES = {
         # nodes_f, nodes_q, tris, prim_indices, o, d, t_max, t, prim, b1,
         # b2, n, any_hit, stream
         "bvh8_intersect_launch": [_P] * 11 + [_I] * 2 + [_P],
+        # n, then out: blocks, blocks an SM, threads a block
+        "bvh8_grid": [_I] + [_P] * 3,
     },
     "bvh8_forest": {
         # meta, pages, o, d, t_max, t, prim, b1, b2, n, n_chunks,
@@ -67,9 +69,11 @@ SIGNATURES = {
         "bvh8_binned_launch": [_P] * 12 + [_I] * 6 + [_P],
     },
     "bvh2": {
-        # nodes, insts, tris, o, d, t_max, t, prim, b1, b2, inst, n,
-        # tlas_root, two_level, any_hit, stream
-        "bvh2_intersect_launch": [_P] * 11 + [_I] * 4 + [_P],
+        # nodes, tris, o, d, t_max, t, prim, b1, b2, n, any_hit, stream
+        "bvh2_intersect_launch": [_P] * 9 + [_I] * 2 + [_P],
+        # nodes, insts, rows, o, d, t_max, t, prim, b1, b2, inst, n,
+        # tlas_root, any_hit, stream
+        "two_level_launch": [_P] * 11 + [_I] * 3 + [_P],
     },
     "curves": {
         # nodes, wide, segs, o, d, t_max, t, seg, next_ray, n, any_hit,

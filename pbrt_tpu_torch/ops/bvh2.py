@@ -31,9 +31,13 @@ kernel (csrc/bvh2.cu), one ray at a time with a 64-entry stack:
 
 `bvh2_intersect` (single level) and `two_level_intersect` are the
 wrappers: CPU tensors run the plain version; CUDA tensors launch the
-kernel, or raise.
+kernel, or raise. The two-level kernel reads two tables of its own,
+derived from these at scene build (`kernel_tables`): 64 B instance rows
+and 48 B triangle rows, the same floats as the rows they come from.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -53,6 +57,39 @@ MAX_DEPTH_TWO_LEVEL = 56
 
 counter_bvh2 = LaunchCounter()
 counter_two_level = LaunchCounter()
+INST_QUADS = 16      # floats of the kernel's instance row
+TRI_ROW = 12         # floats of the kernel's triangle row
+
+
+@dataclasses.dataclass
+class TwoLevelTables:
+    """The two-level kernel's own tables, derived from inst_rows and the
+    raw triangle rows (`kernel_tables`): insts (I, 16) float32, a row an
+    instance [w2o (12), then as int32 bits its BLAS root's node row (column
+    24) and its instance id (column 25), 0, 0]; rows (T, 12) float32, a row
+    a triangle [p0, p1 - p0, p2 - p0, id, 0, 0] (the edges rounded once, as
+    the test rounds them)."""
+    insts: torch.Tensor
+    rows: torch.Tensor
+
+
+def kernel_tables(inst_rows, tris):
+    """The two-level kernel's tables for inst_rows (I, 66) and tris (T, 10),
+    on their device."""
+    inst_rows = inst_rows.reshape(-1, INST_COLS)
+    tris = tris.reshape(-1, 10)
+    # assembled as int32, so that every float keeps its bits
+    insts = torch.zeros((inst_rows.shape[0], INST_QUADS), dtype=torch.int32,
+                        device=tris.device)
+    insts[:, :12] = inst_rows[:, :12].contiguous().view(torch.int32)
+    insts[:, 12:14] = torch.round(inst_rows[:, 24:26]).to(torch.int32)
+    rows = torch.zeros((tris.shape[0], TRI_ROW), dtype=torch.float32,
+                       device=tris.device)
+    rows[:, 0:3] = tris[:, 0:3]
+    rows[:, 3:6] = tris[:, 3:6] - tris[:, 0:3]
+    rows[:, 6:9] = tris[:, 6:9] - tris[:, 0:3]
+    rows[:, 9] = tris[:, 9]
+    return TwoLevelTables(insts=insts.view(torch.float32), rows=rows)
 
 
 def _tri_test(r, o, d):
@@ -285,16 +322,17 @@ def bvh2_intersect(nodes, tris, o, d, t_max, any_hit: bool = False, *,
     if not cuda:
         return _result(*bvh2_intersect_plain(nodes, tris, o, d, t_max,
                                              any_hit))
-    t, prim, b1, b2, _inst = _launch(counter_bvh2, nodes, None, tris, 0, o,
-                                     d, t_max, any_hit)
-    return _result(t, prim, b1, b2)
+    return _result(*_launch(nodes, tris, o, d, t_max, any_hit))
 
 
 def two_level_intersect(nodes_all, inst_rows, tris, tlas_root: int, o, d,
-                        t_max, any_hit: bool = False, *, depth: int):
+                        t_max, any_hit: bool = False, *, depth: int,
+                        kernel=None):
     """Closest (or any) hit through the TLAS over instances and their
     BLASes (static instances). depth: the stack need of the tables
-    (ops/tlas.stack_depth). Returns dict(hit, t, prim (global original
+    (ops/tlas.stack_depth); kernel: the kernel's tables derived from
+    inst_rows and tris once (kernel_tables; Scene.tlas_kernel), required
+    for tensors on the card. Returns dict(hit, t, prim (global original
     id), b0, b1, b2, inst (instance row, -1 on a miss))."""
     t_max, cuda = _prepare("two_level_intersect", o, d, t_max,
                            (nodes_all, inst_rows, tris), depth,
@@ -302,40 +340,96 @@ def two_level_intersect(nodes_all, inst_rows, tris, tlas_root: int, o, d,
     if not cuda:
         return _result(*two_level_plain(nodes_all, inst_rows, tris,
                                         tlas_root, o, d, t_max, any_hit))
-    return _result(*_launch(counter_two_level, nodes_all, inst_rows, tris,
-                            int(tlas_root), o, d, t_max, any_hit))
+    if kernel is None:
+        raise ValueError("two_level_intersect: on the card pass kernel=, the "
+                         "tables of kernel_tables(inst_rows, tris) "
+                         "(Scene.tlas_kernel)")
+    if (kernel.insts.shape[0] * INST_COLS != inst_rows.numel()
+            or kernel.rows.shape[0] * 10 != tris.numel()):
+        raise ValueError("two_level_intersect: kernel's tables are not "
+                         "those of inst_rows and tris")
+    return _result(*_launch_two_level(nodes_all, kernel, int(tlas_root), o,
+                                      d, t_max, any_hit))
 
 
-def _launch(counter, nodes, insts, tris, tlas_root, o, d, t_max, any_hit):
+def _outputs(N, device, n_out):
+    t = torch.empty((N,), dtype=torch.float32, device=device)
+    prim = torch.empty((N,), dtype=torch.int32, device=device)
+    out = (t, prim, torch.empty_like(t), torch.empty_like(t))
+    return out + ((torch.empty_like(prim),) if n_out == 5 else ())
+
+
+def _launch(nodes, tris, o, d, t_max, any_hit):
+    """The single-level kernel."""
     import ctypes
     from . import _build
-    two = insts is not None
-    for x in (nodes, tris, o, d, t_max) + ((insts,) if two else ()):
+    for x in (nodes, tris, o, d, t_max):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError("bvh2: float32 contiguous tensors only")
-    if nodes.numel() % 8 or tris.numel() % 10 or \
-            (two and insts.numel() % INST_COLS):
-        raise ValueError("bvh2: node rows of 8, triangle rows of 10 and "
-                         f"instance rows of {INST_COLS} floats")
+    if nodes.numel() % 8 or tris.numel() % 10:
+        raise ValueError("bvh2: node rows of 8 and triangle rows of 10 "
+                         "floats")
     if nodes.data_ptr() % 16:
         raise ValueError("bvh2: node rows must be 16-byte aligned")
     lib = _build.load_library("bvh2")
     N = o.shape[0]
-    t = torch.empty((N,), dtype=torch.float32, device=o.device)
-    prim = torch.empty((N,), dtype=torch.int32, device=o.device)
-    b1 = torch.empty_like(t)
-    b2 = torch.empty_like(t)
-    inst = torch.empty_like(prim) if two else None
+    t, prim, b1, b2 = _outputs(N, o.device, 4)
     if N == 0:
-        return t, prim, b1, b2, inst
+        return t, prim, b1, b2
     with torch.cuda.device(o.device):
         err = lib.bvh2_intersect_launch(
-            nodes.data_ptr(), insts.data_ptr() if two else None,
-            tris.data_ptr(), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
-            t.data_ptr(), prim.data_ptr(), b1.data_ptr(), b2.data_ptr(),
-            inst.data_ptr() if two else None, N, tlas_root, int(two),
-            int(any_hit),
+            nodes.data_ptr(), tris.data_ptr(), o.data_ptr(), d.data_ptr(),
+            t_max.data_ptr(), t.data_ptr(), prim.data_ptr(), b1.data_ptr(),
+            b2.data_ptr(), N, int(any_hit),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _build.check(err, "bvh2_intersect")
-    counter.launches += 1
-    return t, prim, b1, b2, inst
+    counter_bvh2.launches += 1
+    return t, prim, b1, b2
+
+
+def _launch_two_level(nodes, kt: TwoLevelTables, tlas_root, o, d, t_max,
+                      any_hit, out=None):
+    """The two-level kernel. out: (t, prim, b1, b2, inst) to write into (a
+    timing loop's, allocated once); allocated here when None."""
+    from . import _build
+    lib = _build.load_library("bvh2")
+    with torch.cuda.device(o.device):
+        args, out = launch_args(nodes, kt, tlas_root, o, d, t_max, any_hit,
+                                out=out)
+        if args is None:
+            return out
+        err = lib.two_level_launch(*args)
+    _build.check(err, "two_level_intersect")
+    counter_two_level.launches += 1
+    return out
+
+
+def launch_args(nodes, kt: TwoLevelTables, tlas_root, o, d, t_max, any_hit,
+                out=None):
+    """The arguments of two_level_launch on the current device's current
+    stream, and the outputs they write: (args, (t, prim, b1, b2, inst)),
+    args None when there are no rays. A timing tool calls the library with
+    them again to time the launch without the wrapper's host work."""
+    import ctypes
+    for x in (nodes, kt.insts, kt.rows, o, d, t_max):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError("two_level: float32 contiguous tensors only")
+    if nodes.numel() % 8 or kt.insts.numel() % INST_QUADS or \
+            kt.rows.numel() % TRI_ROW:
+        raise ValueError(f"two_level: node rows of 8 floats, instance rows "
+                         f"of {INST_QUADS} and triangle rows of {TRI_ROW} "
+                         "(kernel_tables)")
+    # the kernel reads every row as 16 B vectors
+    if any(x.data_ptr() % 16 for x in (nodes, kt.insts, kt.rows)):
+        raise ValueError("two_level: node, instance and triangle rows must "
+                         "be 16-byte aligned")
+    N = o.shape[0]
+    if out is None:
+        out = _outputs(N, o.device, 5)
+    if N == 0:
+        return None, out
+    stream = torch.cuda.current_stream().cuda_stream
+    return (nodes.data_ptr(), kt.insts.data_ptr(), kt.rows.data_ptr(),
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+            *(x.data_ptr() for x in out), N, int(tlas_root), int(any_hit),
+            ctypes.c_void_p(stream)), out

@@ -568,9 +568,43 @@ def bvh8_intersect(b8: BVH8, o, d, t_max, any_hit: bool = False):
                 b2=b2)
 
 
-def _launch(b8: BVH8, o, d, t_max, any_hit):
+def grid(n: int, device) -> dict:
+    """The kernel's persistent grid for n rays on `device`: blocks,
+    blocks_per_sm, threads (a block), resident_lanes (threads in flight at
+    once: blocks x threads when the rays fill the card)."""
     import ctypes
     from . import _build
+    lib = _build.load_library("bvh8")
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = lib.bvh8_grid(n, *(ctypes.byref(x) for x in out))
+    _build.check(err, "bvh8_grid")
+    blocks, per_sm, threads = (x.value for x in out)
+    return dict(blocks=blocks, blocks_per_sm=per_sm, threads=threads,
+                resident_lanes=blocks * threads)
+
+
+def _launch(b8: BVH8, o, d, t_max, any_hit, out=None):
+    """out: (t, prim, b1, b2) to write into (a timing loop's, allocated
+    once); allocated here when None."""
+    from . import _build
+    lib = _build.load_library("bvh8")
+    with torch.cuda.device(o.device):
+        args, out = launch_args(b8, o, d, t_max, any_hit, out=out)
+        if args is None:
+            return out
+        err = lib.bvh8_intersect_launch(*args)
+    _build.check(err, "bvh8_intersect")
+    counter.launches += 1
+    return out
+
+
+def launch_args(b8: BVH8, o, d, t_max, any_hit, out=None):
+    """The arguments of bvh8_intersect_launch on the current device's
+    current stream, and the outputs they write: (args, (t, prim, b1, b2)),
+    args None when there are no rays. A timing tool calls the library with
+    them again to time the launch without the wrapper's host work."""
+    import ctypes
     for x in (b8.nodes_f, b8.tris, o, d, t_max):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError("bvh8_intersect: float32 contiguous tensors "
@@ -579,21 +613,20 @@ def _launch(b8: BVH8, o, d, t_max, any_hit):
         if x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError("bvh8_intersect: int32 contiguous node words "
                              "and prim indices only")
-    lib = _build.load_library("bvh8")
+    # the kernel reads node frames and child words as 16 B vectors
+    if b8.nodes_f.data_ptr() % 16 or b8.nodes_q.data_ptr() % 16:
+        raise ValueError("bvh8_intersect: nodes_f and nodes_q must be "
+                         "16-byte aligned")
     N = o.shape[0]
-    t = torch.empty((N,), dtype=torch.float32, device=o.device)
-    prim = torch.empty((N,), dtype=torch.int32, device=o.device)
-    b1 = torch.empty_like(t)
-    b2 = torch.empty_like(t)
+    if out is None:
+        t = torch.empty((N,), dtype=torch.float32, device=o.device)
+        prim = torch.empty((N,), dtype=torch.int32, device=o.device)
+        out = (t, prim, torch.empty_like(t), torch.empty_like(t))
     if N == 0:
-        return t, prim, b1, b2
-    with torch.cuda.device(o.device):
-        err = lib.bvh8_intersect_launch(
-            b8.nodes_f.data_ptr(), b8.nodes_q.data_ptr(), b8.tris.data_ptr(),
+        return None, out
+    stream = torch.cuda.current_stream().cuda_stream
+    return (b8.nodes_f.data_ptr(), b8.nodes_q.data_ptr(), b8.tris.data_ptr(),
             b8.prim_indices.data_ptr(), o.data_ptr(), d.data_ptr(),
-            t_max.data_ptr(), t.data_ptr(), prim.data_ptr(), b1.data_ptr(),
-            b2.data_ptr(), N, int(any_hit),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, "bvh8_intersect")
-    counter.launches += 1
-    return t, prim, b1, b2
+            t_max.data_ptr(),
+            *(x.data_ptr() for x in out), N, int(any_hit),
+            ctypes.c_void_p(stream)), out

@@ -314,8 +314,29 @@ def _launch(nodes, wide, segs, o, d, t_max, any_hit, *,
             refill_idle=REFILL_IDLE, min_walkers=MIN_WALKERS, lib=None):
     """lib: a build of csrc/curves.cu other than the package's own (a
     tuning tool's)."""
-    import ctypes
     from . import _build
+    lib = lib or _build.load_library("curves")
+    with torch.cuda.device(o.device):
+        args, out, _keep = launch_args(nodes, wide, segs, o, d, t_max,
+                                       any_hit, refill_idle=refill_idle,
+                                       min_walkers=min_walkers)
+        if args is None:
+            return out
+        err = lib.curves_intersect_launch(*args)
+    _build.check(err, "curves_intersect")
+    counter.launches += 1
+    return out
+
+
+def launch_args(nodes, wide, segs, o, d, t_max, any_hit, *,
+                refill_idle=REFILL_IDLE, min_walkers=MIN_WALKERS):
+    """The arguments of curves_intersect_launch on the current device's
+    current stream, the outputs they write and the scratch they point to
+    (the ray counter, which the launch zeroes): (args, (t, seg), keep),
+    args None when there are no rays; the caller holds keep while it
+    launches with args. A timing tool calls the library with them again to
+    time the launch without the wrapper's host work."""
+    import ctypes
     for x in (nodes, segs, o, d, t_max):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError("curves: float32 contiguous tensors only")
@@ -329,22 +350,17 @@ def _launch(nodes, wide, segs, o, d, t_max, any_hit, *,
     if nodes.data_ptr() % 16 or segs.data_ptr() % 16 or wide.data_ptr() % 16:
         raise ValueError("curves: node and segment rows must be 16-byte "
                          "aligned")
-    lib = lib or _build.load_library("curves")
     N = o.shape[0]
     t = torch.empty((N,), dtype=torch.float32, device=o.device)
     seg = torch.empty((N,), dtype=torch.int32, device=o.device)
     if N == 0:
-        return t, seg
+        return None, (t, seg), None
     next_ray = torch.empty((1,), dtype=torch.int32, device=o.device)
-    with torch.cuda.device(o.device):
-        err = lib.curves_intersect_launch(
-            nodes.data_ptr(), wide.data_ptr(), segs.data_ptr(), o.data_ptr(),
+    stream = torch.cuda.current_stream().cuda_stream
+    return (nodes.data_ptr(), wide.data_ptr(), segs.data_ptr(), o.data_ptr(),
             d.data_ptr(), t_max.data_ptr(), t.data_ptr(), seg.data_ptr(),
             next_ray.data_ptr(), N, int(any_hit), refill_idle, min_walkers,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, "curves_intersect")
-    counter.launches += 1
-    return t, seg
+            ctypes.c_void_p(stream)), (t, seg), next_ray
 
 
 def intersect_curves(nodes, segs, o, d, t_max, *, depth: int, wide=None):

@@ -71,8 +71,9 @@ class Scene:
     Instanced scenes (ops/tlas.py): tlas_nodes (M, 8) the BLAS nodes then
     the TLAS from tlas_root on, inst_rows (I, 66), tri_geo_tlas (T, 10)
     the BLAS-ordered rows with the global id in column 9, tlas_depth the
-    stack the tables need; None (0, False) without instances. Scenes with
-    curves (ops/curves.py): curve_nodes (M, 8) the curve BVH, curve_segs
+    stack the tables need, tlas_kernel the two-level kernel's own tables
+    (bvh2.kernel_tables of inst_rows and tri_geo_tlas); None (0, False)
+    without instances. Scenes with curves (ops/curves.py): curve_nodes (M, 8) the curve BVH, curve_segs
     (S, 16) its sub-segment rows in leaf order, curve_mats (C,) int64 the
     material of each curve id, curve_depth the tree's depth, curve_wide
     (W, 16) int32 the curve kernel's own node table (curves.wide_nodes of
@@ -101,6 +102,7 @@ class Scene:
     tri_geo_tlas: torch.Tensor = None
     tlas_root: int = 0
     tlas_depth: int = 0
+    tlas_kernel: bvh2_mod.TwoLevelTables = None
     has_instances: bool = False
     curve_nodes: torch.Tensor = None
     curve_segs: torch.Tensor = None
@@ -468,6 +470,8 @@ class SceneBuilder:
             extra = dict(tlas_nodes=t(nodes_all), inst_rows=t(inst_rows),
                          tri_geo_tlas=t(tri_geo_tlas), tlas_root=tlas_root,
                          tlas_depth=depth, has_instances=True)
+            extra["tlas_kernel"] = bvh2_mod.kernel_tables(
+                extra["inst_rows"], extra["tri_geo_tlas"])
         elif use_bvh:
             bvh8 = bvh8_mod.build_bvh8(lo, hi, tri_geo, device=device)
         else:
@@ -531,7 +535,8 @@ def _tri_dispatch(scene: Scene, o, d, t_max, any_hit: bool):
     if scene.has_instances:
         return bvh2_mod.two_level_intersect(
             scene.tlas_nodes, scene.inst_rows, scene.tri_geo_tlas,
-            scene.tlas_root, o, d, t_max, any_hit, depth=scene.tlas_depth)
+            scene.tlas_root, o, d, t_max, any_hit, depth=scene.tlas_depth,
+            kernel=scene.tlas_kernel)
     if scene.use_bvh:
         return bvh8_mod.bvh8_intersect(scene.bvh8, o, d, t_max, any_hit)
     t, prim, b1, b2 = ti.tri_intersect(scene.tri_pallas, o, d, t_max,

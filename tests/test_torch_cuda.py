@@ -217,7 +217,8 @@ def test_bvh2_kernel_matches_plain(cuda_device, any_hit):
 @pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_two_level_kernel_matches_plain(cuda_device, any_hit):
-    """Two levels: the instances golden's tables, 2^16 seeded box rays."""
+    """Two levels: the instances golden's tables, 2^16 seeded box rays;
+    on the card the wrapper raises without the scene's kernel tables."""
     from pathlib import Path
     from pbrt_tpu_torch.ops import bvh2
     root = Path(__file__).resolve().parent.parent
@@ -227,9 +228,12 @@ def test_two_level_kernel_matches_plain(cuda_device, any_hit):
     t_max = torch.full((1 << 16,), 30.0 if any_hit else 1e30,
                        device=cuda_device)
     tables = (s.tlas_nodes, s.inst_rows, s.tri_geo_tlas, s.tlas_root)
+    with pytest.raises(ValueError, match="kernel"):
+        bvh2.two_level_intersect(*tables, o, d, t_max, any_hit,
+                                 depth=s.tlas_depth)
     before = bvh2.counter_two_level.launches
     got = bvh2.two_level_intersect(*tables, o, d, t_max, any_hit,
-                                   depth=s.tlas_depth)
+                                   depth=s.tlas_depth, kernel=s.tlas_kernel)
     torch.cuda.synchronize()
     assert bvh2.counter_two_level.launches == before + 1
     want = dict(zip(("t", "prim", "b1", "b2", "inst"), bvh2.two_level_plain(
@@ -324,6 +328,154 @@ def test_curve_kernel_matches_plain_on_a_wave_s_rays(cuda_device):
     # the bounce rays do hit the fur
     assert (kernel(s.curve_nodes, s.curve_segs, *closest[1][:3],
                    depth=s.curve_depth)[1] >= 0).float().mean().item() > 0.01
+
+
+def _wave_queries(module, name, desc, depth, device, n_pix=64 * 64):
+    """The queries one wave of desc's scene (its first n_pix pixels, one
+    sample each) hands module.name, as (o, d, t_max (N,), any_hit): the
+    scene passes o, d, t_max and any_hit as the wrapper's last four
+    positional arguments."""
+    from pbrt_tpu_torch.integrators import path as path_mod
+    queries = []
+    kernel = getattr(module, name)
+
+    def recording(*a, **k):
+        o, d, t_max, any_hit = a[-4:]
+        t_max = torch.as_tensor(t_max, dtype=torch.float32, device=device)
+        queries.append((o, d, t_max.expand(o.shape[0]).contiguous(),
+                        bool(any_hit)))
+        return kernel(*a, **k)
+    setattr(module, name, recording)
+    try:
+        pix = torch.arange(n_pix, device=device)
+        path_mod.render_wave(desc.scene, desc.camera, desc.sampler,
+                             flt.make_filter("gaussian"), pix,
+                             torch.zeros_like(pix),
+                             path_mod.PathOptions(max_depth=depth))
+    finally:
+        setattr(module, name, kernel)
+    return queries
+
+
+def _bit_equal(got, want, any_hit, names):
+    """The hit flag; at closest hit every output bit for bit."""
+    assert torch.equal(got[1] >= 0, want[1] >= 0)
+    if not any_hit:
+        for g, w, name in zip(got, want, names):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_bvh8_kernel_bit_equal_on_a_wave_s_queries(cuda_device):
+    """The BVH8 queries of one meshfield wave (64x64 lanes, depth 4): the
+    camera rays, each bounce and each shadow query, t, prim, b1 and b2
+    bit-equal to the plain version (the hit flag at any hit)."""
+    desc = parser.parse_file(Path(__file__).resolve().parent.parent
+                             / "scenes" / "meshfield.pbrt",
+                             device=cuda_device)
+    b8 = desc.scene.bvh8
+    queries = _wave_queries(bvh8, "bvh8_intersect", desc, 4, cuda_device)
+    assert sum(not q[3] for q in queries) >= 3 and \
+        any(q[3] for q in queries)
+    for o, d, t_max, any_hit in queries:
+        got = bvh8._launch(b8, o, d, t_max, any_hit)
+        want = bvh8.bvh8_intersect_plain(b8, o, d, t_max, any_hit)
+        _bit_equal(got, want, any_hit, ("t", "prim", "b1", "b2"))
+
+
+@pytest.mark.cuda
+def test_two_level_kernel_bit_equal_on_a_wave_s_queries(cuda_device):
+    """The two-level queries of one instances wave (64x64 lanes, depth 3):
+    t, prim, b1, b2 and inst bit-equal to the plain version (the hit flag
+    at any hit)."""
+    from pbrt_tpu_torch.ops import bvh2
+    desc = parser.parse_file(Path(__file__).resolve().parent.parent
+                             / "scenes" / "instances.pbrt",
+                             device=cuda_device)
+    s = desc.scene
+    tables = (s.tlas_nodes, s.inst_rows, s.tri_geo_tlas, s.tlas_root)
+    queries = _wave_queries(bvh2, "two_level_intersect", desc, 3,
+                            cuda_device)
+    assert sum(not q[3] for q in queries) >= 3 and \
+        any(q[3] for q in queries)
+    for o, d, t_max, any_hit in queries:
+        got = bvh2._launch_two_level(s.tlas_nodes, s.tlas_kernel,
+                                     s.tlas_root, o, d, t_max, any_hit)
+        want = bvh2.two_level_plain(*tables, o, d, t_max, any_hit)
+        _bit_equal(got, want, any_hit, ("t", "prim", "b1", "b2", "inst"))
+
+
+def _persistent_sizes(size, resident):
+    if size.startswith("resident"):
+        return resident + (1 if size.endswith("+1") else -1)
+    return int(size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("size", ["1", "31", "33", "resident-1",
+                                  "resident+1", "160000"])
+def test_bvh8_kernel_writes_every_ray_once(cuda_device, size, any_hit):
+    """The persistent grid: with every output filled with NaN (prim with
+    -7) first, every ray is written, bit-equal to the plain version, at
+    sizes around a warp's chunk and around the threads the card holds at
+    once; every fifth ray is dead (t_max -1), as a wave's finished
+    paths."""
+    desc = parser.parse_file(Path(__file__).resolve().parent.parent
+                             / "scenes" / "meshfield.pbrt",
+                             device=cuda_device)
+    b8 = desc.scene.bvh8
+    n = _persistent_sizes(size, bvh8.grid(1 << 20, cuda_device)
+                          ["resident_lanes"])
+    tri = desc.scene.tri_all[:, :9].reshape(-1, 3)
+    o, d = _box_rays(tri.amin(0).cpu().numpy() - 1,
+                     tri.amax(0).cpu().numpy() + 1, n, 19, cuda_device)
+    t_max = torch.full((n,), 30.0 if any_hit else 1e30, device=cuda_device)
+    t_max[::5] = -1.0
+    out = tuple(torch.full((n,), v, dtype=dt, device=cuda_device)
+                for v, dt in ((float("nan"), torch.float32),
+                              (-7, torch.int32),
+                              (float("nan"), torch.float32),
+                              (float("nan"), torch.float32)))
+    before = bvh8.counter.launches
+    got = bvh8._launch(b8, o, d, t_max, any_hit, out=out)
+    torch.cuda.synchronize()
+    assert bvh8.counter.launches == before + 1 and got[0] is out[0]
+    assert not any(bool(torch.isnan(x).any()) for x in out[::2])
+    assert not bool((out[1] == -7).any())
+    want = bvh8.bvh8_intersect_plain(b8, o, d, t_max, any_hit)
+    _bit_equal(got, want, any_hit, ("t", "prim", "b1", "b2"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 160000])
+def test_two_level_kernel_writes_every_ray_once(cuda_device, n, any_hit):
+    """test_bvh8_kernel_writes_every_ray_once for the two-level kernel (a
+    thread a ray, 128 a block) on the instances golden's tables (inst
+    filled with -7 too), at sizes around a warp and a block."""
+    from pbrt_tpu_torch.ops import bvh2
+    s = parser.parse_file(Path(__file__).resolve().parent.parent
+                          / "scenes" / "instances.pbrt",
+                          device=cuda_device).scene
+    box = s.tlas_nodes[s.tlas_root, :6].cpu().numpy()
+    o, d = _box_rays(box[:3] - 1, box[3:] + 1, n, 20, cuda_device)
+    t_max = torch.full((n,), 3.0 if any_hit else 1e30, device=cuda_device)
+    t_max[::5] = -1.0
+    nan, neg = (float("nan"), torch.float32), (-7, torch.int32)
+    out = tuple(torch.full((n,), v, dtype=dt, device=cuda_device)
+                for v, dt in (nan, neg, nan, nan, neg))
+    before = bvh2.counter_two_level.launches
+    got = bvh2._launch_two_level(s.tlas_nodes, s.tlas_kernel, s.tlas_root, o,
+                                 d, t_max, any_hit, out=out)
+    torch.cuda.synchronize()
+    assert bvh2.counter_two_level.launches == before + 1 and got[0] is out[0]
+    assert not any(bool(torch.isnan(x).any()) for x in (out[0], out[2],
+                                                        out[3]))
+    assert not bool((out[1] == -7).any() or (out[4] == -7).any())
+    want = bvh2.two_level_plain(s.tlas_nodes, s.inst_rows, s.tri_geo_tlas,
+                                s.tlas_root, o, d, t_max, any_hit)
+    _bit_equal(got, want, any_hit, ("t", "prim", "b1", "b2", "inst"))
 
 
 @pytest.mark.cuda

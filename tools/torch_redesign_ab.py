@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """Old against new: the triangle kernel, the megakernels that share its
-scan, and the curve kernel, each timed in turns against the same kernel of
-an earlier checkout, in one process on one card.
+scan, the curve kernel, the BVH8 kernel and the two-level kernel, each
+timed in turns against the same kernel of an earlier checkout, in one
+process on one card.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
     python3 tools/torch_redesign_ab.py --parent DIR [--reps 10] [--only ...]
 DIR holds a checkout of the commit to compare with (for instance
-`git archive <commit> | tar -x -C DIR`); its csrc/tri_intersect.cu,
-megawave.cu and curves.cu are compiled with this tree's flags into
-pbrt_tpu_torch/_build/ as ab_*.so. (pbrt_tpu_torch only; no jax.)
+`git archive <commit> | tar -x -C DIR`); the sources of the chosen
+sections (SECTION_SOURCES) are compiled from it with this tree's flags into
+pbrt_tpu_torch/_build/ as ab_*.so, with the entry points of
+PARENT_SIGNATURES (tri: the tiled kernel's, mega: the one before its
+persistent grid, curves: the one before its wide node table). The bvh8 and
+two_level sections import DIR's pbrt_tpu_torch itself as `ab_parent`
+(parent_package) and run its wrappers, which build its libraries into
+DIR's own _build/. (pbrt_tpu_torch only; no jax.)
 
 Every time is the median of --reps rounds with the range beside it; a
 round times each variant once, in the order old, new, new, old (CUDA events
-around --inner launches), so drift hits both alike. --reps 0 times nothing:
-it builds, prints the ptxas reports and checks every variant against the
-parent. Sections (--only):
+around --inner launches), so drift hits both alike. A variant timed
+"queued" (the bvh8 and two_level sections' "... dev", kernel 7)
+has its launches enqueued behind a spin kernel, so that the card runs them
+back to back: the device's time a launch, whatever the host takes to make
+it. --reps 0 times nothing: it builds, prints the ptxas reports and checks
+every variant against the parent. Sections (--only):
   tri      the triangle kernel at 32 (cornell), 1,280 (a subdivision-3
            icosphere) and 4,096 (a seeded soup) triangles x 160,000 rays,
            closest and any hit: through the wrapper and as the bare launch
@@ -35,7 +44,25 @@ parent. Sections (--only):
            package builds it, without refill (32 idle lanes), and built
            with other tuning knobs (--curve-builds, each
            THREADS,MIN_BLOCKS[,REFILL_IDLE[,MIN_WALKERS]]: csrc/curves.cu's
-           CURVES_* macros and the wrapper's two thresholds).
+           CURVES_* macros and the wrapper's two thresholds);
+  bvh8     the BVH8 kernel on meshfield: 2^20 box rays (chip_smoke phase
+           7's), closest and any hit, 160,000 dead rays (t_max -1, a
+           wave's finished paths: the launch's own cost) and every query of
+           one meshfield wave (camera rays, each bounce, each shadow
+           query), the parent kernel against this tree's, through the
+           wrappers, as the bare launches (outputs allocated once) and as
+           the bare launches queued, each held to the parent's result with
+           torch.equal and to the plain version bit for bit, with the bound
+           of traversal_bound from the plain version's count; the binned page
+           kernel (kernel 6, unchanged) on meshfield's chunked pages, old
+           against new; the meshfield render in paths/s on the parent's
+           kernel and on this tree's;
+  two_level the two-level kernel as bvh8 does the BVH8 kernel: 2^20 box
+           rays and 160,000 dead rays on chip_smoke phase 13's 64-instance
+           grid and on the instances golden's tables, and every query of
+           one instances wave; the single-level kernel (kernel 7,
+           unchanged) on meshfield's binary BVH, queued; the instances
+           render in paths/s.
 The last line is one JSON object with these numbers.
 """
 import argparse
@@ -46,6 +73,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
@@ -54,31 +83,41 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the parent's entry points (the triangle kernel's is this tree's too; the
 # megakernel's is the one before its persistent grid)
 PARENT_SIGNATURES = {
-    "tri_intersect": ("tri_intersect_launch", [_P] * 8 + [_I] * 4 + [_P]),
-    "megawave": ("megawave_launch", [_P] * 14 + [_I] * 11 + [_F] * 9 + [_P]),
-    "curves": ("curves_intersect_launch", [_P] * 7 + [_I] * 2 + [_P]),
+    "tri_intersect": {
+        "tri_intersect_launch": [_P] * 8 + [_I] * 4 + [_P]},
+    "megawave": {
+        "megawave_launch": [_P] * 14 + [_I] * 11 + [_F] * 9 + [_P]},
+    "curves": {"curves_intersect_launch": [_P] * 7 + [_I] * 2 + [_P]},
 }
+# this tree's sources of each section; the parent's are built from them
+# too, except for bvh8 and two_level, whose parent kernels the parent's own
+# package builds and launches (parent_package)
+SECTION_SOURCES = {"tri": ("tri_intersect",), "mega": ("megawave",),
+                   "curves": ("curves",), "bvh8": ("bvh8", "bvh8_binned"),
+                   "two_level": ("bvh2",)}
+PARENT_PACKAGE = ("bvh8", "two_level")
 
 
-def build_extra(parent: Path, curve_builds) -> dict:
-    """Compile the parent's three sources and this tree's curves.cu once
-    for each (threads, min blocks) of curve_builds, one nvcc each,
-    all at once. Returns {"parent": {name: lib}, "curves": {knobs: lib}}."""
+def build_extra(parent: Path, sections, curve_builds) -> dict:
+    """Compile the parent's sources of `sections` and this tree's curves.cu
+    once for each (threads, min blocks) of curve_builds, one nvcc each, all
+    at once. Returns {"parent": {source: lib}, "curves": {knobs: lib}}."""
     from pbrt_tpu_torch.ops import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {("parent", name): (
-        parent / "pbrt_tpu_torch" / "csrc" / f"{name}.cu", [], sig)
-        for name, sig in PARENT_SIGNATURES.items()}
+        parent / "pbrt_tpu_torch" / "csrc" / f"{name}.cu", [],
+        PARENT_SIGNATURES[name])
+        for sec in sections if sec not in PARENT_PACKAGE
+        for name in SECTION_SOURCES[sec]}
     for knobs in curve_builds:
         t, b = knobs
         jobs["curves", knobs] = (
             _build.CSRC / "curves.cu",
             [f"-DCURVES_THREADS={t}", f"-DCURVES_MIN_BLOCKS={b}"],
-            ("curves_intersect_launch",
-             _build.SIGNATURES["curves"]["curves_intersect_launch"]))
+            _build.SIGNATURES["curves"])
     procs = {}
     for key, (src, flags, _sig) in jobs.items():
-        tag = key[1] if key[0] == "parent" else "_".join(map(str, key[1]))
+        tag = key[1] if key[0] != "curves" else "_".join(map(str, key[1]))
         out = _build.BUILD_DIR / f"ab_{key[0]}_{tag}.so"
         procs[key] = (out, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(out),
@@ -91,9 +130,9 @@ def build_extra(parent: Path, curve_builds) -> dict:
             raise RuntimeError(f"{key}: nvcc failed:\n{log}")
         print(f"{key[0]} {key[1]}: {ptxas_lines(log)}", flush=True)
         lib = ctypes.CDLL(str(out))
-        fn_name, argtypes = jobs[key][2]
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        for fn_name, argtypes in jobs[key][2].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[key[0]][key[1]] = lib
     return libs
 
@@ -123,9 +162,18 @@ class use_library:
         _build.load_library = self._load
 
 
-def alternate(variants: dict, reps: int, inner: int) -> dict:
+# cycles of the spin kernel a queued timing puts ahead of each of its
+# launches (~0.11 ms at the H100's 1.755 GHz): the host enqueues every
+# timed launch while it spins
+QUEUE_SPIN = 200_000
+
+
+def alternate(variants: dict, reps: int, inner: int, queued=()) -> dict:
     """{name: dict(ms=median, lo, hi)} of the callables in `variants`, each
-    timed once a round in the order first .. last, last .. first."""
+    timed once a round in the order first .. last, last .. first. The
+    variants named in `queued` are timed behind a spin kernel, so that the
+    card runs their launches back to back: the device's time a launch,
+    whatever the host's."""
     import torch
     names = list(variants)
     order = names + names[::-1]
@@ -140,6 +188,8 @@ def alternate(variants: dict, reps: int, inner: int) -> dict:
         for k in order:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            if k in queued:
+                torch.cuda._sleep(QUEUE_SPIN * inner)
             a.record()
             for _i in range(inner):
                 variants[k]()
@@ -392,13 +442,322 @@ def section_curves(args, dev, parent, builds):
     return out
 
 
+def parent_package(parent: Path):
+    """The parent checkout's pbrt_tpu_torch, imported as `ab_parent`: its
+    wrappers build and launch its own libraries (into its own _build/)."""
+    import importlib.util
+    if "ab_parent" in sys.modules:
+        return sys.modules["ab_parent"]
+    root = parent / "pbrt_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "ab_parent", root / "__init__.py",
+        submodule_search_locations=[str(root)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["ab_parent"] = pkg
+    spec.loader.exec_module(pkg)
+    return pkg
+
+
+def parent_module(parent: Path, name: str):
+    import importlib
+    parent_package(parent)
+    return importlib.import_module(f"ab_parent.{name}")
+
+
+def _stream():
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _equal(a, b, any_hit):
+    """The hit flag always; t, prim, b1, b2 (and inst) at closest hit."""
+    import torch
+    if not torch.equal(a[1] >= 0, b[1] >= 0):
+        return False
+    return any_hit or all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _bvh_sets(cs, module, fn_name, any_hit_arg, desc, depth, dev, boxes):
+    """{label: (o, d, t_max (N,), any_hit)}: each of boxes' 2^20 ray sets,
+    closest hit (t_max 1e30) and any hit (t_max 30), and every query of
+    one wave of desc's scene (none when desc is None) as render hands them
+    to module.fn_name (o, d, t_max the three arguments before any_hit)."""
+    import torch
+    closest, shadow = [], []
+    if desc is not None:
+        closest, shadow, _lanes = cs.wave_queries(
+            module, fn_name, any_hit_arg, desc, depth, dev)
+    n = 1 << 20
+    sets = {}
+    for label, (o, d) in boxes.items():
+        for any_hit, t in ((False, 1e30), (True, 30.0)):
+            sets[f"{label} 2^20 {'any' if any_hit else 'closest'}"] = (
+                o, d, torch.full((n,), t, device=dev), any_hit)
+    # every ray dead (t_max -1), as a wave's finished paths: the launch's
+    # own cost
+    o, d = next(iter(boxes.values()))
+    m = 160_000
+    sets["dead 160000"] = (o[:m].contiguous(), d[:m].contiguous(),
+                           torch.full((m,), -1.0, device=dev), False)
+    names = ["wave camera"] + [f"wave bounce {i}"
+                               for i in range(1, len(closest))]
+    names += [f"wave shadow {i}" for i in range(1, len(shadow) + 1)]
+    for name, (a, _k) in zip(names, closest + shadow):
+        o, d, t_max = a[any_hit_arg - 3:any_hit_arg]
+        t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
+        sets[name] = (o.contiguous(), d.contiguous(),
+                      t_max.expand(o.shape[0]).contiguous(), a[any_hit_arg])
+    return sets
+
+
+def _time_sets(args, label, sets, k):
+    """Each ray set: every variant's result against the parent's
+    (torch.equal) and the plain version's (bit for bit), then the variants
+    timed in turns: the wrappers, the bare launches, and the bare launches
+    queued ("... dev"). k: dict(old, new (the wrappers: fn(o, d, t_max,
+    any_hit) -> outputs), old_args, new_args (fn(o, d, t_max, any_hit, out)
+    -> the launch's prepared arguments), old_lib, new_lib (the entry
+    points), plain (fn(o, d, t_max, any_hit) -> (outputs, work)), bound
+    (fn(work, n) -> (ms, by)))."""
+    from pbrt_tpu_torch.ops import _build
+    out = {}
+    for name, (o, d, tv, any_hit) in sets.items():
+        ref = k["old"](o, d, tv, any_hit)
+        new = k["new"](o, d, tv, any_hit)
+        got, work = k["plain"](o, d, tv, any_hit)
+        if not (_equal(ref, new, any_hit) and _equal(got, new, any_hit)):
+            raise RuntimeError(f"{label} {name}: differs from the parent "
+                               "kernel or the plain version")
+        old_args = k["old_args"](o, d, tv, any_hit, ref)
+        new_args = k["new_args"](o, d, tv, any_hit, new)
+        bare = {"old bare": lambda: _build.check(k["old_lib"](*old_args),
+                                                 "old"),
+                "new bare": lambda: _build.check(k["new_lib"](*new_args),
+                                                 "new")}
+        # the same launches queued behind a spin: the device's time alone
+        bare["old dev"], bare["new dev"] = bare["old bare"], bare["new bare"]
+        b_ms, b_by = k["bound"](work, o.shape[0])
+        hit = (ref[1] >= 0).float().mean().item()
+        timed = {"old": lambda: k["old"](o, d, tv, any_hit),
+                 "new": lambda: k["new"](o, d, tv, any_hit), **bare}
+        res = show(f"{label}, {name}, {o.shape[0]} rays, hit share "
+                   f"{hit:.4f}, bound {b_ms:.5f} ms by {b_by}, every variant "
+                   "equal to the parent's result and to the plain version",
+                   alternate(timed, args.reps, args.inner,
+                             queued={"old dev", "new dev"}))
+        out[name] = dict(rays=o.shape[0], hit_share=hit, work=work,
+                         bound_ms=b_ms, bound_by=b_by, **res)
+    return out
+
+
+def _render_pair(args, dev, label, desc, depth, module, fn_name, parent_fn):
+    """desc's render in paths/s on the parent's kernel (module.fn_name
+    replaced by parent_fn) and on this tree's: parent, this, this, parent
+    a round, --render-reps rounds."""
+    import statistics
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    own = getattr(module, fn_name)
+
+    def go(fn):
+        setattr(module, fn_name, fn)
+        try:
+            _img, st = render.render(desc.scene, desc.camera,
+                                     sampler=desc.sampler, device=dev,
+                                     opts=path_mod.PathOptions(
+                                         max_depth=depth))
+        finally:
+            setattr(module, fn_name, own)
+        return st["paths_per_sec"]
+    go(parent_fn)
+    go(own)
+    rates = {"parent": [], "this tree": []}
+    for _ in range(args.render_reps):
+        for who in ("parent", "this tree", "this tree", "parent"):
+            rates[who].append(go(parent_fn if who == "parent" else own))
+    res = {k: dict(median=statistics.median(v), lo=min(v), hi=max(v))
+           for k, v in rates.items()}
+    print(f"{label} render, paths/s (no gain is claimed): " + "; ".join(
+        f"{k} {v['median']:.6g} ({v['lo']:.6g}-{v['hi']:.6g})"
+        for k, v in res.items()), flush=True)
+    return res
+
+
+def section_bvh8(args, dev):
+    import torch
+    import chip_smoke as cs
+    from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.ops import bvh as bvh_mod
+    from pbrt_tpu_torch.ops import bvh8
+    from pbrt_tpu_torch.ops import bvh8_pages as bp
+    from pbrt_tpu_torch.scene import parser
+    pb8 = parent_module(args.parent, "ops.bvh8")
+    pbp = parent_module(args.parent, "ops.bvh8_pages")
+    old_lib = parent_module(args.parent, "ops._build").load_library("bvh8")
+    desc = parser.parse_file(cs.MESH_SCENE, device=dev)
+    b8 = desc.scene.bvh8
+    sets = _bvh_sets(cs, bvh8, "bvh8_intersect", 4, desc, 4, dev,
+                     {"box": cs.box_rays(desc.scene, 1 << 20, dev)})
+
+    def wrapper(fn):
+        def run(o, d, tv, any_hit):
+            r = fn(b8, o, d, tv, any_hit)
+            return r["t"], r["prim"], r["b1"], r["b2"]
+        return run
+
+    def old_args(o, d, tv, any_hit, out):
+        # the parent's entry: nodes_f, nodes_q, tris, prim_indices, o, d,
+        # t_max, t, prim, b1, b2, n, any_hit, stream
+        return (b8.nodes_f.data_ptr(), b8.nodes_q.data_ptr(),
+                b8.tris.data_ptr(), b8.prim_indices.data_ptr(), o.data_ptr(),
+                d.data_ptr(), tv.data_ptr(), *(x.data_ptr() for x in out),
+                o.shape[0], int(any_hit), _stream())
+
+    def plain(o, d, tv, any_hit):
+        return bvh8.bvh8_intersect_plain(b8, o, d, tv, any_hit), \
+            bvh8.counter.work
+    tables = (b8.nodes_f, b8.nodes_q, b8.tris, b8.prim_indices)
+    out = _time_sets(args, "bvh8", sets, dict(
+        old=wrapper(pb8.bvh8_intersect), new=wrapper(bvh8.bvh8_intersect),
+        old_args=old_args,
+        new_args=lambda o, d, tv, any_hit, res: bvh8.launch_args(
+            b8, o, d, tv, any_hit, out=res)[0],
+        old_lib=old_lib.bvh8_intersect_launch,
+        new_lib=_build.load_library("bvh8").bvh8_intersect_launch,
+        plain=plain,
+        bound=lambda work, n: cs.traversal_bound(
+            work, n, 16, tables, tri_ops=cs.TRI_OPS,
+            visit_ops=8 * cs.BVH8_CHILD_OPS)))
+    print(f"bvh8: grid at 2^20 rays {bvh8.grid(1 << 20, dev)}", flush=True)
+    # kernel 6, unchanged: the binned query on meshfield's chunked pages,
+    # the parent's whole query against this tree's
+    tri = desc.scene.tri_all[:, :9].cpu().numpy()
+    p = (tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
+    lo = np.minimum(np.minimum(p[0], p[1]), p[2])
+    hi = np.maximum(np.maximum(p[0], p[1]), p[2])
+    chunked = bvh8.build_bvh8_chunked(lo, hi, bvh_mod.pack_tri_geo(*p),
+                                      device=dev)
+    o, d = sets["box 2^20 closest"][:2]
+    k6 = {}
+    keys = ("t", "prim", "b1", "b2")
+    for any_hit, t in ((False, 1e30), (True, 30.0)):
+        tv = torch.full((o.shape[0],), t, device=dev)
+        ref = pbp.binned_intersect(chunked, o, d, tv, any_hit)
+        got = bp.binned_intersect(chunked, o, d, tv, any_hit)
+        if not _equal([ref[k] for k in keys], [got[k] for k in keys],
+                      any_hit):
+            raise RuntimeError("bvh8_binned differs from the parent kernel")
+        k6[f"box 2^20 {'any' if any_hit else 'closest'}"] = show(
+            f"bvh8_binned (kernel 6, the whole binned query), meshfield's "
+            f"{chunked.n_chunks} pages, 2^20 box rays, any_hit={any_hit}, "
+            "equal to the parent's result",
+            alternate({"old": lambda tv=tv, any_hit=any_hit:
+                       pbp.binned_intersect(chunked, o, d, tv, any_hit),
+                       "new": lambda tv=tv, any_hit=any_hit:
+                       bp.binned_intersect(chunked, o, d, tv, any_hit)},
+                      args.reps, 1))
+    out["kernel 6"] = k6
+    out["render"] = _render_pair(args, dev, "meshfield 200x200x32, depth 4",
+                                 desc, 4, bvh8, "bvh8_intersect",
+                                 pb8.bvh8_intersect)
+    return out
+
+
+def section_two_level(args, dev):
+    import torch
+    import chip_smoke as cs
+    from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.ops import bvh as bvh_mod
+    from pbrt_tpu_torch.ops import bvh2
+    from pbrt_tpu_torch.scene import parser
+    pb2 = parent_module(args.parent, "ops.bvh2")
+    old_lib = parent_module(args.parent, "ops._build").load_library("bvh2")
+    mesh = parser.parse_file(cs.MESH_SCENE, device=dev).scene
+    scenes = {"grid64": cs.instanced_meshfield(mesh, dev),
+              "golden": parser.parse_file(cs.INST_SCENE, device=dev).scene}
+    desc = parser.parse_file(cs.INST_SCENE, device=dev)
+    new_lib = _build.load_library("bvh2")
+    out = {}
+    names = ("t", "prim", "b1", "b2", "inst")
+    for key, s in scenes.items():
+        boxes = {key: cs.tlas_box_rays(s, 1 << 20, dev, seed=13)}
+        sets = _bvh_sets(cs, bvh2, "two_level_intersect", 7,
+                         desc if key == "golden" else None, 3, dev, boxes)
+        tables = (s.tlas_nodes, s.inst_rows, s.tri_geo_tlas, s.tlas_root)
+
+        def wrapper(fn, s=s, tables=tables, **kw):
+            def run(o, d, tv, any_hit):
+                r = fn(*tables, o, d, tv, any_hit, depth=s.tlas_depth, **kw)
+                return tuple(r[k] for k in names)
+            return run
+
+        def old_args(o, d, tv, any_hit, out_, s=s):
+            # the parent's entry: nodes, insts, tris, o, d, t_max, t, prim,
+            # b1, b2, inst, n, tlas_root, two_level, any_hit, stream
+            return (s.tlas_nodes.data_ptr(), s.inst_rows.data_ptr(),
+                    s.tri_geo_tlas.data_ptr(), o.data_ptr(), d.data_ptr(),
+                    tv.data_ptr(), *(x.data_ptr() for x in out_),
+                    o.shape[0], s.tlas_root, 1, int(any_hit), _stream())
+
+        def plain(o, d, tv, any_hit, tables=tables):
+            return bvh2.two_level_plain(*tables, o, d, tv, any_hit), \
+                bvh2.counter_two_level.work
+        kt = s.tlas_kernel
+        ktab = cs.two_level_bound_tables(s)
+        out[key] = _time_sets(args, f"two_level {key}", sets, dict(
+            old=wrapper(pb2.two_level_intersect),
+            new=wrapper(bvh2.two_level_intersect, kernel=kt),
+            old_args=old_args,
+            new_args=lambda o, d, tv, any_hit, res, s=s: bvh2.launch_args(
+                s.tlas_nodes, s.tlas_kernel, s.tlas_root, o, d, tv, any_hit,
+                out=res)[0],
+            old_lib=old_lib.bvh2_intersect_launch,
+            new_lib=new_lib.two_level_launch,
+            plain=plain,
+            bound=lambda work, n, ktab=ktab: cs.traversal_bound(
+                work, n, 20, ktab, tri_ops=cs.TRI_OPS_EDGES)))
+    # kernel 7, unchanged: meshfield's binary BVH, chip_smoke phase 12's
+    tri = mesh.tri_all[:, :9].cpu().numpy()
+    p = (tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
+    b = bvh_mod.build_bvh(np.minimum(np.minimum(*p[:2]), p[2]),
+                          np.maximum(np.maximum(*p[:2]), p[2]))
+    nodes = torch.as_tensor(b.nodes, device=dev)
+    rows = torch.as_tensor(bvh_mod.pack_tri_geo(*p, order=b.prim_indices),
+                           device=dev)
+    depth = bvh_mod.bvh_max_depth(b.nodes)
+    o, d = cs.box_rays(mesh, 1 << 20, dev)
+    k7 = {}
+    for any_hit, t in ((False, 1e30), (True, 30.0)):
+        tv = torch.full((o.shape[0],), t, device=dev)
+        runs = {who: (lambda fn=fn, tv=tv, any_hit=any_hit: tuple(
+            fn(nodes, rows, o, d, tv, any_hit, depth=depth)[k]
+            for k in names[:4]))
+            for who, fn in (("old", pb2.bvh2_intersect),
+                            ("new", bvh2.bvh2_intersect))}
+        if not _equal(runs["old"](), runs["new"](), any_hit):
+            raise RuntimeError("bvh2 (single level) differs from the parent")
+        k7[f"box 2^20 {'any' if any_hit else 'closest'}"] = show(
+            f"bvh2 (kernel 7, single level), meshfield's binary BVH, 2^20 "
+            f"box rays, any_hit={any_hit}, the wrappers' device time "
+            "(queued), equal to the parent's result",
+            alternate(runs, args.reps, args.inner, queued=set(runs)))
+    out["kernel 7"] = k7
+    out["render"] = _render_pair(
+        args, dev, "instances 200x200x32, depth 3", desc, 3, bvh2,
+        "two_level_intersect",
+        lambda *a, depth, kernel=None: pb2.two_level_intersect(
+            *a, depth=depth))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--inner", type=int, default=5)
-    ap.add_argument("--only", nargs="*", default=["tri", "mega", "curves"],
-                    choices=["tri", "mega", "curves"])
+    ap.add_argument("--render-reps", type=int, default=3)
+    ap.add_argument("--only", nargs="*", default=list(SECTION_SOURCES),
+                    choices=list(SECTION_SOURCES))
     ap.add_argument("--curve-builds", nargs="*", default=[],
                     help="THREADS,MIN_BLOCKS[,REFILL_IDLE[,MIN_WALKERS]] "
                     "each")
@@ -419,10 +778,17 @@ def main():
                           timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     from pbrt_tpu_torch.ops import _build
-    for name, (_path, log) in _build.build(list(PARENT_SIGNATURES)).items():
+    own = sorted({n for sec in args.only for n in SECTION_SOURCES[sec]})
+    for name, (_path, log) in _build.build(own).items():
         print(f"this tree {name}: {ptxas_lines(log)}", flush=True)
-    libs = build_extra(args.parent, sorted({b[0] for b in
-                                            args.curve_builds}))
+    libs = build_extra(args.parent, args.only,
+                       sorted({b[0] for b in args.curve_builds}))
+    own = sorted({n for sec in args.only if sec in PARENT_PACKAGE
+                  for n in SECTION_SOURCES[sec]})
+    if own:
+        built = parent_module(args.parent, "ops._build").build(own)
+        for name, (_path, log) in built.items():
+            print(f"parent {name}: {ptxas_lines(log)}", flush=True)
     dev = torch.device("cuda", 0)
     out = dict(card=card, reps=args.reps, inner=args.inner)
     if "tri" in args.only:
@@ -432,6 +798,10 @@ def main():
     if "curves" in args.only:
         out["curves"] = section_curves(args, dev, libs["parent"],
                                        libs["curves"])
+    if "bvh8" in args.only:
+        out["bvh8"] = section_bvh8(args, dev)
+    if "two_level" in args.only:
+        out["two_level"] = section_two_level(args, dev)
     print(json.dumps(out))
     return 0
 
