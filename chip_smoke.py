@@ -153,7 +153,22 @@ Phases, each of which raises on failure (exit code 1):
      two-level kernels on every query bit-equal to their plain versions
      (the hit flag at any hit), each query's bound from the plain
      version's count of its work (traversal_bound); the curve kernel on the hair wave's camera rays,
-     first bounce and first shadow query bit-equal to its plain version.
+     first bounce and first shadow query bit-equal to its plain version;
+ 35. the envlit path through the user entry points (parse_file -> render):
+     scenes/envlit.pbrt (an image infinite light from scenes/sky.exr, a
+     rough gold conductor, a smooth dielectric; 1,538 triangles, under the
+     BVH crossover, so every closest and shadow query goes through the
+     triangle kernel, six 256-row tiles), 200x200, 64 spp, max depth 5,
+     the general wave (the megakernel refuses the scene), launch counts
+     read around it, the image gated against goldens/envlit_200_64spp.exr
+     and written to pbrt_tpu_torch/_build/, paths/s with set-up apart;
+ 36. the triangle kernel on the queries of one envlit wave (160,000
+     lanes): the camera rays, each bounce and each shadow query recorded,
+     each launch bit-equal to its plain version (run in chunks of rays:
+     it makes rays x triangles tensors), each bare launch timed queued,
+     each query's bound (its bytes, or the triangle tests its rays need:
+     every live ray against every triangle at closest hit, up to the first
+     group with a hit at any hit).
 A bare launch (the launch alone, its arguments prepared once) is timed
 queued: its launches are enqueued behind a spin kernel, so that the card
 runs them back to back and the time is the device's, whatever the host
@@ -194,6 +209,12 @@ PATCH_SCENE = ROOT / "scenes" / "patches.pbrt"
 PATCH_GOLDEN = ROOT / "goldens" / "patches_200_32spp.exr"
 PATCH_GATE_MRSE = 0.05  # tools/golden.py CONFIGS, patches
 PATCH_GATE_MEAN_RATIO = 0.02
+ENV_SCENE = ROOT / "scenes" / "envlit.pbrt"
+ENV_GOLDEN = ROOT / "goldens" / "envlit_200_64spp.exr"
+ENV_GATE_MRSE = 0.06    # tools/golden.py CONFIGS, envlit (no trim)
+ENV_GATE_MEAN_RATIO = 0.02
+# rays a chunk of the triangle kernel's plain version in phase 36
+PLAIN_CHUNK = 1 << 14
 # the bound's peaks (H100 SXM data sheet) and the f32 operations of one
 # unit of work, counted from the kernels' sources
 PEAK_BYTES_PER_S = 3.35e12
@@ -1685,6 +1706,129 @@ def redesign_phases(dev, card, named, cornell, descs):
                 wave_ms=wave_ms)
 
 
+def tri_plain_chunked(pool, o, d, t_max, n_real, any_hit):
+    """The triangle kernel's plain version over chunks of PLAIN_CHUNK rays
+    (its rays x triangles tensors of a whole wave would not fit); every ray
+    is independent of the others, so the result is the whole call's."""
+    import torch
+    from pbrt_tpu_torch.ops import tri_intersect as ti
+    parts = [ti.tri_intersect_plain(pool, o[i:i + PLAIN_CHUNK],
+                                    d[i:i + PLAIN_CHUNK],
+                                    t_max[i:i + PLAIN_CHUNK], n_real, any_hit)
+             for i in range(0, o.shape[0], PLAIN_CHUNK)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def tri_query_bound(pool, n_real, t_max, want, any_hit):
+    """A brute-force query's bound: rays in (28 B) and hits out (16 B) once,
+    the pool once; the triangle tests its rays need: none for a dead ray
+    (t_max <= 0), every triangle at closest hit, the triangles up to the
+    end of the first group of ti.GROUP with a hit at any hit (all on a
+    miss). Returns (bound_ms, bound_by, tests)."""
+    from pbrt_tpu_torch.ops import tri_intersect as ti
+    live = t_max > 0
+    if any_hit:
+        prim = want[1].long()
+        per_ray = ((prim // ti.GROUP + 1) * ti.GROUP).clamp(max=n_real)
+        per_ray = per_ray.where(prim >= 0, n_real)
+        tests = int(per_ray[live].sum().item())
+    else:
+        tests = int(live.sum().item()) * n_real
+    n = t_max.shape[0]
+    b_ms, b_by = bound(n * (28 + 16) + 4 * pool.numel(), tests * TRI_OPS)
+    return b_ms, b_by, tests
+
+
+def envlit_phases(dev, card, named):
+    """Phases 35-36, the envlit path: scenes/envlit.pbrt through parse_file
+    -> render, gated against its golden, its time; then the triangle
+    kernel on one envlit wave's own queries."""
+    import torch
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.ops import tri_intersect as ti
+    from pbrt_tpu_torch.scene import parser
+    from pbrt_tpu_torch.utils import image
+    # ---- 35. the envlit path through the entry points ----
+    reset_counts(named.values())
+    t0 = time.perf_counter()
+    desc = parser.parse_file(ENV_SCENE, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    s = desc.scene
+    check(s.n_tris == 1538 and not s.use_bvh and s.mega is None
+          and s.env is not None and s.env.texels.shape == (128 * 128, 4),
+          "envlit: scene tables")
+    img, stats = render.render(s, desc.camera, sampler=desc.sampler,
+                               device=dev,
+                               opts=path_mod.PathOptions(max_depth=5))
+    launches = {c: k.launches for c, k in named.items()}
+    plain = sum(k.plain for k in named.values())
+    print(f"[35 envlit] {s.n_tris} triangles ({s.tri_pallas.numel() // 16} "
+          f"pool rows), BxDF tags {s.bxdf_tags}, light tags {s.light_tags}, "
+          f"env {s.env.width}x{s.env.height}; launches {launches}, "
+          f"plain-version runs {plain}; {stats['lanes_per_wave']} lanes per "
+          "wave", flush=True)
+    check(launches["tri_intersect"] >= 1
+          and sum(launches.values()) == launches["tri_intersect"],
+          "envlit left the triangle-kernel route")
+    check(plain == 0, "envlit ran a plain version on the card")
+    m, ratio = gate(img, ENV_GOLDEN, (200, 200, 3), ENV_GATE_MRSE,
+                    ENV_GATE_MEAN_RATIO, "35 envlit golden")
+    print(f"[35 envlit golden] margins: mrse {ENV_GATE_MRSE - m:.5f}, mean "
+          f"ratio err {ENV_GATE_MEAN_RATIO - ratio:.5f} under the gates",
+          flush=True)
+    image.write_exr(_build.BUILD_DIR / "envlit_200_64spp.exr", img)
+    print(f"[35 times] card {card}: envlit 200x200x64 depth 5 "
+          f"{stats['paths_per_sec']:.6g} paths/s ({stats['seconds']:.3f} s),"
+          f" set-up (parse, sky.exr, alias table, build) {setup:.3f} s apart",
+          flush=True)
+
+    # ---- 36. the triangle kernel on one envlit wave's queries ----
+    closest, shadow, lanes = wave_queries(ti, "tri_intersect", 5, desc, 5,
+                                          dev)
+    names = ["camera rays"] + [f"bounce {i}" for i in range(1, len(closest))]
+    names += [f"shadow {i}" for i in range(1, len(shadow) + 1)]
+    queries = []
+    for name, (a, _k) in zip(names, closest + shadow):
+        pool, o, d, tv, n_real, any_hit = a
+        o, d = o.contiguous(), d.contiguous()
+        tv = torch.as_tensor(tv, dtype=torch.float32, device=dev)
+        tv = tv.expand(o.shape[0]).contiguous()
+        any_hit = bool(any_hit)
+        res = ti._launch(pool, o, d, tv, n_real, any_hit)
+        want = tri_plain_chunked(pool, o, d, tv, n_real, any_hit)
+        hold_bits(res, want, f"36 envlit tri_intersect {name}", any_hit)
+        b_ms, b_by, tests = tri_query_bound(pool, n_real, tv, want, any_hit)
+        t_bare = cuda_ms(lambda: ti._launch(pool, o, d, tv, n_real, any_hit,
+                                            out=res), reps=20, warmup=3,
+                         queued=True)
+        queries.append(dict(query=name, rays=o.shape[0], any_hit=any_hit,
+                            live=int((tv > 0).sum().item()), tests=tests,
+                            hit_share=(want[1] >= 0).float().mean().item(),
+                            bare_ms=t_bare, bound_ms=b_ms, bound_by=b_by))
+    wave = dict(lanes=lanes, queries=queries,
+                bare_sum_ms=sum(q["bare_ms"] for q in queries),
+                bound_sum_ms=sum(q["bound_ms"] for q in queries),
+                launches=len(queries))
+    wave["bound_ms"] = wave["bound_sum_ms"] / len(queries)
+    print(f"[36 envlit wave] card {card}: tri_intersect at {s.n_tris} "
+          f"triangles on one envlit wave of {lanes} lanes, bare launches "
+          "queued: " + ", ".join(
+              f"{q['query']} {q['bare_ms']:.4f} ms (live rays {q['live']}, "
+              f"bound {q['bound_ms']:.5f} by {q['bound_by']})"
+              for q in queries)
+          + f"; {len(queries)} launches, {wave['bare_sum_ms']:.4f} ms in all "
+          f"({wave['bound_sum_ms'] / wave['bare_sum_ms'] * 100:.1f}% of the "
+          f"bound); a render makes {launches['tri_intersect']}; every query "
+          "bit-equal to the plain version", flush=True)
+    return dict(render=dict(paths_per_sec=stats["paths_per_sec"],
+                            seconds=stats["seconds"], setup_s=setup, mrse=m,
+                            mean_ratio_err=ratio),
+                launches=launches["tri_intersect"], wave=wave)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2069,6 +2213,10 @@ def main():
     rd = redesign_phases(dev, card, named, scene, dict(
         meshfield=desc, instances=idesc, hair=cr["desc"],
         patches=pt.pop("desc")))
+    t_new = time.perf_counter()
+    ev = envlit_phases(dev, card, named)
+    print(f"[36 envlit wave] phases 35-36 took "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
 
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]
@@ -2119,6 +2267,9 @@ def main():
              ri["bare_ms"], ri["bound"]["bound_ms"]),
             ("tri_intersect (general-wave cornell, 32 triangles)",
              glaunch["tri_intersect"], tri32["bare_ms"], tri32["bound_ms"]),
+            ("tri_intersect (envlit, 1,538 triangles)", ev["launches"],
+             ev["wave"]["bare_sum_ms"] / ev["wave"]["launches"],
+             ev["wave"]["bound_ms"]),
             *((f"{name} ({path})", n,
                w.get("bare_sum_ms", w["sum_ms"]) / w["launches"],
                w["bound_ms"]) for name, path, n, w in (
@@ -2158,7 +2309,10 @@ def main():
              # the BVH8 kernel on the same mesh and rays); the sphere
              # render's launches
              by_triangles=rd["tri_ms"], big_pool_max_abs_err=rd["tri_err"],
-             sphere_launches=rd["sphere_launches"]),
+             sphere_launches=rd["sphere_launches"],
+             # phases 35-36: the envlit render's launches and one envlit
+             # wave's queries at 1,538 triangles (bare launches, bounds)
+             envlit_launches=ev["launches"], envlit_wave=ev["wave"]),
         # launches: the meshfield render (phase 8); ms: closest hit at
         # 2^20 rays (any hit in any_hit_ms)
         dict(name="bvh8", route="cuda",
@@ -2263,7 +2417,7 @@ def main():
         paths_per_sec=istats["paths_per_sec"], seconds=istats["seconds"],
         mrse=i_mrse, mean_ratio_err=i_ratio), hair=cr["hair"],
         hair_ref=cr["hair_ref"], rays_in=ri["render"],
-        terrain_bvh8_ms=tr["bvh8_ms"], patches=pt)))
+        terrain_bvh8_ms=tr["bvh8_ms"], patches=pt, envlit=ev["render"])))
     print(f"card: {card}")
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps({"ok": True, "device": {

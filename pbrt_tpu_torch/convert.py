@@ -14,10 +14,13 @@ sampler's alias rows and pmf table; "c2w_m" (4, 4); "tan_half_fov" ();
 kernel's own are derived from them) for an instanced scene;
 "curve_nodes", "curve_segs", "curve_mats" (the curve tables; the curve
 kernel's own node table is derived from them) for a scene with curves;
-"blp_rows" (K, 14) for a scene with bilinear patches; "attr", "light",
-"mat" (the reference's megawave.scene_tables) for a megakernel scene.
+"blp_rows" (K, 14) for a scene with bilinear patches; "env_texels",
+"env_alias_rows", "env_pmf", "env_illum" (the image infinite light's
+tables) for a scene with one; "attr", "light", "mat" (the reference's
+megawave.scene_tables) for a megakernel scene.
 meta: "ls_kind", "n_lights", "scene_radius", "inf_indices", "light_tags",
-"n_tris", "bxdf_tags" (the material pool's tag set); "bvh8" (n_nodes,
+"n_tris", "bxdf_tags" (the material pool's tag set); "env" (scale,
+width, height, light_index) with the image light's tables; "bvh8" (n_nodes,
 n_tris, depth) on the BVH route; "tlas_root" for an instanced scene;
 "mega" (the
 MegaMeta fields as a dict, or None); "width", "height", "screen_min",
@@ -30,6 +33,7 @@ import torch
 
 from . import cameras as cam_mod
 from . import device as dev_mod
+from . import lights as lgt
 from . import lightsamplers as lsamp
 from . import samplers as smp
 from .ops import bvh as bvh_mod
@@ -77,6 +81,13 @@ def from_jax_scene(arrays: dict, meta: dict, device="cuda"):
             has_curves=True)
     if "blp_rows" in arrays:
         extra.update(blp_rows=t("blp_rows"), has_blps=True)
+    if "env_texels" in arrays:
+        em = meta["env"]
+        extra["env"] = lgt.EnvLight(
+            texels=t("env_texels"), alias_rows=t("env_alias_rows"),
+            pmf=t("env_pmf"), illum=t("env_illum"),
+            scale=float(np.float32(em["scale"])), width=int(em["width"]),
+            height=int(em["height"]), light_index=int(em["light_index"]))
     kind = int(meta["ls_kind"])
     ls = lsamp.LightSampler(
         kind=kind, n_lights=int(meta["n_lights"]),

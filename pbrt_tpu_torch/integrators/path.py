@@ -12,12 +12,16 @@ time for that).
 
 The general wave keeps every lane's state in tensors and
 runs one depth at a time: the closest hit, emission with MIS at area-light
-hits, escaped rays to the uniform infinite lights, next-event estimation
-with an any-hit shadow ray, the BSDF sample (diffuse or hair) and Russian
-roulette, with the reference's sampler dimension layout (camera dims 0-5,
-then 11 per bounce: light pick +0, light point +1/+2, BSDF lobe choice +3
-and direction +4/+5, roulette +6; the lobe choice is drawn only where a
-lobe of the scene reads it, hair). The shading frame's +x follows the
+hits, escaped rays to the image and uniform infinite lights (an MIS weight
+of 1 at depth 0 and after a specular bounce), next-event estimation with
+an any-hit shadow ray, the BSDF sample (diffuse, conductor, dielectric or
+hair), the dispersion of a spectral dielectric (the secondary wavelengths
+terminated once, the hero's weight times 4) and Russian roulette on
+max(beta) times the accumulated eta_scale, with the reference's sampler
+dimension layout (camera dims 0-5, then 11 per bounce: light pick +0,
+light point +1/+2, BSDF lobe choice +3 and direction +4/+5, roulette +6;
+the lobe choice is drawn only where a lobe of the scene reads it, hair or
+the dielectric). The shading frame's +x follows the
 hit's dpdu, a curve's chord on a curve hit, as the hair BxDF needs. Dead
 lanes are masked, and their rays are queried with t_max = -1, which the
 triangle and curve queries answer with a miss at no cost. The reference's
@@ -102,7 +106,8 @@ def _nee(scene, sampler, px, py, si, lam, spec_cache, isect, ns, ng, t1, t2,
                                      scene.alias_rows)
     ls = lgt.sample_li(scene.lights_packed, torch.clamp(li_idx, min=0),
                        isect["p"], u_l, lam, scene.spectra_pool,
-                       scene.scene_radius, scene.light_tags, spec_cache)
+                       scene.scene_radius, scene.light_tags, spec_cache,
+                       env=scene.env)
     wi = ls["wi"]
     wi_local = _to_local(ns, t1, t2, wi)
     f = bxdfs.bsdf_f(bp, wo_local, wi_local) * \
@@ -146,6 +151,19 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
     L = torch.zeros_like(beta)
     active = torch.ones((N,), dtype=torch.bool, device=o.device)
     prev_pdf = torch.ones((N,), dtype=torch.float32, device=o.device)
+    specular = torch.zeros_like(active)     # the last bounce was specular
+    eta_scale = torch.ones_like(prev_pdf)
+    sec_term = torch.zeros_like(active)     # secondary wavelengths ended
+    disp_weight = torch.tensor([4.0, 0.0, 0.0, 0.0], device=o.device)
+
+    def mis_weight(depth, pdf_light):
+        """The emission's MIS weight against light sampling: 1 at depth 0
+        and after a specular bounce."""
+        if depth == 0:
+            return torch.ones_like(pdf_light)
+        return torch.where(specular, 1.0,
+                           power_heuristic(1.0, prev_pdf, 1.0, pdf_light))
+
     for depth in range(opts.max_depth):
         isect = sc.intersect(scene, o, d, torch.where(active, 1e30, -1.0))
         hit = isect["hit"] & active
@@ -159,10 +177,19 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
             pdf_light = lgt.pdf_li_area_tri(o, d, isect["p"], isect["p0"],
                                             isect["p1"], isect["p2"]) * \
                 lrow[:, 14]
-            w_emit = torch.ones_like(pdf_light) if depth == 0 else \
-                power_heuristic(1.0, prev_pdf, 1.0, pdf_light)
+            w_emit = mis_weight(depth, pdf_light)
             L = L + torch.where(is_emitter[:, None],
                                 beta * Le * w_emit[:, None], 0.0)
+
+        # --- escaped rays: the image infinite light ---
+        if scene.env is not None:
+            escaped = active & ~isect["hit"]
+            Le_env = lgt.env_radiance(scene.env, d, lam)
+            pdf_env = lgt.env_pdf_li(scene.env, d) * float(
+                ls.pmf_table[scene.env.light_index])
+            w_env = mis_weight(depth, pdf_env)
+            L = L + torch.where(escaped[:, None],
+                                beta * Le_env * w_env[:, None], 0.0)
 
         # --- escaped rays: uniform infinite lights ---
         if scene.inf_indices:
@@ -173,8 +200,7 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
             pdf_inf = torch.full_like(prev_pdf, float(
                 np.float32(ls.pmf_table[scene.inf_indices[0]])
                 * np.float32(INV_4PI)))
-            w_inf = torch.ones_like(pdf_inf) if depth == 0 else \
-                power_heuristic(1.0, prev_pdf, 1.0, pdf_inf)
+            w_inf = mis_weight(depth, pdf_inf)
             L = L + torch.where(escaped[:, None],
                                 beta * Le_inf * w_inf[:, None], 0.0)
 
@@ -183,7 +209,9 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
         t1, t2 = _shading_frame(ns, isect["dpdu"])
         wo_local = _to_local(ns, t1, t2, isect["wo"])
         bp = mtl.get_bsdf_params(scene.mat_pool, isect["mat"], lam,
-                                 scene.bxdf_tags, uv=isect["uv"])
+                                 scene.bxdf_tags, uv=isect["uv"],
+                                 spectra_pool=scene.spectra_pool,
+                                 spec_cache=spec_cache)
 
         # --- next-event estimation ---
         if ls.n_lights > 0:
@@ -195,20 +223,30 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
 
         # --- BSDF sample for the next bounce ---
         base = CAM_DIMS + depth * DIMS_PER_BOUNCE
-        uc = smp.sample_1d(sampler, px, py, sample_index, base + 3) \
-            if bxdfs.BXDF_HAIR in scene.bxdf_tags else None
+        uc = None
+        if {bxdfs.BXDF_HAIR, bxdfs.BXDF_DIELECTRIC} & set(scene.bxdf_tags):
+            uc = smp.sample_1d(sampler, px, py, sample_index, base + 3)
         u2 = smp.sample_2d(sampler, px, py, sample_index, base + 4)
         bs = bxdfs.bsdf_sample(bp, wo_local, uc, u2)
         wi_world = _to_world(ns, t1, t2, bs["wi"])
         throughput = bs["f"] * safe_div(torch.abs(bs["wi"][:, 2]),
                                         bs["pdf"])[:, None]
         beta_new = beta * throughput
+        if bxdfs.BXDF_DIELECTRIC in scene.bxdf_tags:
+            # dispersion: the first dispersive event ends the secondary
+            # wavelengths and weights the hero by 4 (reference
+            # TerminateSecondary, idempotent)
+            first = bs["dispersed"] & ~sec_term
+            beta_new = torch.where(first[:, None], beta_new * disp_weight,
+                                   beta_new)
+            sec_term = sec_term | (bs["dispersed"] & active)
         active = active & bs["valid"] & (beta_new > 0).any(dim=-1)
         beta = torch.where(active[:, None], beta_new, beta)
+        eta_scale = eta_scale * bs["eta_scale"]
 
-        # --- Russian roulette on beta ---
+        # --- Russian roulette on max(beta) * eta_scale ---
         if depth >= opts.rr_start_depth:
-            rr_max = beta.amax(dim=-1)
+            rr_max = beta.amax(dim=-1) * eta_scale
             u_rr = smp.sample_1d(sampler, px, py, sample_index, base + 6)
             q = torch.clamp(1.0 - rr_max, min=0.0)
             do_rr = rr_max < 1.0
@@ -221,6 +259,7 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
                                        wi_world)
         d = wi_world
         prev_pdf = bs["pdf"]
+        specular = bs["specular"]
     return L
 
 

@@ -1,5 +1,6 @@
-"""Lights (counterpart of pbrt_tpu/lights.py): area triangles and the
-uniform infinite light.
+"""Lights (counterpart of pbrt_tpu/lights.py): area triangles, the uniform
+infinite light and the image infinite light (an equal-area octahedral
+environment map, sampled through an alias table over its texels).
 
 The packed light pool keeps the reference layout, (L, 24):
 [tag, p(3), dir(3), spec_idx, scale, tri, two_sided, cfs, cfe, is_delta,
@@ -9,9 +10,13 @@ scene's dense spectrum pool, scaled per light.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .utils import color as pcolor
+from .utils import sampling as usamp
 from .utils import spectrum as spc
 from .utils import vecmath as vm
 from .utils.math import INV_4PI, PI, safe_div
@@ -19,6 +24,7 @@ from .utils.math import INV_4PI, PI, safe_div
 LIGHT_NONE = -1       # the reference's tags
 LIGHT_AREA_TRI = 3
 LIGHT_UNIFORM_INFINITE = 4
+LIGHT_IMAGE_INFINITE = 5
 PACKED_COLS = 24
 # a wave evaluates the whole spectrum pool once when it holds at most
 # this many spectra (reference SPEC_CACHE_MAX)
@@ -35,8 +41,9 @@ def compute_light_power(tag, scale, spectrum: spc.Spectrum, area=None,
     if tag == LIGHT_UNIFORM_INFINITE:
         return 4 * np.pi * np.pi * scene_radius ** 2 * lum
     raise NotImplementedError(
-        f"light tag {tag}: only area triangles and the uniform infinite "
-        "light are ported (ROADMAP.md slice 3)")
+        f"light tag {tag}: only area triangles and the uniform and image "
+        "infinite lights are ported (ROADMAP.md slice 3 item 25, the "
+        "analytic lights)")
 
 
 def pack_light_pool(rows, p0, p1, p2, pmf) -> np.ndarray:
@@ -117,11 +124,11 @@ def _sample_uniform_sphere(u):
 
 
 def sample_li(lights_packed, light_idx, p_ref, u2, lam, spectra_pool,
-              scene_radius, tags_present, spec_cache=None):
+              scene_radius, tags_present, spec_cache=None, env=None):
     """Sample an incident direction from light light_idx (N,) toward p_ref
-    (N, 3) with u2 (N, 2) (reference sample_li, the area-triangle and
-    uniform-infinite branches). Returns dict(wi, L (N, 4), pdf (solid
-    angle), p_light, is_delta, valid)."""
+    (N, 3) with u2 (N, 2) (reference sample_li, the area-triangle, uniform
+    and image infinite branches; env: the scene's EnvLight). Returns
+    dict(wi, L (N, 4), pdf (solid angle), p_light, is_delta, valid)."""
     row = lights_packed[light_idx.to(torch.int64)]
     tag = row[:, 0].round().to(torch.int32)
     Lspec = light_spectrum(spectra_pool, row[:, 7].round(), row[:, 8], lam,
@@ -147,6 +154,9 @@ def sample_li(lights_packed, light_idx, p_ref, u2, lam, spectra_pool,
         branches[LIGHT_UNIFORM_INFINITE] = (
             wi, Lspec, torch.full_like(u2[:, 0], INV_4PI),
             p_ref + wi * (2.0 * scene_radius))
+    if LIGHT_IMAGE_INFINITE in tags_present and env is not None:
+        branches[LIGHT_IMAGE_INFINITE] = env_sample_li(env, p_ref, u2, lam,
+                                                       scene_radius)
     wi = torch.zeros_like(p_ref)
     L = torch.zeros_like(lam)
     pdf = torch.zeros_like(u2[:, 0])
@@ -197,3 +207,118 @@ def infinite_light_radiance(lights_packed, inf_indices, lam, spectra_pool,
             spectra_pool, row[7].round().expand(n), row[8].expand(n), lam,
             spec_cache)
     return total
+
+
+# ---------------------------------------------------------------------------
+# Image infinite light (reference ImageInfiniteLight): an equal-area
+# octahedral radiance map whose texels hold sigmoid coefficients and a
+# scale, modulating the color space's illuminant. Directions are sampled
+# through an alias table over the texels by luminance: every texel covers
+# the solid angle 4 pi / (W H), so a texel's pdf is pmf W H / (4 pi).
+
+@dataclasses.dataclass
+class EnvLight:
+    """Device tables of an image infinite light."""
+    texels: torch.Tensor      # (H*W, 4): [c0, c1, c2, scale]
+    alias_rows: torch.Tensor  # (H*W, 4): [q, alias, pmf_self, pmf_alias]
+    pmf: torch.Tensor         # (H*W,)
+    illum: torch.Tensor       # (471,) the illuminant modulating the texels
+    scale: float              # the light's scale (a float32 value)
+    width: int
+    height: int
+    light_index: int          # its row in the light pool
+
+
+def make_env_light(image_rgb, colorspace, scale=1.0, light_index=0,
+                   device="cpu") -> EnvLight:
+    """image_rgb (H, W, 3) linear RGB in the equal-area octahedral layout
+    (utils/image_env.equalarea_from_latlong makes it from a lat-long map)
+    -> the light's tables on device; host numpy as in the reference."""
+    img = np.asarray(image_rgb, np.float32)
+    h, w = img.shape[:2]
+    flat = img.reshape(-1, 3)
+    m = np.maximum(flat.max(axis=-1), 1e-9)
+    tex_scale = np.where(flat.max(axis=-1) > 1.0, 2.0 * m, 1.0).astype(
+        np.float32)
+    coeffs = colorspace.to_spectrum_coeffs(flat / tex_scale[:, None])
+    texels = np.concatenate([coeffs, tex_scale[:, None]], 1)
+    lum = 0.2126 * flat[:, 0] + 0.7152 * flat[:, 1] + 0.0722 * flat[:, 2]
+    lum = np.maximum(lum, 1e-9 * lum.max() if lum.max() > 0 else 1e-9)
+    at = usamp.AliasTable.build(lum)
+    alias_rows = np.concatenate([
+        at.q[:, None], at.alias[:, None].astype(np.float32), at.pmf[:, None],
+        at.pmf[at.alias][:, None]], 1)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                               device=device)
+    return EnvLight(texels=t(texels), alias_rows=t(alias_rows), pmf=t(at.pmf),
+                    illum=t(colorspace.illuminant_dense),
+                    scale=float(np.float32(scale)), width=w, height=h,
+                    light_index=light_index)
+
+
+def _env_texel_radiance(env: EnvLight, texel_idx, lam):
+    """Spectral radiance of texels texel_idx (N,) at lam (N, 4)."""
+    rows = env.texels[texel_idx.to(torch.int64)]
+    return pcolor.sigmoid_polynomial(
+        rows[:, 0:1], rows[:, 1:2], rows[:, 2:3], lam) * rows[:, 3:4] * \
+        spc.eval_dense(env.illum, lam) * env.scale
+
+
+def env_radiance(env: EnvLight, d, lam):
+    """Le of escaped rays d (N, 3): bilinear over the equal-area texels,
+    the coefficients and scale interpolated, edges clamped (reference
+    env_radiance)."""
+    uv = vm.equal_area_sphere_to_square(d)
+    ux = uv[:, 0] * env.width - 0.5
+    uy = uv[:, 1] * env.height - 0.5
+    x0 = torch.floor(ux)
+    y0 = torch.floor(uy)
+    fx = (ux - x0)[:, None]
+    fy = (uy - y0)[:, None]
+    xs = torch.clamp(torch.stack([x0, x0 + 1], -1), 0, env.width - 1)
+    ys = torch.clamp(torch.stack([y0, y0 + 1], -1), 0, env.height - 1)
+    idx = (ys[:, :, None] * env.width + xs[:, None, :]).to(torch.int64)
+    rows = env.texels[idx]                       # (N, 2, 2, 4)
+    c = (rows[:, 0, 0] * (1 - fx) * (1 - fy) + rows[:, 0, 1] * fx * (1 - fy)
+         + rows[:, 1, 0] * (1 - fx) * fy + rows[:, 1, 1] * fx * fy)
+    return pcolor.sigmoid_polynomial(
+        c[:, 0:1], c[:, 1:2], c[:, 2:3], lam) * c[:, 3:4] * \
+        spc.eval_dense(env.illum, lam) * env.scale
+
+
+def env_sample_li(env: EnvLight, p_ref, u2, lam, scene_radius):
+    """A direction toward the map: a texel from the alias table with
+    u2[:, 0] (its remainder jitters x inside the texel), y jittered with
+    u2[:, 1]. Returns (wi, L, solid-angle pdf, p_light)."""
+    n = env.width * env.height
+    up = u2[:, 0] * n
+    i = torch.clamp(up.to(torch.int32), 0, n - 1)
+    frac = up - i.to(torch.float32)
+    rows = env.alias_rows[i.to(torch.int64)]
+    take = frac < rows[:, 0]
+    texel = torch.where(take, i, rows[:, 1].to(torch.int32))
+    pmf = torch.where(take, rows[:, 2], rows[:, 3])
+    u_in = torch.where(
+        take, frac / torch.clamp(rows[:, 0], min=1e-9),
+        (frac - rows[:, 0]) / torch.clamp(1.0 - rows[:, 0], min=1e-9))
+    tx = (texel % env.width).to(torch.float32)
+    ty = torch.div(texel, env.width, rounding_mode="floor").to(torch.float32)
+    uv = torch.stack([(tx + torch.clamp(u_in, 0, 0.9999)) / env.width,
+                      (ty + u2[:, 1]) / env.height], -1)
+    wi = vm.equal_area_square_to_sphere(uv)
+    pdf = pmf * float(np.float32(n / (4.0 * np.pi)))
+    return (wi, _env_texel_radiance(env, texel, lam), pdf,
+            p_ref + wi * (2.0 * scene_radius))
+
+
+def env_pdf_li(env: EnvLight, d):
+    """Solid-angle pdf of env_sample_li choosing direction d (N, 3), for
+    MIS."""
+    uv = vm.equal_area_sphere_to_square(d)
+    x = torch.clamp((uv[:, 0] * env.width).to(torch.int64), 0, env.width - 1)
+    y = torch.clamp((uv[:, 1] * env.height).to(torch.int64), 0,
+                    env.height - 1)
+    return env.pmf[y * env.width + x] * float(
+        np.float32(env.width * env.height / (4.0 * np.pi)))

@@ -1,14 +1,15 @@
 """Materials (counterpart of pbrt_tpu/materials.py): the material pool, the
-diffuse material (its albedo packed as sigmoid-polynomial coefficients) and
-the hair material.
+diffuse material (its albedo packed as sigmoid-polynomial coefficients),
+the conductor and the dielectric (eta and k spectra as rows of the scene's
+spectrum pool) and the hair material.
 
 The pool keeps the reference's packed row layout, (M, 22):
 [tag, albedo_coeffs(3), trans_coeffs(3), ur, vr, eta_const,
 eta_spec_idx, k_spec_idx, albedo_tex, remap, rough_tex, bump_tex,
 bump_scale, normal_tex, mix_other, mix_amount, coat_alpha, coat_eta],
-so the two builders can be compared array for array. Diffuse and hair
-materials without textures are ported; Mix resolution and bump or normal
-mapping are the identity on such a pool.
+so the two builders can be compared array for array. Diffuse, conductor,
+dielectric and hair materials without textures are ported; Mix resolution
+and bump or normal mapping are the identity on such a pool.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import numpy as np
 import torch
 
 from . import bxdfs
+from . import lights as lgt
 from .utils import color as pcolor
+from .utils.color import sigmoid_polynomial
 
 PACKED_COLS = 22
 
@@ -43,6 +46,29 @@ class MaterialBuilder:
     def add_diffuse(self, reflectance=(0.5, 0.5, 0.5)) -> int:
         return self._add(albedo_coeffs=self.cs.to_spectrum_coeffs(
             np.asarray(reflectance)))
+
+    def add_conductor(self, eta_spec_idx=-1, k_spec_idx=-1, roughness=0.0,
+                      uroughness=None, vroughness=None, remap=True) -> int:
+        """Conductor (reference "conductor"): eta and k as spectrum-pool
+        rows; uroughness and vroughness default to roughness; remap: the
+        roughness is turned into alpha (sqrt) at shading."""
+        return self._add(
+            bxdf_tag=bxdfs.BXDF_CONDUCTOR, eta_spec_idx=eta_spec_idx,
+            k_spec_idx=k_spec_idx,
+            uroughness=roughness if uroughness is None else uroughness,
+            vroughness=roughness if vroughness is None else vroughness,
+            remap_roughness=remap)
+
+    def add_dielectric(self, eta=1.5, roughness=0.0, uroughness=None,
+                       vroughness=None, remap=True, eta_spec_idx=-1) -> int:
+        """Dielectric (reference "dielectric" / "glass"): a constant eta,
+        or a spectral one as a spectrum-pool row (dispersion)."""
+        return self._add(
+            bxdf_tag=bxdfs.BXDF_DIELECTRIC, eta_const=eta,
+            eta_spec_idx=eta_spec_idx,
+            uroughness=roughness if uroughness is None else uroughness,
+            vroughness=roughness if vroughness is None else vroughness,
+            remap_roughness=remap)
 
     def add_hair(self, sigma_a=(0.06, 0.1, 0.2), beta_m=0.3, beta_n=0.3,
                  eta=1.55) -> int:
@@ -87,41 +113,47 @@ class MaterialBuilder:
         return self.packed()[:, 1:4]
 
 
-def sigmoid_polynomial(c0, c1, c2, lam):
-    """Reflectance at wavelengths lam (nm) of the sigmoid polynomial with
-    coefficients c0, c1, c2, broadcast together (reference
-    RGBSigmoidPolynomial)."""
-    x = (c0 * lam + c1) * lam + c2
-    s = 0.5 + x / (2.0 * torch.sqrt(1.0 + x * x))
-    return torch.where(torch.isinf(x), torch.where(x > 0, 1.0, 0.0), s)
-
-
 def get_bsdf_params(pool: torch.Tensor, mat_idx, lam,
                     tags_present=(bxdfs.BXDF_DIFFUSE,),
-                    uv=None) -> bxdfs.BSDFParams:
+                    uv=None, spectra_pool=None,
+                    spec_cache=None) -> bxdfs.BSDFParams:
     """Material rows (M, 22) at mat_idx (N,) and wavelengths (N, 4) ->
     per-lane BSDF parameters. tags_present: the pool's tag set
     (MaterialBuilder.tags); uv (N, 2): the hit's uv, whose v gives hair its
-    azimuthal offset h = 2 v - 1."""
+    azimuthal offset h = 2 v - 1; spectra_pool (S, 471) and its per-wave
+    cache (lights.eval_all_spectra): where a conductor or dielectric row
+    names eta or k spectra. A diffuse-only pool reads the albedo alone."""
     rows = pool[mat_idx.to(torch.int64)]
     tag = rows[:, 0].round().to(torch.int32)
     albedo = sigmoid_polynomial(rows[:, 1:2], rows[:, 2:3], rows[:, 3:4], lam)
-    alpha_x = alpha_y = eta = h = None
+    alpha_x = alpha_y = eta = k = h = None
+    if set(tags_present) - {bxdfs.BXDF_DIFFUSE}:
+        ur, vr = rows[:, 7], rows[:, 8]
+        remap = rows[:, 13] > 0.5
+        alpha_x = torch.where(remap, bxdfs.roughness_to_alpha(ur), ur)
+        alpha_y = torch.where(remap, bxdfs.roughness_to_alpha(vr), vr)
+        ones = torch.ones_like(lam)
+        eta = rows[:, 9:10] * ones
+        k = ones
+        if bxdfs.BXDF_CONDUCTOR in tags_present or \
+                bxdfs.BXDF_DIELECTRIC in tags_present:
+            eidx = rows[:, 10].round()
+            kidx = rows[:, 11].round()
+            one = torch.ones_like(ur)
+            eta = torch.where((eidx >= 0)[:, None], lgt.light_spectrum(
+                spectra_pool, torch.clamp(eidx, min=0), one, lam, spec_cache),
+                eta)
+            k = torch.where((kidx >= 0)[:, None], lgt.light_spectrum(
+                spectra_pool, torch.clamp(kidx, min=0), one, lam, spec_cache),
+                k)
     if bxdfs.BXDF_HAIR in tags_present:
-        # only hair reads these, so a diffuse-only pool skips them
         # spectral sigma_a: the trans coefficients times the stored scale
         sigma_a = sigmoid_polynomial(rows[:, 4:5], rows[:, 5:6], rows[:, 6:7],
                                      lam) * rows[:, 19:20]
         albedo = torch.where((tag == bxdfs.BXDF_HAIR)[:, None], sigma_a,
                              albedo)
-        ur, vr = rows[:, 7], rows[:, 8]
-        remap = rows[:, 13] > 0.5
-        # roughness_to_alpha (sqrt) where the row asks for the remap
-        alpha_x = torch.where(remap, torch.sqrt(torch.clamp(ur, min=0.0)), ur)
-        alpha_y = torch.where(remap, torch.sqrt(torch.clamp(vr, min=0.0)), vr)
-        eta = rows[:, 9:10] * torch.ones_like(lam)
         if uv is not None:
             h = torch.clamp(-1.0 + 2.0 * uv[:, 1], -1.0, 1.0)
     return bxdfs.BSDFParams(tag=tag, albedo=albedo, alpha_x=alpha_x,
-                            alpha_y=alpha_y, eta=eta, h=h,
+                            alpha_y=alpha_y, eta=eta, k=k, h=h,
                             tags_present=tuple(tags_present))

@@ -4,17 +4,23 @@ pbrt_tpu/scene/parser.py).
 The reference's pipeline, kept: regex tokenizer -> typed parameter lists
 (`ParamSet`) -> directive loop over a graphics state -> SceneBuilder ->
 compiled scene on the device the caller names. The directives handled are
-those of scenes/cornell.pbrt, scenes/meshfield.pbrt, scenes/instances.pbrt
-and scenes/patches.pbrt:
+those of scenes/cornell.pbrt, scenes/meshfield.pbrt, scenes/instances.pbrt,
+scenes/patches.pbrt and scenes/envlit.pbrt:
 
     LookAt, Translate, Scale, Rotate, Transform, ConcatTransform
     Camera "perspective" (pinhole), Film "rgb", Sampler "zsobol",
     Integrator "path", WorldBegin, AttributeBegin, AttributeEnd
-    Material / MakeNamedMaterial / NamedMaterial, types "diffuse", "hair"
-    AreaLightSource "diffuse", LightSource "infinite" (an L, no file)
+    Material / MakeNamedMaterial / NamedMaterial, types "diffuse",
+      "conductor", "dielectric" / "glass" (smooth or rough), "hair"
+    AreaLightSource "diffuse"; LightSource "infinite", an L (uniform) or
+      an image file (.exr or .pfm; a lat-long image is resampled to the
+      equal-area square)
     Shape "trianglemesh", Shape "curve" (cubic Bezier, the hair scene)
     Shape "bilinearmesh" (exact patches, or two triangles a quad)
     ObjectBegin, ObjectEnd, ObjectInstance (static instances)
+
+Spectrum parameters take rgb values, inline [lambda value ...] lists,
+named spectra (utils/spectrum.get_named_spectrum) and constants.
 
 Any other directive, type or parameter that changes the image raises
 ParseError with the file location and the ROADMAP item that brings it.
@@ -33,6 +39,8 @@ from .. import filters as flt
 from .. import samplers as smp
 from .. import scene_core as sc
 from ..utils import color as pcolor
+from ..utils import image
+from ..utils import image_env
 from ..utils import spectrum as spc
 from ..utils import transform as tfm
 
@@ -148,9 +156,9 @@ class ParamSet:
         return None
 
     def spectrum(self, name, cs, kind="albedo", default=None):
-        """An rgb or an inline [lambda value ...] spectrum parameter.
-        Returns None for a type this subset does not read (named spectra,
-        files, blackbody)."""
+        """An rgb, named, constant or inline [lambda value ...] spectrum
+        parameter. Returns None for a type this subset does not read
+        (spectrum files, blackbody)."""
         if name not in self.d:
             return default
         ty, vals = self.d[name]
@@ -161,9 +169,13 @@ class ParamSet:
             if kind == "unbounded":
                 return pcolor.RGBUnboundedSpectrum(rgb, cs)
             return pcolor.RGBAlbedoSpectrum(np.clip(rgb, 0, 1), cs)
-        if ty == "spectrum" and not isinstance(vals[0], str):
+        if ty == "spectrum":
+            if isinstance(vals[0], str):
+                return spc.get_named_spectrum(vals[0])
             arr = np.asarray(vals, np.float64)
             return spc.PiecewiseLinearSpectrum(arr[0::2], arr[1::2])
+        if ty in ("float", "integer"):
+            return spc.ConstantSpectrum(float(vals[0]))
         return None
 
 
@@ -279,14 +291,16 @@ class PbrtSceneDescription:
 
 def parse_file(path, **overrides) -> PbrtSceneDescription:
     text = Path(path).read_bytes()
-    return parse_string(text, fname=str(path), **overrides)
+    return parse_string(text, base_dir=Path(path).parent, fname=str(path),
+                        **overrides)
 
 
-def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
-                 device="cuda") -> PbrtSceneDescription:
-    """Parse a scene and build it on `device`. light_sampler and force_bvh
-    pass to SceneBuilder.build (an Integrator's "string lightsampler"
-    overrides light_sampler, as in the reference)."""
+def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
+                 fname=None, device="cuda") -> PbrtSceneDescription:
+    """Parse a scene and build it on `device`. base_dir: where the files it
+    names are read from. light_sampler and force_bvh pass to
+    SceneBuilder.build (an Integrator's "string lightsampler" overrides
+    light_sampler, as in the reference)."""
     if isinstance(text, str):
         text = text.encode()
     toks, offs = tokenize_with_offsets(text)
@@ -310,9 +324,18 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
     def spectrum_param(ps, name, kind, default):
         s = ps.spectrum(name, cs, kind=kind, default=default)
         if s is None:
-            refuse(f"a {ps.d[name][0]} '{name}' value",
-                   "slice 6 (named spectra, blackbody, spectrum files)")
+            refuse(f"a {ps.d[name][0]} '{name}' value {ps.d[name][1][:1]}",
+                   "slice 6 (blackbody, spectrum files)")
         return s
+
+    def roughness(ps: ParamSet):
+        """(roughness, uroughness, vroughness, remaproughness) of a
+        microfacet material."""
+        for n in ("roughness", "uroughness", "vroughness"):
+            if ps.texture_name(n) is not None:
+                refuse(f"a textured {n}", "slice 3 item 9 (textures)")
+        return (ps.float("roughness", 0.0), ps.float("uroughness", None),
+                ps.float("vroughness", None), ps.bool("remaproughness", True))
 
     def make_material(name, ps: ParamSet) -> int:
         if name == "hair":
@@ -324,19 +347,43 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
                                         beta_m=ps.float("beta_m", 0.3),
                                         beta_n=ps.float("beta_n", 0.3),
                                         eta=ps.float("eta", 1.55))
+        if name == "conductor":
+            rough, urough, vrough, remap = roughness(ps)
+            eta_s = spectrum_param(ps, "eta", "unbounded",
+                                   spc.get_named_spectrum("metal-Cu-eta"))
+            k_s = spectrum_param(ps, "k", "unbounded",
+                                 spc.get_named_spectrum("metal-Cu-k"))
+            return b.materials.add_conductor(
+                eta_spec_idx=b.add_spectrum(eta_s, key=("mat-eta", id(eta_s))),
+                k_spec_idx=b.add_spectrum(k_s, key=("mat-k", id(k_s))),
+                roughness=rough, uroughness=urough, vroughness=vrough,
+                remap=remap)
+        if name in ("dielectric", "glass"):
+            rough, urough, vrough, remap = roughness(ps)
+            ei = -1
+            if ps.d.get("eta", ("", []))[0] == "spectrum":
+                es = spectrum_param(ps, "eta", "unbounded", None)
+                ei = b.add_spectrum(es, key=("eta", id(es)))
+            eta = ps.float("eta", 1.5)
+            return b.materials.add_dielectric(
+                eta=eta if eta else 1.5, roughness=rough, uroughness=urough,
+                vroughness=vrough, remap=remap, eta_spec_idx=ei)
         if name not in ("diffuse", "matte"):
             refuse(f"material '{name}'",
-                   "slice 3 (envlit: conductor, dielectric; killeroo/plytex: "
-                   "rough dielectric; machines frame: coated diffuse, "
-                   "subsurface)")
+                   "slice 3 (portalbox, item 14: coated diffuse; machines "
+                   "frame, item 15: subsurface); slice 4 item 26 (thin "
+                   "dielectric, diffuse transmission, coated conductor, mix, "
+                   "interface)")
         if ps.texture_name("reflectance") is not None:
             refuse("a textured reflectance", "slice 3 item 9 (textures)")
         refl = ps.rgb("reflectance", None)
         if refl is None:
-            if "reflectance" in ps.d:
-                refuse(f"a {ps.d['reflectance'][0]} reflectance",
-                       "slice 6 (spectral reflectances)")
             refl = (0.5, 0.5, 0.5)
+            if "reflectance" in ps.d:
+                # a spectral reflectance, through its XYZ to the space's RGB
+                s = spectrum_param(ps, "reflectance", "albedo", None)
+                refl = np.asarray(s.to_xyz(), np.float32) @ \
+                    cs.rgb_from_xyz.astype(np.float32).T
         return b.materials.add_diffuse(tuple(np.clip(refl, 0, 1)))
 
     def mesh_params(ps: ParamSet, name, corners):
@@ -549,11 +596,26 @@ def parse_string(text, light_sampler="power", force_bvh=None, fname=None,
                 refuse(f"light '{name}'",
                        "slice 3 (point, spot, distant, projection, "
                        "goniometric lights)", dpos)
-            if ps.string("filename", None) is not None:
-                refuse("an image infinite light", "slice 3 item 8 (envlit)",
+            fn = ps.string("filename", None)
+            if fn is None:
+                s = spectrum_param(ps, "L", "illuminant", spc.d65_spectrum())
+                b.add_uniform_infinite_light(s, ps.float("scale", 1.0))
+                continue
+            if ps.point3s("portal", None) is not None:
+                refuse("a portal image light", "slice 3 item 14 (portalbox)",
                        dpos)
-            s = spectrum_param(ps, "L", "illuminant", spc.d65_spectrum())
-            b.add_uniform_infinite_light(s, ps.float("scale", 1.0))
+            if fn.endswith(".exr"):
+                img = image.read_exr(Path(base_dir) / fn)
+            elif fn.endswith(".pfm"):
+                img = image.read_pfm(Path(base_dir) / fn)
+            else:
+                refuse(f"the image file '{fn}' (the port reads .exr and "
+                       ".pfm)", "slice 3 item 9 (textures: the PNG reader)",
+                       dpos)
+            if img.shape[0] != img.shape[1]:
+                # lat-long: resample to the equal-area square
+                img = image_env.equalarea_from_latlong(img)
+            b.add_image_infinite_light(img, ps.float("scale", 1.0))
         elif tok == "Shape":
             name = p.parse_string()
             ps = p.parse_params()

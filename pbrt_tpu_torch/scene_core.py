@@ -4,13 +4,13 @@ points of the general path wave.
 
 A scene is built on the host in numpy and moved once to the device the
 caller names. It holds triangle meshes (per-vertex normals and uvs when
-given) with diffuse and hair materials, cubic Bezier curves, exact bilinear
-patches, area-triangle emission and uniform infinite lights, under a
-uniform or power light sampler, and static object instances of triangle
-prototypes. Other shapes,
-lights, materials, media, textures, animated instances and alpha are not
-ported: their builders do not exist here, and the parser refuses their
-directives.
+given) with diffuse, conductor, dielectric and hair materials, cubic
+Bezier curves, exact bilinear patches, area-triangle emission, uniform
+infinite lights and an image infinite light, under a uniform or power
+light sampler, and static object instances of triangle prototypes. Other
+shapes, lights, materials, media, textures, animated instances and alpha
+are not ported: their builders do not exist here, and the parser refuses
+their directives.
 
 Triangle queries follow the reference's dispatch (_tri_dispatch): a scene
 with instances sends every closest and any hit through the two-level
@@ -80,7 +80,8 @@ class Scene:
     curve_nodes); None (0, False) without curves. blp_rows (K, 14) the
     exact bilinear patches [p00, p10, p01, p11, material, -1]; None (False)
     without patches.
-    bxdf_tags: the BxDF tags of the material pool."""
+    bxdf_tags: the BxDF tags of the material pool. env: the image infinite
+    light's tables (lights.EnvLight), None without one."""
     tri_all: torch.Tensor
     tri_pallas: torch.Tensor
     bvh8: bvh8_mod.BVH8
@@ -113,6 +114,7 @@ class Scene:
     blp_rows: torch.Tensor = None
     has_blps: bool = False
     bxdf_tags: tuple = (bxdfs.BXDF_DIFFUSE,)
+    env: lgt.EnvLight = None
 
     @property
     def device(self) -> torch.device:
@@ -171,6 +173,7 @@ class SceneBuilder:
         self.curve_seg_bounds = []   # (lo, hi) of its sub-segments
         self.curve_mat_list = []     # material of each curve id
         self.blp_list = []           # (p00, p10, p01, p11, material)
+        self._env_image = None       # (image, scale) of the image light
 
     def add_spectrum(self, s: spc.Spectrum, key=None) -> int:
         """Add a spectrum to the pool, deduplicated by content."""
@@ -294,6 +297,23 @@ class SceneBuilder:
             spec_idx=self.add_spectrum(spectrum, key=("inf", id(spectrum))),
             scale=scale, tri=0, two_sided=False, cfs=1.0, cfe=1.0,
             is_delta=False, power=1.0))
+        return len(self.light_rows) - 1
+
+    def add_image_infinite_light(self, image_rgb, scale=1.0) -> int:
+        """An environment map: image_rgb (H, W, 3) linear RGB in the
+        equal-area octahedral layout (utils/image_env.equalarea_from_latlong
+        for lat-long maps); its power is the mean luminance times scale.
+        One a scene, as in the reference."""
+        if self._env_image is not None:
+            raise NotImplementedError("a second image infinite light")
+        image_rgb = np.asarray(image_rgb, np.float32)
+        lum = (0.2126 * image_rgb[..., 0] + 0.7152 * image_rgb[..., 1]
+               + 0.0722 * image_rgb[..., 2]).mean()
+        self._env_image = (image_rgb, scale)
+        self.light_rows.append(dict(
+            tag=lgt.LIGHT_IMAGE_INFINITE, p=np.zeros(3), dir=np.zeros(3),
+            spec_idx=0, scale=scale, tri=0, two_sided=False, cfs=1.0,
+            cfe=1.0, power=float(lum) * scale, is_delta=False))
         return len(self.light_rows) - 1
 
     def _mega_meta(self, use_bvh, ls, p0, p1, p2):
@@ -489,6 +509,12 @@ class SceneBuilder:
             extra.update(has_blps=True, blp_rows=t(np.stack([
                 np.concatenate([*corners, [float(m), -1.0]])
                 for *corners, m in self.blp_list])))
+        if self._env_image is not None:
+            img, esc = self._env_image
+            extra["env"] = lgt.make_env_light(
+                img, self.cs, scale=esc, device=device,
+                light_index=next(i for i, r in enumerate(rows)
+                                 if r["tag"] == lgt.LIGHT_IMAGE_INFINITE))
         scene = Scene(
             tri_all=t(np.concatenate([tri_geo, tri_shade], axis=1)),
             tri_pallas=tri_pallas, bvh8=bvh8,

@@ -1,9 +1,10 @@
 """Color spaces and RGB -> spectrum conversion (counterpart of
-pbrt_tpu/utils/color.py), the subset the cornell main path uses.
+pbrt_tpu/utils/color.py), the subset the ported paths use.
 
 RGB reflectances become Jakob-Hanika sigmoid polynomials through the same
 precomputed coefficient table the reference reads (rgb2spec_srgb.npz).
-Host side is numpy; ``linear_to_srgb`` works on tensors.
+Host side is numpy; ``sigmoid_polynomial`` and ``linear_to_srgb`` work on
+tensors.
 """
 from __future__ import annotations
 
@@ -90,6 +91,11 @@ class RGBColorSpace:
     def to_spectrum_coeffs(self, rgb) -> np.ndarray:
         return self.spectrum_table.lookup(np.asarray(rgb, np.float32))
 
+    @functools.cached_property
+    def illuminant_dense(self) -> np.ndarray:
+        """The illuminant baked to the 471-entry 1-nm float32 table."""
+        return self.illuminant.to_dense()
+
 
 @functools.lru_cache(maxsize=1)
 def srgb() -> RGBColorSpace:
@@ -133,6 +139,15 @@ class RGBIlluminantSpectrum(spc.Spectrum):
 
     def __call__(self, lam):
         return self.unbounded(lam) * self.illum(lam)
+
+
+def sigmoid_polynomial(c0, c1, c2, lam):
+    """Reflectance at wavelengths lam (nm) of the sigmoid polynomial with
+    coefficients c0, c1, c2, broadcast together (reference
+    RGBSigmoidPolynomial)."""
+    x = (c0 * lam + c1) * lam + c2
+    s = 0.5 + x / (2.0 * torch.sqrt(1.0 + x * x))
+    return torch.where(torch.isinf(x), torch.where(x > 0, 1.0, 0.0), s)
 
 
 def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:

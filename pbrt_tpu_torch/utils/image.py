@@ -1,5 +1,5 @@
-"""Scanline OpenEXR reading and writing (the EXR part of
-pbrt_tpu/utils/image.py).
+"""Scanline OpenEXR reading and writing, and PFM reading (the EXR and PFM
+parts of pbrt_tpu/utils/image.py).
 
 The port imports no module of the JAX package, so it carries its own EXR
 codec; tests/test_torch_render.py holds it to the reference's (each reads
@@ -124,3 +124,15 @@ def read_exr(path) -> np.ndarray:
                 cp += w * sz
     order = [names.index(c) for c in "RGB"]
     return img[:, :, order]
+
+
+def read_pfm(path) -> np.ndarray:
+    """Portable float map -> (H, W, 3) (color) or (H, W) float32, top row
+    first."""
+    with open(path, "rb") as f:
+        color = f.readline().strip() == b"PF"
+        w, h = map(int, f.readline().split())
+        scale = float(f.readline())
+        data = np.frombuffer(f.read(), "<f4" if scale < 0 else ">f4")
+    img = data.reshape(h, w, 3) if color else data.reshape(h, w)
+    return np.flipud(img).astype(np.float32)

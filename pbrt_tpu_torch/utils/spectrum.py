@@ -1,10 +1,11 @@
 """Spectra (counterpart of pbrt_tpu/utils/spectrum.py), the subset the
-cornell main path uses.
+ported paths use.
 
-Host side (numpy, float64): the CIE tables and the dense / piecewise-linear
-spectrum classes behind the sRGB illuminant (CIE D65). Tensor side:
-visible-wavelength sampling and the analytic CIE 1931 fits the default
-sensor evaluates.
+Host side (numpy, float64): the CIE tables, the dense / piecewise-linear
+spectrum classes and the named-spectrum table (metals, glasses, standard
+illuminants, read from pbrt_tpu/data/named_spectra.npz). Tensor side:
+visible-wavelength sampling, dense-table lookups and the analytic CIE 1931
+fits the default sensor evaluates.
 """
 from __future__ import annotations
 
@@ -114,11 +115,52 @@ class PiecewiseLinearSpectrum(Spectrum):
 
 
 @functools.lru_cache(maxsize=1)
+def named_spectra_raw() -> dict:
+    """The named-spectrum table: key -> interleaved [lambda, value, ...]."""
+    with np.load(DATA_DIR / "named_spectra.npz") as d:
+        return {k: d[k] for k in d.files}
+
+
+# pbrt's spectrum names -> the table's keys (reference _NAME_MAP)
+_NAME_MAP = {
+    "glass-BK7": "GlassBK7_eta", "glass-BAF10": "GlassBAF10_eta",
+    "glass-FK51A": "GlassFK51A_eta", "glass-LASF9": "GlassLASF9_eta",
+    "glass-F5": "GlassSF5_eta", "glass-F10": "GlassSF10_eta",
+    "glass-F11": "GlassSF11_eta",
+    "metal-Ag-eta": "Ag_eta", "metal-Ag-k": "Ag_k",
+    "metal-Al-eta": "Al_eta", "metal-Al-k": "Al_k",
+    "metal-Au-eta": "Au_eta", "metal-Au-k": "Au_k",
+    "metal-Cu-eta": "Cu_eta", "metal-Cu-k": "Cu_k",
+    "metal-CuZn-eta": "CuZn_eta", "metal-CuZn-k": "CuZn_k",
+    "metal-MgO-eta": "MgO_eta", "metal-MgO-k": "MgO_k",
+    "metal-TiO2-eta": "TiO2_eta", "metal-TiO2-k": "TiO2_k",
+    "stdillum-A": "CIE_Illum_A", "stdillum-D50": "CIE_Illum_D5000",
+    "stdillum-D65": "CIE_Illum_D6500",
+    "illum-acesD60": "ACES_Illum_D60",
+}
+for _i in range(1, 13):
+    _NAME_MAP[f"stdillum-F{_i}"] = f"CIE_Illum_F{_i}"
+
+
+@functools.lru_cache(maxsize=128)
+def get_named_spectrum(name: str):
+    """A named spectrum (reference GetNamedSpectrum), or None for an unknown
+    name; the illuminants ("stdillum-*", "illum-*") are normalized to the
+    CIE Y integral."""
+    raw = named_spectra_raw()
+    key = _NAME_MAP.get(name)
+    if key is None and name in raw:
+        key = name
+    if key is None or key not in raw:
+        return None
+    normalize = name.startswith("stdillum") or name.startswith("illum")
+    return PiecewiseLinearSpectrum.from_interleaved(raw[key],
+                                                    normalize=normalize)
+
+
 def d65_spectrum() -> Spectrum:
-    """CIE standard illuminant D65 from the named-spectra table, normalized
-    like the reference's "stdillum-D65"."""
-    raw = np.load(DATA_DIR / "named_spectra.npz")["CIE_Illum_D6500"]
-    return PiecewiseLinearSpectrum.from_interleaved(raw, normalize=True)
+    """CIE standard illuminant D65, the reference's "stdillum-D65"."""
+    return get_named_spectrum("stdillum-D65")
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +188,16 @@ def sample_visible_wavelengths(u: torch.Tensor) -> SampledWavelengths:
     up = torch.where(up > 1.0, up - 1.0, up)
     lam = 538.0 - 138.888889 * torch.atanh(0.85691062 - 1.82750197 * up)
     return SampledWavelengths(lam=lam, pdf=visible_wavelengths_pdf(lam))
+
+
+def eval_dense(table: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """A dense 1-nm table over [LAMBDA_MIN, LAMBDA_MAX], (471,), linearly
+    interpolated at lam (..., 4); 0 outside the range."""
+    x = torch.clamp(lam - LAMBDA_MIN, 0.0, N_CIE - 1.000001)
+    i0 = torch.clamp(torch.floor(x).to(torch.int64), 0, N_CIE - 2)
+    frac = x - i0.to(torch.float32)
+    out = table[i0] * (1.0 - frac) + table[i0 + 1] * frac
+    return torch.where((lam >= LAMBDA_MIN) & (lam <= LAMBDA_MAX), out, 0.0)
 
 
 def safe_div_spectrum(a, b):

@@ -39,6 +39,14 @@ def export(scene, cam, sampler):
                       curve_mats=np.asarray(scene.curve_mats))
     if scene.has_blps:
         arrays["blp_rows"] = np.asarray(scene.blp_rows)
+    if scene.env is not None:
+        env = scene.env
+        arrays.update(env_texels=np.asarray(env.texels),
+                      env_alias_rows=np.asarray(env.alias_rows),
+                      env_pmf=np.asarray(env.pmf),
+                      env_illum=np.asarray(env.illum))
+        meta["env"] = dict(scale=float(env.scale), width=env.width,
+                           height=env.height, light_index=env.light_index)
     if scene.has_instances:
         arrays.update(tlas_nodes=np.asarray(scene.tlas_nodes),
                       inst_rows=np.asarray(scene.inst_rows),

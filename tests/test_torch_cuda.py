@@ -668,3 +668,73 @@ def test_dma_probe_kernel_matches_plain_at_page_sizes(cuda_device, R, mode,
         got = dp.dma_ladder(pages, x, lad, P, 4, copy=copy, reduce="sum")
         assert torch.equal(got, dp.dma_ladder_plain(pages, x, lad, P, 4,
                                                     "sum"))
+
+
+def _envlit(device, size=64, spp=16):
+    """scenes/envlit.pbrt parsed on device at size x size and spp."""
+    text = (Path(__file__).resolve().parent.parent / "scenes"
+            / "envlit.pbrt").read_text().replace(
+        '"integer xresolution" [200] "integer yresolution" [200]',
+        f'"integer xresolution" [{size}] "integer yresolution" [{size}]'
+    ).replace('"integer pixelsamples" [64]',
+              f'"integer pixelsamples" [{spp}]')
+    return parser.parse_string(text, base_dir=Path(__file__).resolve()
+                               .parent.parent / "scenes", device=device)
+
+
+@pytest.mark.cuda
+def test_tri_intersect_bit_equal_on_envlit_wave_queries(cuda_device):
+    """The triangle-kernel queries of one envlit wave (64x64 lanes, depth
+    5; 1,538 triangles, six 256-row tiles): the camera rays, each bounce
+    and each shadow query, t, prim, b1 and b2 bit-equal to the plain
+    version (the hit flag at any hit)."""
+    desc = _envlit(cuda_device)
+    s = desc.scene
+    assert s.n_tris == 1538 and not s.use_bvh
+    queries = []
+    kernel = ti.tri_intersect
+
+    def recording(tri, o, d, t_max, n_real, any_hit=False):
+        t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                                device=cuda_device).expand(o.shape[0])
+        queries.append((o, d, t_max.contiguous(), bool(any_hit)))
+        return kernel(tri, o, d, t_max, n_real, any_hit)
+    ti.tri_intersect = recording
+    try:
+        from pbrt_tpu_torch.integrators import path as path_mod
+        pix = torch.arange(64 * 64, device=cuda_device)
+        path_mod.render_wave(s, desc.camera, desc.sampler,
+                             flt.make_filter("gaussian"), pix,
+                             torch.zeros_like(pix),
+                             path_mod.PathOptions(max_depth=5))
+    finally:
+        ti.tri_intersect = kernel
+    assert sum(not q[3] for q in queries) == 5 and \
+        sum(q[3] for q in queries) == 5
+    for o, d, t_max, any_hit in queries:
+        got = ti._launch(s.tri_pallas, o.contiguous(), d.contiguous(), t_max,
+                         s.n_tris, any_hit)
+        want = ti.tri_intersect_plain(s.tri_pallas, o, d, t_max, s.n_tris,
+                                      any_hit)
+        _bit_equal(got, want, any_hit, ("t", "prim", "b1", "b2"))
+
+
+@pytest.mark.cuda
+def test_envlit_renders_through_the_general_wave(cuda_device):
+    """envlit (an image light, a conductor, a dielectric) is outside the
+    megakernel: render takes the general wave, every query through the
+    triangle kernel, and the image is finite and lit."""
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    desc = _envlit(cuda_device, size=32, spp=4)
+    assert desc.scene.mega is None and desc.scene.env is not None
+    before = (ti.counter.launches, megawave.counter.launches,
+              ti.counter.plain)
+    img, _st = render.render(desc.scene, desc.camera, sampler=desc.sampler,
+                             device=cuda_device,
+                             opts=path_mod.PathOptions(max_depth=5))
+    assert ti.counter.launches - before[0] == 2 * 5
+    assert megawave.counter.launches == before[1]
+    assert ti.counter.plain == before[2]
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.01

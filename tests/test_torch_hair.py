@@ -138,7 +138,7 @@ def test_dispatch_over_diffuse_and_hair_matches_reference():
         _close(bs[k], bs_j[k], f"bsdf_sample {k}")
     np.testing.assert_array_equal(bs["valid"].numpy(),
                                   np.asarray(bs_j["valid"]))
-    pt.tags_present = tags + (2,)
+    pt.tags_present = tags + (5,)
     with pytest.raises(NotImplementedError, match="ROADMAP.md slice 3"):
         bxdfs.bsdf_pdf(*args)
 

@@ -111,11 +111,11 @@ def test_transforms_normals_and_lights_match_reference():
 @pytest.mark.parametrize("snippet, item", [
     (b'Shape "sphere" "float radius" [1]', "slices 3-4"),
     (b'LightSource "point" "rgb I" [1 1 1]', "slice 3"),
-    (b'Material "conductor"', "slice 3"),
+    (b'Material "coateddiffuse"', "slice 3"),
     (b'Texture "t" "spectrum" "checkerboard"', "slice 3 item 9"),
     (b'Camera "orthographic"', "slice 4 item 21"),
-    (b'LightSource "infinite" "string filename" "sky.exr"',
-     "slice 3 item 8"),
+    (b'LightSource "infinite" "string filename" "sky.exr" '
+     b'"point3 portal" [0 0 0  1 0 0  1 1 0  0 1 0]', "slice 3 item 14"),
     (b'Sampler "halton"', "slice 4 item 21"),
     (b'TransformTimes 0 1', "slice 3 item 10"),
     (b'Frobnicate 1 2 3', None),

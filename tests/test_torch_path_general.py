@@ -327,6 +327,6 @@ def test_bsdf_matches_reference(bvh_scenes):
                                    rtol=1e-5, atol=1e-6, err_msg=k)
     np.testing.assert_array_equal(bs["valid"].numpy(),
                                   np.asarray(bs_j["valid"]))
-    bp.tags_present = (bxdfs.BXDF_DIFFUSE, 1)
+    bp.tags_present = (bxdfs.BXDF_DIFFUSE, 5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md slice 3"):
         bxdfs.bsdf_f(*args)

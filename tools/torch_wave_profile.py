@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/torch_wave_profile.py [--scene NAME]  (NAME: cornell,
-    meshfield, instances, hair or all, the default)
+    meshfield, instances, hair, envlit or all, the default)
 
 cornell: the main path, 400x400, 64 spp, max depth 5, on the megakernel.
 meshfield: scenes/meshfield.pbrt, 200x200, 32 spp, max depth 4, on the
@@ -11,8 +11,10 @@ general wave and the BVH8 kernel. instances: scenes/instances.pbrt,
 200x200, 32 spp, max depth 3, on the general wave and the two-level
 kernel. hair: tools/hair_scene.py's 8,192-strand fur patch (524,288 curve
 sub-segments, the hair material, 4 triangles), 400x400, 16 spp, max depth
-5, on the general wave, the curve kernel and the triangle kernel.
-(pbrt_tpu_torch only; no jax.)
+5, on the general wave, the curve kernel and the triangle kernel. envlit:
+scenes/envlit.pbrt (an image infinite light, a rough conductor, a smooth
+dielectric, 1,538 triangles), 200x200, 64 spp, max depth 5, on the general
+wave and the triangle kernel. (pbrt_tpu_torch only; no jax.)
 Prints the card's name and power limit, then for each scene
   1. the stages of one wave (160,000 lanes), each timed with a synchronize
      around it, median of --reps waves after one warm-up. cornell: the
@@ -29,7 +31,12 @@ Prints the card's name and power limit, then for each scene
      ops/curves.curves_intersect) inside the closest-hit and the shadow
      queries: the kernel's share of "intersect", the rest being tensor code
      (the triangle query's hit records, the gathered re-test of the winning
-     segment, the merge);
+     segment, the merge); envlit also times the image light (its Le of
+     escaped rays, its pdf and its samples) and the conductor's and
+     dielectric's evaluations and samples (parts of shading) on their own,
+     and the triangle kernel's launches (CUDA events around
+     ops/tri_intersect.tri_intersect) inside the closest-hit and the
+     shadow queries;
   2. --renders full renders, unprofiled: paths/s of each;
   3. a render of --profiled-spp samples under torch.profiler: wall time,
      the sum of device self times and their ratio (the device busy share;
@@ -150,11 +157,13 @@ def profile_parsed(args, dev, name, max_depth, path=None):
     from pbrt_tpu_torch import cameras as cam_mod
     from pbrt_tpu_torch import film as film_mod
     from pbrt_tpu_torch import filters as flt
+    from pbrt_tpu_torch import lights as lgt
     from pbrt_tpu_torch import samplers as smp
     from pbrt_tpu_torch import scene_core as sc
     from pbrt_tpu_torch.integrators import path as path_mod
     from pbrt_tpu_torch.integrators import render
     from pbrt_tpu_torch.ops import curves as crv
+    from pbrt_tpu_torch.ops import tri_intersect as ti
     from pbrt_tpu_torch.scene import parser
 
     root = Path(__file__).resolve().parent.parent
@@ -176,10 +185,20 @@ def profile_parsed(args, dev, name, max_depth, path=None):
     pix = torch.arange(W * H, device=dev).repeat(m)
     si = torch.arange(W * H * m, device=dev) // (W * H)
     hair = bxdfs.BXDF_HAIR in scene.bxdf_tags
+    env = scene.env is not None
+    specular = [t for t in (bxdfs.BXDF_CONDUCTOR, bxdfs.BXDF_DIELECTRIC)
+                if t in scene.bxdf_tags]
+    # the kernel whose launches are timed inside the queries: the curve
+    # kernel, else the triangle kernel on the brute-force route
+    tri_route = not scene.has_curves and scene.tri_pallas is not None
     kernel_names = ("curve kernel, closest hit", "curve kernel, any hit") \
-        if scene.has_curves else ()
+        if scene.has_curves else (
+            ("triangle kernel, closest hit", "triangle kernel, any hit")
+            if tri_route else ())
     names = ("sampler dims", "camera", "intersect", "NEE shadow", "shading",
-             "film") + (("hair BxDF",) if hair else ()) + kernel_names
+             "film") + (("hair BxDF",) if hair else ()) + \
+        (("image light",) if env else ()) + \
+        (("conductor, dielectric",) if specular else ()) + kernel_names
     per_wave = {k: [] for k in names}
     for rep in range(args.reps + 1):
         timers = StageTimers()
@@ -192,8 +211,19 @@ def profile_parsed(args, dev, name, max_depth, path=None):
         if hair:
             timers.wrap(bxdfs._F_PDF_FNS, bxdfs.BXDF_HAIR, "hair BxDF")
             timers.wrap(bxdfs, "_hair_sample", "hair BxDF")
+        if env:
+            for fn in ("env_radiance", "env_pdf_li", "env_sample_li"):
+                timers.wrap(lgt, fn, "image light")
+        for t in specular:
+            timers.wrap(bxdfs._F_PDF_FNS, t, "conductor, dielectric")
+            timers.wrap(bxdfs, {bxdfs.BXDF_CONDUCTOR: "_conductor_sample",
+                                bxdfs.BXDF_DIELECTRIC: "_dielectric_sample"}
+                        [t], "conductor, dielectric")
         if scene.has_curves:
             timers.wrap_events(crv, "curves_intersect",
+                               lambda a: kernel_names[bool(a[5])])
+        elif tri_route:
+            timers.wrap_events(ti, "tri_intersect",
                                lambda a: kernel_names[bool(a[5])])
         try:
             torch.cuda.synchronize()
@@ -213,7 +243,7 @@ def profile_parsed(args, dev, name, max_depth, path=None):
         timers.ms["film"] = (time.perf_counter() - t) * 1e3
         timers.ms["shading"] = wave_ms - sum(
             v for k, v in timers.ms.items() if k != "film")
-        if scene.has_curves:   # inside "intersect" and "NEE shadow"
+        if kernel_names:   # inside "intersect" and "NEE shadow"
             timers.ms.update(timers.event_ms())
         if rep:   # the first wave is the warm-up
             for k in names:
@@ -227,9 +257,10 @@ def profile_parsed(args, dev, name, max_depth, path=None):
                                          + stage_ms["shading"])
         print(f"{name}: the hair BxDF is {share:.4f} of shading",
               flush=True)
-    if scene.has_curves:
+    if kernel_names:
         k_ms = stage_ms[kernel_names[0]]
-        print(f"{name}: the curve kernel's launches are {k_ms:.4f} ms of the "
+        print(f"{name}: the {kernel_names[0].split(',')[0]}'s launches are "
+              f"{k_ms:.4f} ms of the "
               f"{stage_ms['intersect']:.4f} ms of \"intersect\" "
               f"({k_ms / stage_ms['intersect']:.4f}; the rest is tensor "
               f"code), and {stage_ms[kernel_names[1]]:.4f} ms of the "
@@ -255,7 +286,8 @@ def profile_parsed(args, dev, name, max_depth, path=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", choices=("cornell", "meshfield", "instances",
-                                        "hair", "all"), default="all")
+                                        "hair", "envlit", "all"),
+                    default="all")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--renders", type=int, default=5)
     ap.add_argument("--profiled-spp", type=int, default=8)
@@ -286,6 +318,8 @@ def main():
         path = _build.BUILD_DIR / "hair.pbrt"
         path.write_text(hair_scene_text(8192, 0, 400, 400, 16))
         out["hair"] = profile_parsed(args, dev, "hair", 5, path)
+    if args.scene in ("envlit", "all"):
+        out["envlit"] = profile_parsed(args, dev, "envlit", 5)
     print(json.dumps(out))
     return 0
 
@@ -295,6 +329,7 @@ def profile_cornell(args, dev):
     import torch
     from pbrt_tpu_torch import film as film_mod
     from pbrt_tpu_torch import filters as flt
+    from pbrt_tpu_torch import lights as lgt
     from pbrt_tpu_torch import samplers as smp
     from pbrt_tpu_torch import scenes
     from pbrt_tpu_torch.integrators import render
