@@ -168,7 +168,32 @@ Phases, each of which raises on failure (exit code 1):
      it makes rays x triangles tensors), each bare launch timed queued,
      each query's bound (its bytes, or the triangle tests its rays need:
      every live ray against every triangle at closest hit, up to the first
-     group with a hit at any hit).
+     group with a hit at any hit);
+ 37. the manylight path through the user entry points (parse_file ->
+     render): scenes/manylight.pbrt (576 emissive quads, 1,152 of its
+     1,324 triangles, under "string lightsampler" "bvh": the light-BVH
+     walk picks each shading point's light and weighs each emitter hit),
+     200x200, 32 spp, max depth 3, the general wave, every query through
+     the triangle kernel, launch counts read around it, the image gated
+     against goldens/manylight_200_32spp.exr (MRSE <= 0.08, mean ratio
+     error <= 0.03) and written to pbrt_tpu_torch/_build/, paths/s with
+     set-up apart;
+ 38. the same for scenes/manylight16k.pbrt (16,928 emissive triangles of
+     17,100, a 15-level light BVH, every query through the BVH8 kernel),
+     200x200, 32 spp, max depth 3, its golden's gates as 37's;
+ 39. the same for scenes/killeroo.pbrt (two killermesh.ply copies under
+     a rough gold conductor and a rough dielectric, 163,842 triangles
+     through the BVH8 kernel, the floor's imagemap on checker.png MIP-
+     filtered by the ray cone, the sky image light), 200x200, 32 spp, max
+     depth 5, gated at MRSE <= 0.06 with the 0.2% largest pixel errors
+     trimmed (tools/golden.py's mrse) and mean ratio error <= 0.03; with
+     each rung the BVH build's time (native SAH, BVH8 collapse) and the
+     scene's tables' bytes on the card;
+ 40. one wave of each (160,000 lanes): the triangle kernel on manylight's
+     queries (as phase 36) and the BVH8 kernel on manylight16k's and
+     killeroo's (as phase 34), every query bit-equal to its plain
+     version, each bare launch timed queued beside its bound and the
+     launches a render makes.
 A bare launch (the launch alone, its arguments prepared once) is timed
 queued: its launches are enqueued behind a spin kernel, so that the card
 runs them back to back and the time is the device's, whatever the host
@@ -213,6 +238,13 @@ ENV_SCENE = ROOT / "scenes" / "envlit.pbrt"
 ENV_GOLDEN = ROOT / "goldens" / "envlit_200_64spp.exr"
 ENV_GATE_MRSE = 0.06    # tools/golden.py CONFIGS, envlit (no trim)
 ENV_GATE_MEAN_RATIO = 0.02
+# phases 37-39 (tools/golden.py CONFIGS: scene, spp, depth, MRSE gate,
+# mean-ratio gate, trim)
+GOLDEN_RUNGS = {
+    "manylight": (32, 3, 0.08, 0.03, 0.0),
+    "manylight16k": (32, 3, 0.08, 0.03, 0.0),
+    "killeroo": (32, 5, 0.06, 0.03, 0.002),
+}
 # rays a chunk of the triangle kernel's plain version in phase 36
 PLAIN_CHUNK = 1 << 14
 # the bound's peaks (H100 SXM data sheet) and the f32 operations of one
@@ -284,11 +316,15 @@ def check(cond, what):
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def mrse(img, ref):
-    """Relative MSE, tools/golden.py mrse (trim 0)."""
+def mrse(img, ref, trim=0.0):
+    """Relative MSE, tools/golden.py mrse: trim drops that share of the
+    largest per-pixel errors first."""
+    import numpy as np
     d = img - ref
-    return float((d * d / (ref * ref + 0.01)).mean(axis=-1).reshape(-1)
-                 .mean())
+    e = (d * d / (ref * ref + 0.01)).mean(axis=-1).reshape(-1)
+    if trim > 0:
+        e = np.sort(e)[:max(1, int(len(e) * (1.0 - trim)))]
+    return float(e.mean())
 
 
 # cycles of the spin kernel a queued timing puts ahead of each of its
@@ -361,18 +397,19 @@ def seeded_rays(n, device, seed=7):
             for a in (o, d, t_any)]
 
 
-def gate(img, golden, shape, max_mrse, max_ratio, label):
-    """Hold a render to a reference-renderer golden; returns (mrse, mean
-    ratio error)."""
+def gate(img, golden, shape, max_mrse, max_ratio, label, trim=0.0):
+    """Hold a render to a reference-renderer golden (trim: mrse's);
+    returns (mrse, mean ratio error)."""
     import numpy as np
     from pbrt_tpu_torch.utils import image
     check(img.shape == shape and bool(np.isfinite(img).all()),
           f"{label}: render output shape or values")
     ref = image.read_exr(golden)
-    m = mrse(img, ref)
+    m = mrse(img, ref, trim)
     ratio = abs(float(img.mean()) / max(float(ref.mean()), 1e-9) - 1.0)
-    print(f"[{label}] mrse {m:.5f} (gate {max_mrse}), mean ratio err "
-          f"{ratio:.5f} (gate {max_ratio})", flush=True)
+    print(f"[{label}] mrse {m:.5f} (gate {max_mrse}"
+          + (f", the {trim:.1%} largest pixel errors trimmed" if trim else "")
+          + f"), mean ratio err {ratio:.5f} (gate {max_ratio})", flush=True)
     check(m <= max_mrse and ratio <= max_ratio, f"{label}: golden gate")
     return m, ratio
 
@@ -1412,7 +1449,7 @@ def wave_queries(module, name, any_hit_arg, desc, max_depth, device):
     return closest, shadow, W * H * m
 
 
-def bvh_wave(label, scene, closest, shadow, arg, card, dev):
+def bvh_wave(label, scene, closest, shadow, arg, card, dev, tag="34 wave"):
     """Phase 34 for the BVH8 ("bvh8") or two-level ("two_level") kernel on
     the queries of one wave (the wrapper's recorded calls, o, d, t_max the
     three arguments before any_hit, at position arg): each query's bare
@@ -1468,7 +1505,7 @@ def bvh_wave(label, scene, closest, shadow, arg, card, dev):
         any_hit = bool(a[arg])
         res = launch(o, d, tv, any_hit)
         want, work = plain(o, d, tv, any_hit)
-        hold_bits(res, want, f"34 wave {label} {name}", any_hit)
+        hold_bits(res, want, f"{tag} {label} {name}", any_hit)
         b_ms, b_by = traversal_bound(work, o.shape[0], kw["out_bytes"],
                                      tables, tri_ops=kw["tri_ops"],
                                      visit_ops=kw.get("visit_ops", SLAB_OPS))
@@ -1481,7 +1518,7 @@ def bvh_wave(label, scene, closest, shadow, arg, card, dev):
     entry = dict(queries=queries, bare_sum_ms=sum(ms),
                  bound_sum_ms=sum(q["bound_ms"] for q in queries))
     entry["bound_ms"] = entry["bound_sum_ms"] / len(queries)
-    print(f"[34 wave] card {card}: {label} on one wave: bare launches "
+    print(f"[{tag}] card {card}: {label} on one wave: bare launches "
           + ", ".join(f"{q['query']} {q['bare_ms']:.4f} ms (bound "
                       f"{q['bound_ms']:.5f} by {q['bound_by']})"
                       for q in queries)
@@ -1739,6 +1776,54 @@ def tri_query_bound(pool, n_real, t_max, want, any_hit):
     return b_ms, b_by, tests
 
 
+def tri_wave(desc, depth, dev, card, tag, render_launches):
+    """The triangle kernel on the queries of one wave of desc's scene
+    (phases 36 and 40): the camera rays, each bounce and each shadow query
+    recorded (wave_queries), each launch bit-equal to its plain version
+    (tri_plain_chunked), each bare launch timed queued, each query's bound
+    (tri_query_bound). Returns the wave's dict."""
+    import torch
+    from pbrt_tpu_torch.ops import tri_intersect as ti
+    closest, shadow, lanes = wave_queries(ti, "tri_intersect", 5, desc,
+                                          depth, dev)
+    names = ["camera rays"] + [f"bounce {i}" for i in range(1, len(closest))]
+    names += [f"shadow {i}" for i in range(1, len(shadow) + 1)]
+    queries = []
+    for name, (a, _k) in zip(names, closest + shadow):
+        pool, o, d, tv, n_real, any_hit = a
+        o, d = o.contiguous(), d.contiguous()
+        tv = torch.as_tensor(tv, dtype=torch.float32, device=dev)
+        tv = tv.expand(o.shape[0]).contiguous()
+        any_hit = bool(any_hit)
+        res = ti._launch(pool, o, d, tv, n_real, any_hit)
+        want = tri_plain_chunked(pool, o, d, tv, n_real, any_hit)
+        hold_bits(res, want, f"{tag} tri_intersect {name}", any_hit)
+        b_ms, b_by, tests = tri_query_bound(pool, n_real, tv, want, any_hit)
+        t_bare = cuda_ms(lambda: ti._launch(pool, o, d, tv, n_real, any_hit,
+                                            out=res), reps=20, warmup=3,
+                         queued=True)
+        queries.append(dict(query=name, rays=o.shape[0], any_hit=any_hit,
+                            live=int((tv > 0).sum().item()), tests=tests,
+                            hit_share=(want[1] >= 0).float().mean().item(),
+                            bare_ms=t_bare, bound_ms=b_ms, bound_by=b_by))
+    wave = dict(lanes=lanes, queries=queries,
+                bare_sum_ms=sum(q["bare_ms"] for q in queries),
+                bound_sum_ms=sum(q["bound_ms"] for q in queries),
+                launches=len(queries))
+    wave["bound_ms"] = wave["bound_sum_ms"] / len(queries)
+    print(f"[{tag} wave] card {card}: tri_intersect at "
+          f"{desc.scene.n_tris} triangles on one wave of {lanes} lanes, "
+          "bare launches queued: " + ", ".join(
+              f"{q['query']} {q['bare_ms']:.4f} ms (live rays {q['live']}, "
+              f"bound {q['bound_ms']:.5f} by {q['bound_by']})"
+              for q in queries)
+          + f"; {len(queries)} launches, {wave['bare_sum_ms']:.4f} ms in all "
+          f"({wave['bound_sum_ms'] / wave['bare_sum_ms'] * 100:.1f}% of the "
+          f"bound); a render makes {render_launches}; every query "
+          "bit-equal to the plain version", flush=True)
+    return wave
+
+
 def envlit_phases(dev, card, named):
     """Phases 35-36, the envlit path: scenes/envlit.pbrt through parse_file
     -> render, gated against its golden, its time; then the triangle
@@ -1747,7 +1832,6 @@ def envlit_phases(dev, card, named):
     from pbrt_tpu_torch.integrators import path as path_mod
     from pbrt_tpu_torch.integrators import render
     from pbrt_tpu_torch.ops import _build
-    from pbrt_tpu_torch.ops import tri_intersect as ti
     from pbrt_tpu_torch.scene import parser
     from pbrt_tpu_torch.utils import image
     # ---- 35. the envlit path through the entry points ----
@@ -1786,47 +1870,150 @@ def envlit_phases(dev, card, named):
           flush=True)
 
     # ---- 36. the triangle kernel on one envlit wave's queries ----
-    closest, shadow, lanes = wave_queries(ti, "tri_intersect", 5, desc, 5,
-                                          dev)
-    names = ["camera rays"] + [f"bounce {i}" for i in range(1, len(closest))]
-    names += [f"shadow {i}" for i in range(1, len(shadow) + 1)]
-    queries = []
-    for name, (a, _k) in zip(names, closest + shadow):
-        pool, o, d, tv, n_real, any_hit = a
-        o, d = o.contiguous(), d.contiguous()
-        tv = torch.as_tensor(tv, dtype=torch.float32, device=dev)
-        tv = tv.expand(o.shape[0]).contiguous()
-        any_hit = bool(any_hit)
-        res = ti._launch(pool, o, d, tv, n_real, any_hit)
-        want = tri_plain_chunked(pool, o, d, tv, n_real, any_hit)
-        hold_bits(res, want, f"36 envlit tri_intersect {name}", any_hit)
-        b_ms, b_by, tests = tri_query_bound(pool, n_real, tv, want, any_hit)
-        t_bare = cuda_ms(lambda: ti._launch(pool, o, d, tv, n_real, any_hit,
-                                            out=res), reps=20, warmup=3,
-                         queued=True)
-        queries.append(dict(query=name, rays=o.shape[0], any_hit=any_hit,
-                            live=int((tv > 0).sum().item()), tests=tests,
-                            hit_share=(want[1] >= 0).float().mean().item(),
-                            bare_ms=t_bare, bound_ms=b_ms, bound_by=b_by))
-    wave = dict(lanes=lanes, queries=queries,
-                bare_sum_ms=sum(q["bare_ms"] for q in queries),
-                bound_sum_ms=sum(q["bound_ms"] for q in queries),
-                launches=len(queries))
-    wave["bound_ms"] = wave["bound_sum_ms"] / len(queries)
-    print(f"[36 envlit wave] card {card}: tri_intersect at {s.n_tris} "
-          f"triangles on one envlit wave of {lanes} lanes, bare launches "
-          "queued: " + ", ".join(
-              f"{q['query']} {q['bare_ms']:.4f} ms (live rays {q['live']}, "
-              f"bound {q['bound_ms']:.5f} by {q['bound_by']})"
-              for q in queries)
-          + f"; {len(queries)} launches, {wave['bare_sum_ms']:.4f} ms in all "
-          f"({wave['bound_sum_ms'] / wave['bare_sum_ms'] * 100:.1f}% of the "
-          f"bound); a render makes {launches['tri_intersect']}; every query "
-          "bit-equal to the plain version", flush=True)
+    wave = tri_wave(desc, 5, dev, card, "36 envlit",
+                    launches["tri_intersect"])
     return dict(render=dict(paths_per_sec=stats["paths_per_sec"],
                             seconds=stats["seconds"], setup_s=setup, mrse=m,
                             mean_ratio_err=ratio),
                 launches=launches["tri_intersect"], wave=wave)
+
+
+def device_bytes(obj, seen=None):
+    """Bytes of every tensor a scene holds, through its nested tables (the
+    BVH8, the light sampler, the texture pool, the image light)."""
+    import dataclasses
+    import torch
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        if obj.data_ptr() in seen:
+            return 0
+        seen.add(obj.data_ptr())
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(device_bytes(getattr(obj, f.name), seen)
+                   for f in dataclasses.fields(obj))
+    return 0
+
+
+def timed_calls(targets, run):
+    """Run run() with each (module, name) of targets wrapped to add its
+    synchronized wall time to a total. Returns (run's result, {name:
+    seconds})."""
+    import torch
+    totals = {name: 0.0 for _m, name in targets}
+    saved = []
+    for module, name in targets:
+        fn = getattr(module, name)
+        saved.append((module, name, fn))
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            totals[_name] += time.perf_counter() - t0
+            return out
+        setattr(module, name, wrapped)
+    try:
+        return run(), totals
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def golden_rung(name, dev, card, named, route, tag):
+    """One rung of phases 37-39: scenes/<name>.pbrt through parse_file ->
+    render at its golden's spp and depth, every query through the kernel
+    of route ("tri_intersect" or "bvh8") and no plain version, the image
+    gated against goldens/<name>_200_32spp.exr with tools/golden.py's
+    gates and written to pbrt_tpu_torch/_build/, paths/s with set-up
+    apart. Returns (the parsed scene, the rung's dict)."""
+    import torch
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.ops import bvh as bvh_mod
+    from pbrt_tpu_torch.ops import bvh8
+    from pbrt_tpu_torch.scene import parser
+    from pbrt_tpu_torch.utils import image
+    spp, depth, max_mrse, max_ratio, trim = GOLDEN_RUNGS[name]
+    reset_counts(named.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    desc, build_s = timed_calls(
+        [(bvh8, "build_bvh8"), (bvh_mod, "build_bvh"),
+         (bvh8, "collapse_to_bvh8")],
+        lambda: parser.parse_file(ROOT / "scenes" / f"{name}.pbrt",
+                                  device=dev))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    s = desc.scene
+    check(desc.sampler.spp == spp and s.mega is None,
+          f"{name}: the scene's sampler or route")
+    img, stats = render.render(s, desc.camera, sampler=desc.sampler,
+                               device=dev,
+                               opts=path_mod.PathOptions(max_depth=depth))
+    launches = {c: k.launches for c, k in named.items()}
+    plain = sum(k.plain for k in named.values())
+    n_bytes = device_bytes(s)
+    print(f"[{tag}] {s.n_tris} triangles, {s.light_sampler.n_lights} "
+          f"lights (sampler kind {s.light_sampler.kind}"
+          + (f", light BVH depth {s.light_sampler.max_depth}"
+             if hasattr(s.light_sampler, "max_depth") else "")
+          + f"), BxDF tags {s.bxdf_tags}, textures {s.has_textures}; "
+          f"launches {launches}, plain-version runs {plain}; "
+          f"{stats['lanes_per_wave']} lanes per wave; the tables "
+          f"{n_bytes / 2**20:.2f} MiB on the card; BVH build "
+          f"{build_s['build_bvh8']:.3f} s (native SAH "
+          f"{build_s['build_bvh']:.3f} s, BVH8 collapse "
+          f"{build_s['collapse_to_bvh8']:.3f} s)", flush=True)
+    check(launches[route] >= 1 and sum(launches.values()) == launches[route],
+          f"{name} left the {route} route")
+    check(plain == 0, f"{name} ran a plain version on the card")
+    m, ratio = gate(img, ROOT / "goldens" / f"{name}_200_32spp.exr",
+                    (200, 200, 3), max_mrse, max_ratio, f"{tag} golden",
+                    trim=trim)
+    print(f"[{tag} golden] margins: mrse {max_mrse - m:.5f}, mean ratio err "
+          f"{max_ratio - ratio:.5f} under the gates", flush=True)
+    image.write_exr(_build.BUILD_DIR / f"{name}_200_32spp.exr", img)
+    print(f"[{tag} times] card {card}: {name} 200x200x{spp} depth {depth} "
+          f"{stats['paths_per_sec']:.6g} paths/s ({stats['seconds']:.3f} s),"
+          f" set-up (parse and build) {setup:.3f} s apart", flush=True)
+    return desc, dict(paths_per_sec=stats["paths_per_sec"],
+                      seconds=stats["seconds"], setup_s=setup, mrse=m,
+                      mean_ratio_err=ratio, launches=launches[route],
+                      device_bytes=n_bytes,
+                      bvh_build_s=build_s["build_bvh8"],
+                      bvh_sah_s=build_s["build_bvh"],
+                      bvh_collapse_s=build_s["collapse_to_bvh8"])
+
+
+def manylight_killeroo_phases(dev, card, named):
+    """Phases 37-40: the manylight, manylight16k and killeroo rungs
+    through parse_file -> render, gated against their goldens; then
+    kernels 1 and 4 on one wave's own queries of each."""
+    from pbrt_tpu_torch.ops import bvh8
+    out = {}
+    descs = {}
+    for name, route, tag in (("manylight", "tri_intersect", "37 manylight"),
+                             ("manylight16k", "bvh8", "38 manylight16k"),
+                             ("killeroo", "bvh8", "39 killeroo")):
+        descs[name], out[name] = golden_rung(name, dev, card, named, route,
+                                             tag)
+    # ---- 40. kernels 1 and 4 on these waves' own queries ----
+    out["manylight"]["wave"] = tri_wave(
+        descs["manylight"], GOLDEN_RUNGS["manylight"][1], dev, card,
+        "40 manylight", out["manylight"]["launches"])
+    for name in ("manylight16k", "killeroo"):
+        depth = GOLDEN_RUNGS[name][1]
+        closest, shadow, lanes = wave_queries(bvh8, "bvh8_intersect", 4,
+                                              descs[name], depth, dev)
+        wave = bvh_wave("bvh8", descs[name].scene, closest, shadow, 4, card,
+                        dev, tag=f"40 {name} wave")
+        wave.update(lanes=lanes, launches=len(closest) + len(shadow))
+        print(f"[40 {name} wave] a render makes {out[name]['launches']} "
+              "launches of the BVH8 kernel", flush=True)
+        out[name]["wave"] = wave
+    return out
 
 
 def main():
@@ -2217,6 +2404,10 @@ def main():
     ev = envlit_phases(dev, card, named)
     print(f"[36 envlit wave] phases 35-36 took "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
+    t_new = time.perf_counter()
+    mk = manylight_killeroo_phases(dev, card, named)
+    print(f"[40 times] phases 37-40 took {time.perf_counter() - t_new:.1f} "
+          "s", flush=True)
 
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]
@@ -2270,6 +2461,11 @@ def main():
             ("tri_intersect (envlit, 1,538 triangles)", ev["launches"],
              ev["wave"]["bare_sum_ms"] / ev["wave"]["launches"],
              ev["wave"]["bound_ms"]),
+            *((f"{kname} ({name})", mk[name]["launches"],
+               mk[name]["wave"]["bare_sum_ms"] / mk[name]["wave"]["launches"],
+               mk[name]["wave"]["bound_ms"]) for kname, name in (
+                ("tri_intersect", "manylight"), ("bvh8", "manylight16k"),
+                ("bvh8", "killeroo"))),
             *((f"{name} ({path})", n,
                w.get("bare_sum_ms", w["sum_ms"]) / w["launches"],
                w["bound_ms"]) for name, path, n, w in (
@@ -2312,7 +2508,11 @@ def main():
              sphere_launches=rd["sphere_launches"],
              # phases 35-36: the envlit render's launches and one envlit
              # wave's queries at 1,538 triangles (bare launches, bounds)
-             envlit_launches=ev["launches"], envlit_wave=ev["wave"]),
+             envlit_launches=ev["launches"], envlit_wave=ev["wave"],
+             # phases 37 and 40: the manylight render's launches and one
+             # manylight wave's queries at 1,324 triangles
+             manylight_launches=mk["manylight"]["launches"],
+             manylight_wave=mk["manylight"]["wave"]),
         # launches: the meshfield render (phase 8); ms: closest hit at
         # 2^20 rays (any hit in any_hit_ms)
         dict(name="bvh8", route="cuda",
@@ -2325,7 +2525,13 @@ def main():
              any_hit_ms=b8_ms[True][0], any_hit_bare_ms=b8_ms[True][2],
              any_hit_plain_ms=b8_ms[True][1],
              # phase 34: the queries of one meshfield wave
-             wave=rd["wave_ms"]["bvh8"]),
+             wave=rd["wave_ms"]["bvh8"],
+             # phases 38-40: the manylight16k (17,100 triangles) and
+             # killeroo (163,842) renders' launches and one wave's queries
+             manylight16k_launches=mk["manylight16k"]["launches"],
+             manylight16k_wave=mk["manylight16k"]["wave"],
+             killeroo_launches=mk["killeroo"]["launches"],
+             killeroo_wave=mk["killeroo"]["wave"]),
         # launches: none on a render path (only tests reach the reference's
         # kernel too); its checks and times: phases 12 and 15, closest hit
         # on meshfield's binary BVH at 2^20 rays
@@ -2417,7 +2623,9 @@ def main():
         paths_per_sec=istats["paths_per_sec"], seconds=istats["seconds"],
         mrse=i_mrse, mean_ratio_err=i_ratio), hair=cr["hair"],
         hair_ref=cr["hair_ref"], rays_in=ri["render"],
-        terrain_bvh8_ms=tr["bvh8_ms"], patches=pt, envlit=ev["render"])))
+        terrain_bvh8_ms=tr["bvh8_ms"], patches=pt, envlit=ev["render"],
+        **{name: {k: v for k, v in mk[name].items() if k != "wave"}
+           for name in GOLDEN_RUNGS})))
     print(f"card: {card}")
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps({"ok": True, "device": {

@@ -79,3 +79,14 @@ def generate_ray_weighted(cam: Camera, p_film: torch.Tensor):
     weight (N,))."""
     o, d = generate_ray(cam, p_film)
     return o, d, torch.ones_like(p_film[..., 0])
+
+
+def pixel_cone_spread(cam: Camera) -> float:
+    """The angular width of one pixel's ray cone (reference
+    pixel_cone_spread), which the path integrator carries to pick texture
+    MIP levels (the reference's stand-in for ray differentials), float32
+    arithmetic in the reference's order."""
+    f32 = np.float32
+    spread = f32(2.0) * f32(cam.tan_half_fov) * \
+        f32(cam.screen_max[0] - cam.screen_min[0])
+    return float(spread / f32(2.0) / f32(cam.width))

@@ -7,7 +7,11 @@ both packages can compute on the same scene.
 
 arrays: "tri_all" (T, 27); "mat_pool" (M, 22); "lights_packed" (L, 24);
 "spectra_pool" (S, 471); "ls_rows" (L, 4) and "ls_pmf" (L,), the light
-sampler's alias rows and pmf table; "c2w_m" (4, 4); "tan_half_fov" ();
+sampler's alias rows and pmf table (uniform and power samplers);
+"ls_nodes", "ls_bit_trail", "ls_trail_len", "ls_outside",
+"ls_pmf_outside" (the light BVH's tables) or "ls_cols", "ls_is_inf" (the
+exhaustive sampler's); "tex_desc", "tex_atlas", "tex_mips" (the texture
+pool); "c2w_m" (4, 4); "tan_half_fov" ();
 "tri_pallas" (T'*16,) on the brute-force route; "nodes_f", "nodes_q",
 "tris_b8", "prim_indices" (the BVH8 tables) on the BVH route;
 "tlas_nodes", "inst_rows", "tri_geo_tlas" (the two-level tables; the
@@ -18,7 +22,10 @@ kernel's own node table is derived from them) for a scene with curves;
 "env_alias_rows", "env_pmf", "env_illum" (the image infinite light's
 tables) for a scene with one; "attr", "light", "mat" (the reference's
 megawave.scene_tables) for a megakernel scene.
-meta: "ls_kind", "n_lights", "scene_radius", "inf_indices", "light_tags",
+meta: "ls_kind", "n_lights", "ls" (the light BVH's max_depth and
+p_outside, or the exhaustive sampler's p_infinite), "has_textures",
+"tex_flags" (has_image, has_mips), "scene_radius", "inf_indices",
+"light_tags",
 "n_tris", "bxdf_tags" (the material pool's tag set); "env" (scale,
 width, height, light_index) with the image light's tables; "bvh8" (n_nodes,
 n_tris, depth) on the BVH route; "tlas_root" for an instanced scene;
@@ -33,8 +40,10 @@ import torch
 
 from . import cameras as cam_mod
 from . import device as dev_mod
+from . import lightsampler_bvh as lbvh
 from . import lights as lgt
 from . import lightsamplers as lsamp
+from . import textures as tex_mod
 from . import samplers as smp
 from .ops import bvh as bvh_mod
 from .ops import bvh2 as bvh2_mod
@@ -88,12 +97,33 @@ def from_jax_scene(arrays: dict, meta: dict, device="cuda"):
             pmf=t("env_pmf"), illum=t("env_illum"),
             scale=float(np.float32(em["scale"])), width=int(em["width"]),
             height=int(em["height"]), light_index=int(em["light_index"]))
-    kind = int(meta["ls_kind"])
-    ls = lsamp.LightSampler(
-        kind=kind, n_lights=int(meta["n_lights"]),
-        rows=(np.asarray(arrays["ls_rows"], np.float32)
-              if kind == lsamp.LS_POWER else None),
-        pmf_table=np.asarray(arrays["ls_pmf"], np.float32))
+    kind, n_lights = int(meta["ls_kind"]), int(meta["n_lights"])
+    lm = meta.get("ls", {})
+    if kind == lsamp.LS_BVH:
+        ls = lbvh.BVHLightSampler(
+            nodes=t("ls_nodes"), bit_trail=t("ls_bit_trail", np.int32),
+            trail_len=t("ls_trail_len", np.int32),
+            outside=t("ls_outside", bool),
+            pmf_outside=t("ls_pmf_outside"), n_lights=n_lights,
+            max_depth=int(lm["max_depth"]),
+            p_outside=float(lm["p_outside"]))
+    elif kind == lsamp.LS_EXHAUSTIVE:
+        ls = lsamp.ExhaustiveLightSampler(
+            cols=t("ls_cols"), is_inf=t("ls_is_inf"), n_lights=n_lights,
+            p_infinite=float(lm["p_infinite"]))
+    else:
+        ls = lsamp.LightSampler(
+            kind=kind, n_lights=n_lights,
+            rows=(np.asarray(arrays["ls_rows"], np.float32)
+                  if kind == lsamp.LS_POWER else None),
+            pmf_table=np.asarray(arrays["ls_pmf"], np.float32))
+    if "tex_desc" in arrays:
+        has_image, has_mips = meta["tex_flags"]
+        extra.update(
+            textures=tex_mod.TexturePool(
+                desc=t("tex_desc"), atlas=t("tex_atlas"), mips=t("tex_mips"),
+                has_image=bool(has_image), has_mips=bool(has_mips)),
+            has_textures=bool(meta["has_textures"]))
     mega = meta.get("mega")
     scene = Scene(
         tri_all=t("tri_all"), tri_pallas=t("tri_pallas"), bvh8=bvh8,

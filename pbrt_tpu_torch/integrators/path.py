@@ -21,11 +21,19 @@ max(beta) times the accumulated eta_scale, with the reference's sampler
 dimension layout (camera dims 0-5, then 11 per bounce: light pick +0,
 light point +1/+2, BSDF lobe choice +3 and direction +4/+5, roulette +6;
 the lobe choice is drawn only where a lobe of the scene reads it, hair or
-the dielectric). The shading frame's +x follows the
-hit's dpdu, a curve's chord on a curve hit, as the hair BxDF needs. Dead
-lanes are masked, and their rays are queried with t_max = -1, which the
-triangle and curve queries answer with a miss at no cost. The reference's
-lane compaction and morton ray sort are TPU workarounds and are left out.
+the dielectric). A bvh or exhaustive light sampler picks the light from
+the shading point, and weighs an emitter hit by its pmf from the ray's
+origin. Each lane carries the reference's ray cone (its width and spread:
+the spread starts at the camera's pixel spread and gains 0.25 at each
+non-specular bounce, the width grows by spread times the hit distance),
+whose uv footprint picks a texture's MIP level. The shading frame's +x
+follows the hit's dpdu, a curve's chord on a curve hit, as the hair BxDF
+needs. Dead lanes are masked, and their rays are queried with t_max = -1,
+which every query answers with a miss; a dead ray is not free: the
+triangle kernel still scans the whole pool for it, so a query costs a
+full launch whatever the live rays (ROADMAP.md section 2, K1). The
+reference's lane compaction and morton ray sort are TPU workarounds and
+are left out.
 """
 from __future__ import annotations
 
@@ -103,7 +111,7 @@ def _nee(scene, sampler, px, py, si, lam, spec_cache, isect, ns, ng, t1, t2,
     u_pick = smp.sample_1d(sampler, px, py, si, base)
     u_l = smp.sample_2d(sampler, px, py, si, base + 1)
     li_idx, pmf = lsamp.sample_light(scene.light_sampler, u_pick,
-                                     scene.alias_rows)
+                                     scene.alias_rows, p=isect["p"])
     ls = lgt.sample_li(scene.lights_packed, torch.clamp(li_idx, min=0),
                        isect["p"], u_l, lam, scene.spectra_pool,
                        scene.scene_radius, scene.light_tags, spec_cache,
@@ -126,20 +134,23 @@ def _nee(scene, sampler, px, py, si, lam, spec_cache, isect, ns, ng, t1, t2,
 
 
 def trace_paths(scene, sampler, px, py, sample_index, o, d,
-                swl: spc.SampledWavelengths, opts: PathOptions, time=None):
+                swl: spc.SampledWavelengths, opts: PathOptions,
+                cone_spread=None, time=None):
     """Trace one wave of paths from camera rays o, d (N, 3). Returns L
-    (N, 4) spectral radiance (the film divides by swl.pdf). time: the
-    rays' time, if they have one (it keeps them off the megakernel, as in
-    the reference)."""
+    (N, 4) spectral radiance (the film divides by swl.pdf). cone_spread:
+    the rays' cone spread (cameras.pixel_cone_spread; None: 0, level-0
+    texture lookups). time: the rays' time, if they have one (it keeps
+    them off the megakernel, as in the reference)."""
     if _use_megawave(scene, sampler, opts, time):
         return megawave.trace(scene, sampler, px, py, sample_index, o, d,
                               swl.lam, max_depth=opts.max_depth,
                               rr_start=opts.rr_start_depth)
     return _general_wave(scene, sampler, px, py, sample_index, o, d, swl,
-                         opts)
+                         opts, cone_spread)
 
 
-def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
+def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts,
+                  cone_spread=None):
     """The general wave of trace_paths."""
     N = o.shape[0]
     lam = swl.lam
@@ -155,6 +166,10 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
     eta_scale = torch.ones_like(prev_pdf)
     sec_term = torch.zeros_like(active)     # secondary wavelengths ended
     disp_weight = torch.tensor([4.0, 0.0, 0.0, 0.0], device=o.device)
+    cone_w = torch.zeros_like(prev_pdf)     # the ray cone's width
+    cone_s = torch.full_like(prev_pdf, 0.0 if cone_spread is None
+                             else float(cone_spread))
+    textures = scene.textures if scene.has_textures else None
 
     def mis_weight(depth, pdf_light):
         """The emission's MIS weight against light sampling: 1 at depth 0
@@ -167,6 +182,7 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
     for depth in range(opts.max_depth):
         isect = sc.intersect(scene, o, d, torch.where(active, 1e30, -1.0))
         hit = isect["hit"] & active
+        cone_w = cone_w + cone_s * torch.where(isect["hit"], isect["t"], 0.0)
 
         # --- emitted radiance at hits of emissive triangles ---
         if scene.has_area_lights:
@@ -174,9 +190,15 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
             lrow = scene.lights_packed[torch.clamp(isect["light"], min=0)]
             Le = lgt.area_light_radiance(lrow, isect["ng"], isect["wo"], lam,
                                          scene.spectra_pool, spec_cache)
+            if lsamp.positional(ls):
+                # the pick's pmf from the ray's origin
+                pick_pmf = lsamp.light_pmf(
+                    ls, torch.clamp(isect["light"], min=0), p=o)
+            else:
+                pick_pmf = lrow[:, 14]
             pdf_light = lgt.pdf_li_area_tri(o, d, isect["p"], isect["p0"],
                                             isect["p1"], isect["p2"]) * \
-                lrow[:, 14]
+                pick_pmf
             w_emit = mis_weight(depth, pdf_light)
             L = L + torch.where(is_emitter[:, None],
                                 beta * Le * w_emit[:, None], 0.0)
@@ -208,10 +230,17 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
         ns, ng = isect["ns"], isect["ng"]
         t1, t2 = _shading_frame(ns, isect["dpdu"])
         wo_local = _to_local(ns, t1, t2, isect["wo"])
+        footprint = None
+        if textures is not None:
+            # the cone's width in uv, through the parametric derivatives
+            inv_dpdu = 1.0 / torch.clamp(vm.length(isect["dpdu"]), min=1e-8)
+            inv_dpdv = 1.0 / torch.clamp(vm.length(isect["dpdv"]), min=1e-8)
+            footprint = cone_w * torch.maximum(inv_dpdu, inv_dpdv)
         bp = mtl.get_bsdf_params(scene.mat_pool, isect["mat"], lam,
                                  scene.bxdf_tags, uv=isect["uv"],
                                  spectra_pool=scene.spectra_pool,
-                                 spec_cache=spec_cache)
+                                 spec_cache=spec_cache, textures=textures,
+                                 footprint=footprint)
 
         # --- next-event estimation ---
         if ls.n_lights > 0:
@@ -260,6 +289,7 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts):
         d = wi_world
         prev_pdf = bs["pdf"]
         specular = bs["specular"]
+        cone_s = cone_s + torch.where(specular, 0.0, 0.25)
     return L
 
 
@@ -296,5 +326,6 @@ def render_wave(scene, camera, sampler, filt, pixel_idx: torch.Tensor,
                                     rr_start=opts.rr_start_depth)
         return L, swl, fw
     o, d, weight = camera_rays(camera, sampler, filt, px, py, sample_index)
-    L = _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts)
+    L = _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts,
+                      cam_mod.pixel_cone_spread(camera))
     return L, swl, weight

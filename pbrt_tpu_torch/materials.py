@@ -8,8 +8,10 @@ The pool keeps the reference's packed row layout, (M, 22):
 eta_spec_idx, k_spec_idx, albedo_tex, remap, rough_tex, bump_tex,
 bump_scale, normal_tex, mix_other, mix_amount, coat_alpha, coat_eta],
 so the two builders can be compared array for array. Diffuse, conductor,
-dielectric and hair materials without textures are ported; Mix resolution
-and bump or normal mapping are the identity on such a pool.
+dielectric and hair materials are ported, the diffuse reflectance also as
+a texture (the albedo_tex column: a row of the scene's texture pool);
+Mix resolution and bump or normal mapping are the identity on such a
+pool.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from . import bxdfs
 from . import lights as lgt
+from . import textures as tex_mod
 from .utils import color as pcolor
 from .utils.color import sigmoid_polynomial
 
@@ -43,9 +46,11 @@ class MaterialBuilder:
         self.rows.append(row)
         return len(self.rows) - 1
 
-    def add_diffuse(self, reflectance=(0.5, 0.5, 0.5)) -> int:
+    def add_diffuse(self, reflectance=(0.5, 0.5, 0.5), albedo_tex=-1) -> int:
+        """Diffuse; albedo_tex: a texture-pool row that gives the
+        reflectance instead (-1: the constant reflectance)."""
         return self._add(albedo_coeffs=self.cs.to_spectrum_coeffs(
-            np.asarray(reflectance)))
+            np.asarray(reflectance)), albedo_tex=albedo_tex)
 
     def add_conductor(self, eta_spec_idx=-1, k_spec_idx=-1, roughness=0.0,
                       uroughness=None, vroughness=None, remap=True) -> int:
@@ -87,6 +92,10 @@ class MaterialBuilder:
                          vroughness=float(np.clip(beta_n, 1e-3, 1.0)),
                          eta_const=eta, remap_roughness=False)
 
+    def has_textures(self) -> bool:
+        """A material reads its reflectance from a texture."""
+        return any(r["albedo_tex"] >= 0 for r in self.rows)
+
     def tags(self) -> tuple:
         """The sorted set of BxDF tags in the pool."""
         return tuple(sorted({int(r["bxdf_tag"]) for r in self.rows})) or \
@@ -115,17 +124,26 @@ class MaterialBuilder:
 
 def get_bsdf_params(pool: torch.Tensor, mat_idx, lam,
                     tags_present=(bxdfs.BXDF_DIFFUSE,),
-                    uv=None, spectra_pool=None,
-                    spec_cache=None) -> bxdfs.BSDFParams:
+                    uv=None, spectra_pool=None, spec_cache=None,
+                    textures=None, footprint=None) -> bxdfs.BSDFParams:
     """Material rows (M, 22) at mat_idx (N,) and wavelengths (N, 4) ->
     per-lane BSDF parameters. tags_present: the pool's tag set
     (MaterialBuilder.tags); uv (N, 2): the hit's uv, whose v gives hair its
     azimuthal offset h = 2 v - 1; spectra_pool (S, 471) and its per-wave
     cache (lights.eval_all_spectra): where a conductor or dielectric row
-    names eta or k spectra. A diffuse-only pool reads the albedo alone."""
+    names eta or k spectra. textures: the scene's texture pool when a row
+    reads one (its albedo_tex column), evaluated at uv with the ray cone's
+    uv footprint (N,) (textures.eval_texture). A diffuse-only pool reads
+    the albedo alone."""
     rows = pool[mat_idx.to(torch.int64)]
     tag = rows[:, 0].round().to(torch.int32)
     albedo = sigmoid_polynomial(rows[:, 1:2], rows[:, 2:3], rows[:, 3:4], lam)
+    if textures is not None:
+        tex_idx = rows[:, 12].round().to(torch.int32)
+        tc, tscale = tex_mod.eval_texture(textures, tex_idx, uv, footprint)
+        tex_albedo = sigmoid_polynomial(tc[:, 0:1], tc[:, 1:2], tc[:, 2:3],
+                                        lam) * tscale[:, None]
+        albedo = torch.where((tex_idx >= 0)[:, None], tex_albedo, albedo)
     alpha_x = alpha_y = eta = k = h = None
     if set(tags_present) - {bxdfs.BXDF_DIFFUSE}:
         ur, vr = rows[:, 7], rows[:, 8]

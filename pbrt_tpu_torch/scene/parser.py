@@ -5,18 +5,24 @@ The reference's pipeline, kept: regex tokenizer -> typed parameter lists
 (`ParamSet`) -> directive loop over a graphics state -> SceneBuilder ->
 compiled scene on the device the caller names. The directives handled are
 those of scenes/cornell.pbrt, scenes/meshfield.pbrt, scenes/instances.pbrt,
-scenes/patches.pbrt and scenes/envlit.pbrt:
+scenes/patches.pbrt, scenes/envlit.pbrt, scenes/manylight.pbrt,
+scenes/manylight16k.pbrt and scenes/killeroo.pbrt:
 
     LookAt, Translate, Scale, Rotate, Transform, ConcatTransform
     Camera "perspective" (pinhole), Film "rgb", Sampler "zsobol",
-    Integrator "path", WorldBegin, AttributeBegin, AttributeEnd
-    Material / MakeNamedMaterial / NamedMaterial, types "diffuse",
-      "conductor", "dielectric" / "glass" (smooth or rough), "hair"
+    Integrator "path" (its "string lightsampler": uniform, power, bvh,
+      exhaustive), WorldBegin, AttributeBegin, AttributeEnd
+    Material / MakeNamedMaterial / NamedMaterial, types "diffuse" (its
+      reflectance a value or a texture), "conductor", "dielectric" /
+      "glass" (smooth or rough), "hair"
+    Texture "name" "spectrum" "imagemap" (.png through the sRGB curve,
+      .exr, .pfm; uscale, vscale, scale; the uv mapping)
     AreaLightSource "diffuse"; LightSource "infinite", an L (uniform) or
-      an image file (.exr or .pfm; a lat-long image is resampled to the
-      equal-area square)
-    Shape "trianglemesh", Shape "curve" (cubic Bezier, the hair scene)
-    Shape "bilinearmesh" (exact patches, or two triangles a quad)
+      an image file (.exr, .pfm or .png; a lat-long image is resampled to
+      the equal-area square)
+    Shape "trianglemesh", Shape "plymesh", Shape "curve" (cubic Bezier,
+      the hair scene), Shape "bilinearmesh" (exact patches, or two
+      triangles a quad)
     ObjectBegin, ObjectEnd, ObjectInstance (static instances)
 
 Spectrum parameters take rgb values, inline [lambda value ...] lists,
@@ -33,6 +39,7 @@ import re
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .. import cameras as cam_mod
 from .. import filters as flt
@@ -41,6 +48,7 @@ from .. import scene_core as sc
 from ..utils import color as pcolor
 from ..utils import image
 from ..utils import image_env
+from . import plyio
 from ..utils import spectrum as spc
 from ..utils import transform as tfm
 
@@ -54,7 +62,6 @@ _TOKEN_RE = re.compile(rb'"[^"]*"|\[|\]|[^\s"\[\]#]+|#[^\n]*')
 # where each refused directive or type is queued (ROADMAP.md)
 _LATER = {
     "Include": "slice 6 (front end)", "Import": "slice 6 (front end)",
-    "Texture": "slice 3 item 9 (textures)",
     "MakeNamedMedium": "slice 3 item 13 (volume)",
     "MediumInterface": "slice 4 item 19 (medium interfaces)",
     "PixelFilter": "slice 4 item 21 (filters)",
@@ -68,6 +75,11 @@ _LATER = {
     "ColorSpace": "slice 6 (front end)",
     "Accelerator": "slice 4 item 20 (kd-tree)",
 }
+
+
+# the textures beyond the spectrum imagemap on uv (item 9 brought that)
+_TEXTURES_LATER = ("slice 3 item 9 (the spectrum imagemap on uv); the other "
+                  "textures, mappings and texture parameters: item 21")
 
 
 def tokenize(text: bytes):
@@ -316,6 +328,7 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
     film_params = dict(xres=1280, yres=720, filename="out.exr")
     spp = 16
     integrator = dict(name="path", max_depth=5)
+    named_textures = {}     # Texture name -> its texture-pool row
 
     def refuse(what, where, pos=None):
         raise ParseError(f"{p.loc(pos)}: {what} is not ported yet "
@@ -333,7 +346,7 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
         microfacet material."""
         for n in ("roughness", "uroughness", "vroughness"):
             if ps.texture_name(n) is not None:
-                refuse(f"a textured {n}", "slice 3 item 9 (textures)")
+                refuse(f"a textured {n}", _TEXTURES_LATER)
         return (ps.float("roughness", 0.0), ps.float("uroughness", None),
                 ps.float("vroughness", None), ps.bool("remaproughness", True))
 
@@ -374,8 +387,11 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
                    "frame, item 15: subsurface); slice 4 item 26 (thin "
                    "dielectric, diffuse transmission, coated conductor, mix, "
                    "interface)")
-        if ps.texture_name("reflectance") is not None:
-            refuse("a textured reflectance", "slice 3 item 9 (textures)")
+        tn = ps.texture_name("reflectance")
+        if tn is not None:
+            if tn not in named_textures:
+                raise ParseError(f"{p.loc()}: unknown texture '{tn}'")
+            return b.materials.add_diffuse(albedo_tex=named_textures[tn])
         refl = ps.rgb("reflectance", None)
         if refl is None:
             refl = (0.5, 0.5, 0.5)
@@ -403,6 +419,58 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
         P, idx = mesh_params(ps, "trianglemesh", 3)
         return (P, idx, ps.point3s("N", None),
                 ps.point2s("uv", ps.point2s("st", None)))
+
+    def plymesh_data(ps: ParamSet):
+        """(P, indices, N, uv) of a plymesh's file, in its own space."""
+        fn = ps.string("filename", None)
+        if fn is None:
+            raise ParseError(f"{p.loc()}: plymesh needs \"string filename\"")
+        if ps.texture_name("alpha") is not None or \
+                ps.float("alpha", 1.0) != 1.0:
+            refuse("shape alpha", "slice 4 item 18 (textured alpha)")
+        if ps.texture_name("displacement") is not None:
+            refuse("a displaced plymesh", "slice 4 item 26 (other shapes)")
+        mesh = plyio.read_ply(Path(base_dir) / fn)
+        return mesh["vertices"], mesh["indices"], mesh["normals"], \
+            mesh["uvs"]
+
+    def read_image(fn, pos):
+        """A named image file as float32 (H, W, 3): .exr and .pfm as
+        stored, .png as bytes over 255."""
+        fp = Path(base_dir) / fn
+        if fn.endswith(".exr"):
+            return image.read_exr(fp)
+        if fn.endswith(".pfm"):
+            return image.read_pfm(fp)
+        if fn.endswith(".png"):
+            return image.read_png(fp).astype(np.float32) / 255.0
+        refuse(f"the image file '{fn}' (the port reads .exr, .pfm and "
+               ".png)", "slice 6 (front end)", pos)
+
+    def add_texture(name, ty, cls, ps: ParamSet, pos):
+        """Texture "name" "spectrum" "imagemap" (reference parser, its
+        imagemap branch under the uv mapping)."""
+        if ty != "spectrum" or cls != "imagemap":
+            refuse(f"a '{ty}' '{cls}' texture",
+                   _TEXTURES_LATER, pos)
+        if ps.string("mapping", "uv") != "uv":
+            refuse("a texture mapping other than uv",
+                   _TEXTURES_LATER, pos)
+        # the reference reads neither offsets nor another wrap mode
+        if ps.float("udelta", 0.0) != 0.0 or ps.float("vdelta", 0.0) != 0.0 \
+                or ps.string("wrap", "repeat") != "repeat" \
+                or ps.bool("invert", False):
+            refuse("an imagemap's udelta, vdelta, wrap or invert",
+                   _TEXTURES_LATER, pos)
+        fn = ps.string("filename", None)
+        if fn is None:
+            raise ParseError(f"{p.loc(pos)}: imagemap needs filename")
+        img = read_image(fn, pos)
+        if fn.endswith(".png"):
+            img = pcolor.srgb_to_linear(torch.as_tensor(img)).numpy()
+        named_textures[name] = b.textures.add_image(
+            img[..., :3], su=ps.float("uscale", 1.0),
+            sv=ps.float("vscale", 1.0), scale=ps.float("scale", 1.0))
 
     def add_bilinearmesh(ps: ParamSet):
         """Shape "bilinearmesh" (reference parser): exact patches when the
@@ -579,13 +647,16 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
                                                 ps)
         elif tok == "NamedMaterial":
             gs.material = named_materials.get(p.parse_string(), 0)
+        elif tok == "Texture":
+            tname, ty, cls = (p.parse_string() for _ in range(3))
+            add_texture(tname, ty, cls, p.parse_params(), dpos)
         elif tok == "AreaLightSource":
             name = p.parse_string()
             ps = p.parse_params()
             if name != "diffuse":
                 refuse(f"area light '{name}'", "slice 3", dpos)
             if ps.string("filename", None) is not None:
-                refuse("an image area light", "slice 3 item 9", dpos)
+                refuse("an image area light", _TEXTURES_LATER, dpos)
             s = spectrum_param(ps, "L", "illuminant", spc.d65_spectrum())
             gs.area_light = (s, ps.float("scale", 1.0),
                              ps.bool("twosided", False))
@@ -604,14 +675,7 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
             if ps.point3s("portal", None) is not None:
                 refuse("a portal image light", "slice 3 item 14 (portalbox)",
                        dpos)
-            if fn.endswith(".exr"):
-                img = image.read_exr(Path(base_dir) / fn)
-            elif fn.endswith(".pfm"):
-                img = image.read_pfm(Path(base_dir) / fn)
-            else:
-                refuse(f"the image file '{fn}' (the port reads .exr and "
-                       ".pfm)", "slice 3 item 9 (textures: the PNG reader)",
-                       dpos)
+            img = read_image(fn, dpos)
             if img.shape[0] != img.shape[1]:
                 # lat-long: resample to the equal-area square
                 img = image_env.equalarea_from_latlong(img)
@@ -622,17 +686,19 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
             if name in ("curve", "bilinearmesh") and current_object is None:
                 (add_curve if name == "curve" else add_bilinearmesh)(ps)
                 continue
-            if name != "trianglemesh":
+            if name not in ("trianglemesh", "plymesh"):
                 refuse(f"shape '{name}'" + (" in an object" if name in
                                             ("curve", "bilinearmesh")
                                             else ""),
-                       "slices 3-4 (plymesh with killeroo/plytex, quadrics, "
-                       "instanced curves and patches)", dpos)
+                       "slices 3-4 (quadrics with plytex, instanced curves "
+                       "and patches)", dpos)
+            data = (trianglemesh_data if name == "trianglemesh"
+                    else plymesh_data)(ps)
             if current_object is None:
-                add_mesh(*trianglemesh_data(ps))
+                add_mesh(*data)
             else:
                 objects[current_object]["records"].append(dict(
-                    mesh=trianglemesh_data(ps), ctm=gs.ctm, mat=gs.material,
+                    mesh=data, ctm=gs.ctm, mat=gs.material,
                     emission=(gs.area_light or (None,))[0]))
         elif tok in _LATER:
             refuse(f"directive '{tok}'", _LATER[tok], dpos)

@@ -6,11 +6,12 @@ A scene is built on the host in numpy and moved once to the device the
 caller names. It holds triangle meshes (per-vertex normals and uvs when
 given) with diffuse, conductor, dielectric and hair materials, cubic
 Bezier curves, exact bilinear patches, area-triangle emission, uniform
-infinite lights and an image infinite light, under a uniform or power
-light sampler, and static object instances of triangle prototypes. Other
-shapes, lights, materials, media, textures, animated instances and alpha
-are not ported: their builders do not exist here, and the parser refuses
-their directives.
+infinite lights and an image infinite light, under a uniform, power,
+light-BVH or exhaustive light sampler, image and constant textures on
+the diffuse reflectance, and static object instances of triangle
+prototypes. Other shapes, lights, materials, media, textures, animated
+instances and alpha are not ported: their builders do not exist here,
+and the parser refuses their directives.
 
 Triangle queries follow the reference's dispatch (_tri_dispatch): a scene
 with instances sends every closest and any hit through the two-level
@@ -37,6 +38,7 @@ from . import device as dev_mod
 from . import lights as lgt
 from . import lightsamplers as lsamp
 from . import materials as mtl
+from . import textures as tex_mod
 from .ops import bvh as bvh_mod
 from .ops import bvh2 as bvh2_mod
 from .ops import bvh8 as bvh8_mod
@@ -81,7 +83,10 @@ class Scene:
     exact bilinear patches [p00, p10, p01, p11, material, -1]; None (False)
     without patches.
     bxdf_tags: the BxDF tags of the material pool. env: the image infinite
-    light's tables (lights.EnvLight), None without one."""
+    light's tables (lights.EnvLight), None without one. textures: the
+    texture pool (textures.TexturePool); has_textures: a material reads
+    a texture. The light sampler of a bvh or exhaustive scene holds its
+    own tables on the scene's device."""
     tri_all: torch.Tensor
     tri_pallas: torch.Tensor
     bvh8: bvh8_mod.BVH8
@@ -115,6 +120,8 @@ class Scene:
     has_blps: bool = False
     bxdf_tags: tuple = (bxdfs.BXDF_DIFFUSE,)
     env: lgt.EnvLight = None
+    textures: tex_mod.TexturePool = None
+    has_textures: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -159,6 +166,7 @@ class SceneBuilder:
     def __init__(self):
         self.cs = pcolor.srgb()
         self.materials = mtl.MaterialBuilder(self.cs)
+        self.textures = tex_mod.TextureBuilder(self.cs)
         self.p0, self.p1, self.p2 = [], [], []
         self.n0, self.n1, self.n2 = [], [], []
         self.uv0, self.uv1, self.uv2 = [], [], []
@@ -167,6 +175,7 @@ class SceneBuilder:
         self.light_rows = []
         self.spectra = []
         self._spec_cache = {}
+        self._spec_keep = []         # the spectra named by a cache key
         self.protos = []
         self.instances = []
         self.curve_seg_rows = []     # (2^crv.SUBDIV, 16) rows of each curve
@@ -176,9 +185,13 @@ class SceneBuilder:
         self._env_image = None       # (image, scale) of the image light
 
     def add_spectrum(self, s: spc.Spectrum, key=None) -> int:
-        """Add a spectrum to the pool, deduplicated by content."""
+        """Add a spectrum to the pool, deduplicated by content. key: a
+        cache key naming s (callers pass id(s)); s is kept alive with it,
+        so that the id cannot name another spectrum later."""
         if key is not None and key in self._spec_cache:
             return self._spec_cache[key]
+        if key is not None:
+            self._spec_keep.append(s)
         dense = s.to_dense()
         ckey = ("content", dense.tobytes())
         if ckey not in self._spec_cache:
@@ -302,7 +315,8 @@ class SceneBuilder:
     def add_image_infinite_light(self, image_rgb, scale=1.0) -> int:
         """An environment map: image_rgb (H, W, 3) linear RGB in the
         equal-area octahedral layout (utils/image_env.equalarea_from_latlong
-        for lat-long maps); its power is the mean luminance times scale.
+        for lat-long maps); its power is the mean luminance times scale,
+        times 4 pi^2 r^2 at build (r the scene radius), as in the reference.
         One a scene, as in the reference."""
         if self._env_image is not None:
             raise NotImplementedError("a second image infinite light")
@@ -325,6 +339,7 @@ class SceneBuilder:
                 or self.blp_list
                 or n_tri > MAX_MEGA_TRIS or not rows
                 or self.materials.tags() != (bxdfs.BXDF_DIFFUSE,)
+                or self.materials.has_textures()
                 or ls.kind not in (lsamp.LS_UNIFORM, lsamp.LS_POWER)
                 or any(r["tag"] != lgt.LIGHT_AREA_TRI for r in rows)
                 or len({r["spec_idx"] for r in rows}) != 1):
@@ -345,6 +360,36 @@ class SceneBuilder:
                         n_lights=len(rows),
                         light_spec=int(rows[0]["spec_idx"]),
                         ls_uniform=bool(ls.kind == lsamp.LS_UNIFORM))
+
+    @staticmethod
+    def _light_bounds(rows, p0, p1, p2):
+        """Each light's LightBounds for the position-aware samplers
+        (reference _light_bounds): an area triangle's box, its normal as
+        the cone axis (cos_theta_o -1 when two-sided, else 1) and
+        cos_theta_e 0; infinite lights outside the tree."""
+        L = len(rows)
+        lo = np.zeros((L, 3), np.float32)
+        hi = np.zeros((L, 3), np.float32)
+        w = np.tile(np.asarray([0, 0, 1.0], np.float32), (L, 1))
+        cos_o = np.full(L, -1.0, np.float32)
+        cos_e = np.zeros(L, np.float32)
+        inf = np.zeros(L, bool)
+        for i, r in enumerate(rows):
+            if r["tag"] == lgt.LIGHT_AREA_TRI:
+                t = r["tri"]
+                pts = np.stack([p0[t], p1[t], p2[t]])
+                lo[i] = pts.min(0)
+                hi[i] = pts.max(0)
+                ng = np.cross(p1[t] - p0[t], p2[t] - p0[t])
+                nn = np.linalg.norm(ng)
+                w[i] = ng / nn if nn > 1e-12 else w[i]
+                cos_o[i] = -1.0 if r["two_sided"] else 1.0
+            else:   # the infinite lights
+                inf[i] = True
+        return dict(bounds_lo=lo, bounds_hi=hi, axis_w=w, cos_theta_o=cos_o,
+                    cos_theta_e=cos_e,
+                    power=np.asarray([r["power"] for r in rows], np.float64),
+                    is_infinite=inf)
 
     def _world_bounds(self, lo, hi):
         """World box of the triangles, the bilinear patches' corners, the
@@ -460,14 +505,30 @@ class SceneBuilder:
             bool(force_bvh)
         rows = self.light_rows
         for r in rows:     # the scene-radius term of infinite-light power
+            if r["tag"] == lgt.LIGHT_IMAGE_INFINITE:
+                r["power"] = r["power"] * 4 * np.pi * np.pi * radius ** 2
             if r["tag"] == lgt.LIGHT_UNIFORM_INFINITE:
                 base = spc.DenselySampledSpectrum(
                     self.spectra[r["spec_idx"]].astype(np.float64))
                 r["power"] = lgt.compute_light_power(
                     r["tag"], r["scale"], base, scene_radius=radius)
-        ls = lsamp.make_light_sampler(light_sampler,
-                                      [r["power"] for r in rows])
-        lights_packed = lgt.pack_light_pool(rows, p0, p1, p2, ls.pmf_table)
+        ls = lsamp.make_light_sampler(
+            light_sampler, [r["power"] for r in rows],
+            self._light_bounds(rows, p0, p1, p2) if rows else None,
+            device=device)
+        if lsamp.positional(ls):
+            if any(r["tag"] != lgt.LIGHT_AREA_TRI for r in rows):
+                # the reference's escape branches read pmf_table, which
+                # its position-aware samplers lack: it cannot render this
+                raise NotImplementedError(
+                    f"the {light_sampler!r} light sampler with an infinite "
+                    "light: the reference renders no such scene (ROADMAP.md "
+                    "section 3, recorded behaviours of the reference)")
+            # the pool's pmf column is uniform; the sampler gives the pick's
+            pmf = np.full(len(rows), 1.0 / len(rows), np.float32)
+        else:
+            pmf = ls.pmf_table
+        lights_packed = lgt.pack_light_pool(rows, p0, p1, p2, pmf)
         tri_geo = bvh_mod.pack_tri_geo(p0, p1, p2)
         tri_shade = np.concatenate([
             np.stack(self.n0), np.stack(self.n1), np.stack(self.n2),
@@ -527,7 +588,9 @@ class SceneBuilder:
             inf_indices=tuple(i for i, r in enumerate(rows)
                               if r["tag"] == lgt.LIGHT_UNIFORM_INFINITE),
             light_tags=tuple(sorted({r["tag"] for r in rows})),
-            n_tris=len(tri_geo), bxdf_tags=self.materials.tags(), **extra)
+            n_tris=len(tri_geo), bxdf_tags=self.materials.tags(),
+            textures=self.textures.build(device),
+            has_textures=self.materials.has_textures(), **extra)
         mega = self._mega_meta(use_bvh, ls, p0, p1, p2)
         if mega is None:
             return scene

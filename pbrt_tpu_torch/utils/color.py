@@ -3,8 +3,8 @@ pbrt_tpu/utils/color.py), the subset the ported paths use.
 
 RGB reflectances become Jakob-Hanika sigmoid polynomials through the same
 precomputed coefficient table the reference reads (rgb2spec_srgb.npz).
-Host side is numpy; ``sigmoid_polynomial`` and ``linear_to_srgb`` work on
-tensors.
+Host side is numpy; ``sigmoid_polynomial``, ``linear_to_srgb`` and
+``srgb_to_linear`` work on tensors.
 """
 from __future__ import annotations
 
@@ -154,3 +154,10 @@ def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:
     x = torch.clamp(x, 0.0, 1.0)
     return torch.where(x <= 0.0031308, 12.92 * x,
                        1.055 * torch.pow(x, 1.0 / 2.4) - 0.055)
+
+
+def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
+    """The sRGB decoding curve (pbrt-v4 SRGBToLinear)."""
+    x = torch.clamp(x, 0.0, 1.0)
+    return torch.where(x <= 0.04045, x / 12.92,
+                       torch.pow((x + 0.055) / 1.055, 2.4))

@@ -1,11 +1,12 @@
-"""Scanline OpenEXR reading and writing, and PFM reading (the EXR and PFM
-parts of pbrt_tpu/utils/image.py).
+"""Scanline OpenEXR reading and writing, PFM and PNG reading (the EXR,
+PFM and PNG parts of pbrt_tpu/utils/image.py).
 
 The port imports no module of the JAX package, so it carries its own EXR
 codec; tests/test_torch_render.py holds it to the reference's (each reads
 the other's files). Writes float32 RGB with ZIPS compression; reads
 uncompressed, ZIPS and ZIP files with HALF or FLOAT channels, which covers
-the reference renderer's goldens.
+the reference renderer's goldens. The PNG reader takes 8- and 16-bit
+truecolor (zlib only, no imaging library), as the reference's does.
 """
 from __future__ import annotations
 
@@ -136,3 +137,64 @@ def read_pfm(path) -> np.ndarray:
         data = np.frombuffer(f.read(), "<f4" if scale < 0 else ">f4")
     img = data.reshape(h, w, 3) if color else data.reshape(h, w)
     return np.flipud(img).astype(np.float32)
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+
+
+def read_png(path) -> np.ndarray:
+    """Truecolor PNG -> (H, W, 3) uint8 (uint16 at 16 bits), the scanline
+    filters undone."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos = 8
+    idat = b""
+    w = h = depth = ctype = None
+    while pos < len(data):
+        ln = struct.unpack(">I", data[pos:pos + 4])[0]
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + ln]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + ln
+    if ctype != 2:
+        raise ValueError(f"{path}: only truecolor PNG files are read")
+    raw = zlib.decompress(idat)
+    bpp = 3 * (depth // 8)
+    stride = w * bpp
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int64)
+    pos = 0
+    for y in range(h):
+        ft = raw[pos]
+        line = np.frombuffer(raw[pos + 1:pos + 1 + stride], np.uint8) \
+            .astype(np.int64)
+        pos += 1 + stride
+        if ft == 1:     # sub: a running sum along each byte of a pixel
+            line = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) \
+                % 256
+        elif ft == 2:   # up
+            line = (line + prev) % 256
+        elif ft in (3, 4):   # average, paeth: left to right
+            line = line.tolist()
+            up = prev.tolist()
+            for i in range(stride):
+                a = line[i - bpp] if i >= bpp else 0
+                if ft == 3:
+                    pred = (a + up[i]) >> 1
+                else:
+                    pred = _paeth(a, up[i], up[i - bpp] if i >= bpp else 0)
+                line[i] = (line[i] + pred) & 0xFF
+            line = np.asarray(line, np.int64)
+        out[y] = line
+        prev = line
+    if depth == 16:
+        img = out.reshape(h, w, 3, 2)
+        return (img[..., 0].astype(np.uint16) << 8) | img[..., 1]
+    return out.reshape(h, w, 3)

@@ -1,10 +1,14 @@
 """Export the reference's scenes, cameras and samplers to numpy, in the form
 pbrt_tpu_torch.convert.from_jax_scene takes (shared by the test_torch_*
 files)."""
+import contextlib
+
 import numpy as np
 
 from pbrt_tpu import lights as jlgt
+from pbrt_tpu import lightsamplers as jls
 from pbrt_tpu import samplers as jsmp
+from pbrt_tpu import scene_core as jsc
 from pbrt_tpu import scenes as jscenes
 from pbrt_tpu.ops import megawave as jmw
 
@@ -12,16 +16,35 @@ from pbrt_tpu.ops import megawave as jmw
 def export(scene, cam, sampler):
     """(arrays, meta) of a reference Scene, Camera and SamplerParams."""
     ls = scene.light_sampler
+    tex = scene.textures
     arrays = dict(tri_all=np.asarray(scene.tri_all),
                   mat_pool=np.asarray(scene.materials.packed),
                   lights_packed=np.asarray(scene.lights.packed),
                   spectra_pool=np.asarray(scene.spectra_pool),
-                  ls_pmf=np.asarray(ls.pmf_table),
+                  tex_desc=np.asarray(tex.desc),
+                  tex_atlas=np.asarray(tex.atlas),
+                  tex_mips=np.asarray(tex.mips),
                   c2w_m=np.asarray(cam.c2w_m),
                   tan_half_fov=np.asarray(cam.tan_half_fov))
-    if ls.rows is not None:
-        arrays["ls_rows"] = np.asarray(ls.rows)
-    meta = dict(ls_kind=ls.kind, n_lights=ls.n_lights,
+    ls_meta = {}
+    if ls.kind == jls.LS_BVH:
+        arrays.update(ls_nodes=np.asarray(ls.nodes),
+                      ls_bit_trail=np.asarray(ls.bit_trail),
+                      ls_trail_len=np.asarray(ls.trail_len),
+                      ls_outside=np.asarray(ls.outside),
+                      ls_pmf_outside=np.asarray(ls.pmf_outside))
+        ls_meta = dict(max_depth=ls.max_depth, p_outside=ls.p_outside)
+    elif ls.kind == jls.LS_EXHAUSTIVE:
+        arrays.update(ls_cols=np.asarray(ls.cols),
+                      ls_is_inf=np.asarray(ls.is_inf))
+        ls_meta = dict(p_infinite=ls.p_infinite)
+    else:
+        arrays["ls_pmf"] = np.asarray(ls.pmf_table)
+        if ls.rows is not None:
+            arrays["ls_rows"] = np.asarray(ls.rows)
+    meta = dict(ls_kind=ls.kind, n_lights=ls.n_lights, ls=ls_meta,
+                has_textures=bool(scene.materials.has_textures),
+                tex_flags=(bool(tex.has_image), bool(tex.has_mips)),
                 scene_radius=float(scene.scene_radius),
                 inf_indices=scene.inf_indices,
                 light_tags=tuple(t for t in scene.lights.tags_present
@@ -75,3 +98,23 @@ def export_cornell(W=16, H=16, spp=4):
     sampler = jsmp.make_sampler("zsobol", spp=spp, full_resolution=(W, H))
     arrays, meta = export(scene, cam, sampler)
     return scene, cam, sampler, arrays, meta
+
+
+@contextlib.contextmanager
+def reference_keeps_spectra():
+    """Keep every spectrum the reference's SceneBuilder.add_spectrum sees
+    alive while the block runs. Its cache keys on id() of spectra that the
+    parser frees, so a later spectrum at a reused address can take a stale
+    pool row (ROADMAP.md section 3); alive, each id names one spectrum, as
+    the port's builder keeps them."""
+    orig = jsc.SceneBuilder.add_spectrum
+    kept = []
+
+    def add_spectrum(self, s, key=None):
+        kept.append(s)
+        return orig(self, s, key)
+    jsc.SceneBuilder.add_spectrum = add_spectrum
+    try:
+        yield
+    finally:
+        jsc.SceneBuilder.add_spectrum = orig

@@ -738,3 +738,95 @@ def test_envlit_renders_through_the_general_wave(cuda_device):
     assert ti.counter.plain == before[2]
     assert img.shape == (32, 32, 3) and np.isfinite(img).all()
     assert img.mean() > 0.01
+
+
+def _golden_scene(name, device, size=64, spp=4):
+    """scenes/<name>.pbrt parsed on device at size x size and spp."""
+    text = (Path(__file__).resolve().parent.parent / "scenes"
+            / f"{name}.pbrt").read_text().replace(
+        '"integer xresolution" [200] "integer yresolution" [200]',
+        f'"integer xresolution" [{size}] "integer yresolution" [{size}]'
+    ).replace('"integer pixelsamples" [32]', f'"integer pixelsamples" [{spp}]')
+    return parser.parse_string(text, base_dir=Path(__file__).resolve()
+                               .parent.parent / "scenes", device=device)
+
+
+def _record(module, name, run):
+    """The positional and keyword arguments of every call of module.name
+    during run()."""
+    calls = []
+    fn = getattr(module, name)
+
+    def recording(*a, **k):
+        calls.append((a, k))
+        return fn(*a, **k)
+    setattr(module, name, recording)
+    try:
+        run()
+    finally:
+        setattr(module, name, fn)
+    return calls
+
+
+GOLDEN_WAVES = [("manylight", "tri_intersect", 3),
+                ("manylight16k", "bvh8", 3), ("killeroo", "bvh8", 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, route, depth", GOLDEN_WAVES)
+def test_kernels_bit_equal_on_golden_rung_wave_queries(cuda_device, name,
+                                                       route, depth):
+    """The kernel queries of one wave (64x64 lanes) of manylight (triangle
+    kernel), manylight16k and killeroo (BVH8 kernel): the camera rays,
+    each bounce and each shadow query, t, prim, b1 and b2 bit-equal to
+    the plain version (the hit flag at any hit)."""
+    from pbrt_tpu_torch.integrators import path as path_mod
+    desc = _golden_scene(name, cuda_device)
+    s = desc.scene
+    module, fn_name, arg = ((ti, "tri_intersect", 5) if route ==
+                            "tri_intersect" else (bvh8, "bvh8_intersect", 4))
+    pix = torch.arange(64 * 64, device=cuda_device)
+    calls = _record(module, fn_name, lambda: path_mod.render_wave(
+        s, desc.camera, desc.sampler, flt.make_filter("gaussian"), pix,
+        torch.zeros_like(pix), path_mod.PathOptions(max_depth=depth)))
+    assert sum(not a[arg] for a, _k in calls) == depth
+    assert sum(bool(a[arg]) for a, _k in calls) == depth
+    for a, _k in calls:
+        # (pool, o, d, t_max, n_real, any_hit) or (b8, o, d, t_max, any_hit)
+        o, d = a[1].contiguous(), a[2].contiguous()
+        t_max = torch.as_tensor(a[3], dtype=torch.float32,
+                                device=cuda_device).expand(o.shape[0])
+        t_max = t_max.contiguous()
+        any_hit = bool(a[arg])
+        if route == "tri_intersect":
+            got = ti._launch(s.tri_pallas, o, d, t_max, s.n_tris, any_hit)
+            want = ti.tri_intersect_plain(s.tri_pallas, o, d, t_max,
+                                          s.n_tris, any_hit)
+        else:
+            got = bvh8._launch(s.bvh8, o, d, t_max, any_hit)
+            want = bvh8.bvh8_intersect_plain(s.bvh8, o, d, t_max, any_hit)
+        _bit_equal(got, want, any_hit, ("t", "prim", "b1", "b2"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, route, depth", GOLDEN_WAVES)
+def test_golden_rungs_render_through_the_general_wave(cuda_device, name,
+                                                      route, depth):
+    """manylight and manylight16k (the bvh light sampler) and killeroo (a
+    texture) are outside the megakernel: render takes the general wave,
+    every query through the rung's kernel, and the image is finite and
+    lit."""
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    desc = _golden_scene(name, cuda_device, size=32)
+    assert desc.scene.mega is None
+    counter = (ti if route == "tri_intersect" else bvh8).counter
+    before = (counter.launches, megawave.counter.launches, counter.plain)
+    img, _st = render.render(desc.scene, desc.camera, sampler=desc.sampler,
+                             device=cuda_device,
+                             opts=path_mod.PathOptions(max_depth=depth))
+    assert counter.launches - before[0] == 2 * depth
+    assert megawave.counter.launches == before[1]
+    assert counter.plain == before[2]
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+    assert img.mean() > 1e-3

@@ -381,8 +381,7 @@ def test_spectral_parameters_parse_like_the_reference():
 
 
 @pytest.mark.parametrize("snippet, item", [
-    (b'LightSource "infinite" "string filename" "sky.png"',
-     "slice 3 item 9"),
+    (b'LightSource "infinite" "string filename" "sky.tga"', "slice 6"),
     (b'LightSource "infinite" "string filename" "sky.exr" '
      b'"point3 portal" [0 0 0 1 0 0 1 1 0 0 1 0]', "slice 3 item 14"),
     (b'Material "conductor" "spectrum eta" "no-such-spectrum"', "slice 6"),

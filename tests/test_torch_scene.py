@@ -133,8 +133,16 @@ def test_builder_refuses_scenes_outside_the_closed_world():
     assert no_light.mega is None and no_light.light_tags == ()
     b.add_mesh(quad, [[0, 1, 2]], m,
                emission=pcolor.RGBIlluminantSpectrum((1.0, 1.0, 1.0)))
+    # the bvh light sampler builds, outside the megakernel; with an
+    # infinite light it raises (the reference renders no such scene)
+    bvh = b.build(light_sampler="bvh", device="cpu")
+    assert bvh.mega is None and bvh.light_sampler.kind == 2
+    b_inf = sc.SceneBuilder()
+    b_inf.add_mesh(quad, [[0, 1, 2]], b_inf.materials.add_diffuse(),
+                   emission=pcolor.RGBIlluminantSpectrum((1.0, 1.0, 1.0)))
+    b_inf.add_uniform_infinite_light(pcolor.RGBIlluminantSpectrum((1, 1, 1)))
     with pytest.raises(NotImplementedError, match="light sampler"):
-        b.build(light_sampler="bvh", device="cpu")
+        b_inf.build(light_sampler="bvh", device="cpu")
     assert b.build(device="cpu").mega.n_tris == 3
     assert b.build(force_bvh=True, device="cpu").mega is None
     for _ in range(31):

@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/torch_wave_profile.py [--scene NAME]  (NAME: cornell,
-    meshfield, instances, hair, envlit or all, the default)
+    meshfield, instances, hair, envlit, manylight, manylight16k, killeroo
+    or all, the default)
 
 cornell: the main path, 400x400, 64 spp, max depth 5, on the megakernel.
 meshfield: scenes/meshfield.pbrt, 200x200, 32 spp, max depth 4, on the
@@ -14,7 +15,14 @@ sub-segments, the hair material, 4 triangles), 400x400, 16 spp, max depth
 5, on the general wave, the curve kernel and the triangle kernel. envlit:
 scenes/envlit.pbrt (an image infinite light, a rough conductor, a smooth
 dielectric, 1,538 triangles), 200x200, 64 spp, max depth 5, on the general
-wave and the triangle kernel. (pbrt_tpu_torch only; no jax.)
+wave and the triangle kernel. manylight and manylight16k:
+scenes/manylight.pbrt (1,152 emissive triangles of 1,324) and
+scenes/manylight16k.pbrt (16,928 of 17,100), 200x200, 32 spp, max depth 3,
+on the general wave, the light-BVH sampler and the triangle or the BVH8
+kernel. killeroo: scenes/killeroo.pbrt (163,842 triangles, a MIP-mapped
+imagemap texture, the sky image light, a rough conductor and a rough
+dielectric), 200x200, 32 spp, max depth 5, on the general wave and the
+BVH8 kernel. (pbrt_tpu_torch only; no jax.)
 Prints the card's name and power limit, then for each scene
   1. the stages of one wave (160,000 lanes), each timed with a synchronize
      around it, median of --reps waves after one warm-up. cornell: the
@@ -36,7 +44,12 @@ Prints the card's name and power limit, then for each scene
      dielectric's evaluations and samples (parts of shading) on their own,
      and the triangle kernel's launches (CUDA events around
      ops/tri_intersect.tri_intersect) inside the closest-hit and the
-     shadow queries;
+     shadow queries; a scene under the bvh light sampler also times the
+     light-BVH walks (lightsampler_bvh.sample_bvh_light at each NEE and
+     pmf_bvh_light at each emitter hit, tensor code) and a textured one the
+     texture lookups (textures.eval_texture, inside shading); on the BVH8
+     route the BVH8 kernel's launches (CUDA events around
+     ops/bvh8.bvh8_intersect) inside the queries;
   2. --renders full renders, unprofiled: paths/s of each;
   3. a render of --profiled-spp samples under torch.profiler: wall time,
      the sum of device self times and their ratio (the device busy share;
@@ -157,11 +170,14 @@ def profile_parsed(args, dev, name, max_depth, path=None):
     from pbrt_tpu_torch import cameras as cam_mod
     from pbrt_tpu_torch import film as film_mod
     from pbrt_tpu_torch import filters as flt
+    from pbrt_tpu_torch import lightsampler_bvh as lbvh
     from pbrt_tpu_torch import lights as lgt
     from pbrt_tpu_torch import samplers as smp
     from pbrt_tpu_torch import scene_core as sc
+    from pbrt_tpu_torch import textures as tex_mod
     from pbrt_tpu_torch.integrators import path as path_mod
     from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.ops import bvh8
     from pbrt_tpu_torch.ops import curves as crv
     from pbrt_tpu_torch.ops import tri_intersect as ti
     from pbrt_tpu_torch.scene import parser
@@ -188,17 +204,24 @@ def profile_parsed(args, dev, name, max_depth, path=None):
     env = scene.env is not None
     specular = [t for t in (bxdfs.BXDF_CONDUCTOR, bxdfs.BXDF_DIELECTRIC)
                 if t in scene.bxdf_tags]
+    light_bvh = scene.light_sampler.kind == lbvh.LS_BVH
     # the kernel whose launches are timed inside the queries: the curve
-    # kernel, else the triangle kernel on the brute-force route
+    # kernel, else the triangle kernel on the brute-force route or the
+    # BVH8 kernel on its route
     tri_route = not scene.has_curves and scene.tri_pallas is not None
+    b8_route = not scene.has_curves and scene.bvh8 is not None
     kernel_names = ("curve kernel, closest hit", "curve kernel, any hit") \
         if scene.has_curves else (
             ("triangle kernel, closest hit", "triangle kernel, any hit")
-            if tri_route else ())
+            if tri_route else (
+                ("BVH8 kernel, closest hit", "BVH8 kernel, any hit")
+                if b8_route else ()))
     names = ("sampler dims", "camera", "intersect", "NEE shadow", "shading",
              "film") + (("hair BxDF",) if hair else ()) + \
         (("image light",) if env else ()) + \
-        (("conductor, dielectric",) if specular else ()) + kernel_names
+        (("conductor, dielectric",) if specular else ()) + \
+        (("light BVH",) if light_bvh else ()) + \
+        (("textures",) if scene.has_textures else ()) + kernel_names
     per_wave = {k: [] for k in names}
     for rep in range(args.reps + 1):
         timers = StageTimers()
@@ -219,12 +242,20 @@ def profile_parsed(args, dev, name, max_depth, path=None):
             timers.wrap(bxdfs, {bxdfs.BXDF_CONDUCTOR: "_conductor_sample",
                                 bxdfs.BXDF_DIELECTRIC: "_dielectric_sample"}
                         [t], "conductor, dielectric")
+        if light_bvh:
+            timers.wrap(lbvh, "sample_bvh_light", "light BVH")
+            timers.wrap(lbvh, "pmf_bvh_light", "light BVH")
+        if scene.has_textures:
+            timers.wrap(tex_mod, "eval_texture", "textures")
         if scene.has_curves:
             timers.wrap_events(crv, "curves_intersect",
                                lambda a: kernel_names[bool(a[5])])
         elif tri_route:
             timers.wrap_events(ti, "tri_intersect",
                                lambda a: kernel_names[bool(a[5])])
+        elif b8_route:
+            timers.wrap_events(bvh8, "bvh8_intersect",
+                               lambda a: kernel_names[bool(a[4])])
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -286,7 +317,8 @@ def profile_parsed(args, dev, name, max_depth, path=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", choices=("cornell", "meshfield", "instances",
-                                        "hair", "envlit", "all"),
+                                        "hair", "envlit", "manylight",
+                                        "manylight16k", "killeroo", "all"),
                     default="all")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--renders", type=int, default=5)
@@ -318,8 +350,10 @@ def main():
         path = _build.BUILD_DIR / "hair.pbrt"
         path.write_text(hair_scene_text(8192, 0, 400, 400, 16))
         out["hair"] = profile_parsed(args, dev, "hair", 5, path)
-    if args.scene in ("envlit", "all"):
-        out["envlit"] = profile_parsed(args, dev, "envlit", 5)
+    for name, depth in (("envlit", 5), ("manylight", 3),
+                        ("manylight16k", 3), ("killeroo", 5)):
+        if args.scene in (name, "all"):
+            out[name] = profile_parsed(args, dev, name, depth)
     print(json.dumps(out))
     return 0
 
