@@ -194,6 +194,29 @@ Phases, each of which raises on failure (exit code 1):
      killeroo's (as phase 34), every query bit-equal to its plain
      version, each bare launch timed queued beside its bound and the
      launches a render makes.
+ 41. the plytex path through the user entry points (parse_file ->
+     render): scenes/plytex.pbrt (killeroo's checker floor and sky, blob.ply
+     under a rough gold conductor: 5,122 triangles through the BVH8
+     kernel; an exact rough-dielectric sphere, tensor code merged over
+     every query), 200x200, 64 spp, max depth 5, gated at MRSE <= 0.05 with
+     the 0.2% largest pixel errors trimmed and mean ratio error <= 0.03;
+ 42. the volume path the same way: scenes/volume.pbrt (a 24^3 uniformgrid
+     medium inside a 12-triangle null-material interface box over a
+     2-triangle floor, a uniform infinite light), which render hands to the
+     volumetric integrator (integrators/volpath.py), 200x200, 32 spp, max
+     depth 6, every main query through the triangle kernel, gated at MRSE
+     <= 0.10 and mean ratio error <= 0.03; the flight loops' steps;
+ 43. the BVH8 kernel on the queries of one plytex wave and the triangle
+     kernel on one volume wave's (as phases 34 and 36): every query
+     bit-equal to its plain version, bare launches queued beside bounds;
+ 44. scenes.make_medium_shell (a homogeneous medium inside a 320-triangle
+     icosphere interface shell, above the 256 the brute-force interface
+     test takes) through render at 200x200, 16 spp, depth 5: every
+     interface query through the single-level bvh2 kernel (TPU kernel 7's
+     counterpart, on a render path), the main queries through the
+     triangle kernel, no plain version, the image finite and lit; then
+     every interface query of one wave bit-equal to the plain version,
+     bare launches queued beside their bounds.
 A bare launch (the launch alone, its arguments prepared once) is timed
 queued: its launches are enqueued behind a spin kernel, so that the card
 runs them back to back and the time is the device's, whatever the host
@@ -238,12 +261,14 @@ ENV_SCENE = ROOT / "scenes" / "envlit.pbrt"
 ENV_GOLDEN = ROOT / "goldens" / "envlit_200_64spp.exr"
 ENV_GATE_MRSE = 0.06    # tools/golden.py CONFIGS, envlit (no trim)
 ENV_GATE_MEAN_RATIO = 0.02
-# phases 37-39 (tools/golden.py CONFIGS: scene, spp, depth, MRSE gate,
-# mean-ratio gate, trim)
+# phases 37-39, 41-42 (tools/golden.py CONFIGS: scene, spp, depth, MRSE
+# gate, mean-ratio gate, trim)
 GOLDEN_RUNGS = {
     "manylight": (32, 3, 0.08, 0.03, 0.0),
     "manylight16k": (32, 3, 0.08, 0.03, 0.0),
     "killeroo": (32, 5, 0.06, 0.03, 0.002),
+    "plytex": (64, 5, 0.05, 0.03, 0.002),
+    "volume": (32, 6, 0.10, 0.03, 0.0),
 }
 # rays a chunk of the triangle kernel's plain version in phase 36
 PLAIN_CHUNK = 1 << 14
@@ -1450,7 +1475,8 @@ def wave_queries(module, name, any_hit_arg, desc, max_depth, device):
 
 
 def bvh_wave(label, scene, closest, shadow, arg, card, dev, tag="34 wave"):
-    """Phase 34 for the BVH8 ("bvh8") or two-level ("two_level") kernel on
+    """Phase 34 for the BVH8 ("bvh8"), two-level ("two_level") or, on a
+    scene's interface BVH, the single-level ("bvh2") kernel on
     the queries of one wave (the wrapper's recorded calls, o, d, t_max the
     three arguments before any_hit, at position arg): each query's bare
     launch (arguments prepared once) beside the wrapper, the kernel bit-equal
@@ -1476,6 +1502,24 @@ def bvh_wave(label, scene, closest, shadow, arg, card, dev, tag="34 wave"):
                 bvh8.counter.work
         kw = dict(out_bytes=16, tri_ops=TRI_OPS,
                   visit_ops=8 * BVH8_CHILD_OPS)
+    elif label == "bvh2":
+        # the single-level kernel on a scene's interface BVH (phase 44)
+        nodes, tris = scene.iface_nodes, scene.iface_tris_bvh
+        tables = (nodes, tris)
+
+        def launch(o, d, tv, any_hit):
+            return bvh2._launch(nodes, tris, o, d, tv, any_hit)
+
+        def bare(o, d, tv, any_hit, out):
+            return bare_ms("bvh2", "bvh2_intersect_launch",
+                           bvh2.launch_args_single(nodes, tris, o, d, tv,
+                                                   any_hit, out=out)[0])
+
+        def plain(o, d, tv, any_hit):
+            return bvh2.bvh2_intersect_plain(nodes, tris, o, d, tv,
+                                             any_hit), \
+                bvh2.counter_bvh2.work
+        kw = dict(out_bytes=16, tri_ops=TRI_RAW_OPS)
     else:
         kt = scene.tlas_kernel
         tables = two_level_bound_tables(scene)
@@ -1921,12 +1965,13 @@ def timed_calls(targets, run):
 
 
 def golden_rung(name, dev, card, named, route, tag):
-    """One rung of phases 37-39: scenes/<name>.pbrt through parse_file ->
-    render at its golden's spp and depth, every query through the kernel
-    of route ("tri_intersect" or "bvh8") and no plain version, the image
-    gated against goldens/<name>_200_32spp.exr with tools/golden.py's
-    gates and written to pbrt_tpu_torch/_build/, paths/s with set-up
-    apart. Returns (the parsed scene, the rung's dict)."""
+    """One rung of phases 37-39 and 41-42: scenes/<name>.pbrt through
+    parse_file -> render at its golden's spp and depth (render picks the
+    volumetric integrator for a scene with media), every query through the
+    kernel of route ("tri_intersect" or "bvh8") and no plain version, the
+    image gated against goldens/<name>_200_<spp>spp.exr with
+    tools/golden.py's gates and written to pbrt_tpu_torch/_build/, paths/s
+    with set-up apart. Returns (the parsed scene, the rung's dict)."""
     import torch
     from pbrt_tpu_torch.integrators import path as path_mod
     from pbrt_tpu_torch.integrators import render
@@ -1969,12 +2014,12 @@ def golden_rung(name, dev, card, named, route, tag):
     check(launches[route] >= 1 and sum(launches.values()) == launches[route],
           f"{name} left the {route} route")
     check(plain == 0, f"{name} ran a plain version on the card")
-    m, ratio = gate(img, ROOT / "goldens" / f"{name}_200_32spp.exr",
+    m, ratio = gate(img, ROOT / "goldens" / f"{name}_200_{spp}spp.exr",
                     (200, 200, 3), max_mrse, max_ratio, f"{tag} golden",
                     trim=trim)
     print(f"[{tag} golden] margins: mrse {max_mrse - m:.5f}, mean ratio err "
           f"{max_ratio - ratio:.5f} under the gates", flush=True)
-    image.write_exr(_build.BUILD_DIR / f"{name}_200_32spp.exr", img)
+    image.write_exr(_build.BUILD_DIR / f"{name}_200_{spp}spp.exr", img)
     print(f"[{tag} times] card {card}: {name} 200x200x{spp} depth {depth} "
           f"{stats['paths_per_sec']:.6g} paths/s ({stats['seconds']:.3f} s),"
           f" set-up (parse and build) {setup:.3f} s apart", flush=True)
@@ -2013,6 +2058,104 @@ def manylight_killeroo_phases(dev, card, named):
         print(f"[40 {name} wave] a render makes {out[name]['launches']} "
               "launches of the BVH8 kernel", flush=True)
         out[name]["wave"] = wave
+    return out
+
+
+def plytex_volume_phases(dev, card, named):
+    """Phases 41-44: the plytex and volume rungs through parse_file ->
+    render, gated against their goldens; kernel 4 on one plytex wave's
+    queries and kernel 1 on one volume wave's; the medium-shell scene
+    through render and kernel 7 on one of its waves' interface queries."""
+    import types
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch import samplers as smp
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.integrators import volpath
+    from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.ops import bvh2
+    from pbrt_tpu_torch.ops import bvh8
+    from pbrt_tpu_torch.utils import image
+    out, descs = {}, {}
+    # ---- 41. plytex: the BVH8 route with the exact sphere merged ----
+    descs["plytex"], out["plytex"] = golden_rung("plytex", dev, card, named,
+                                                 "bvh8", "41 plytex")
+    s = descs["plytex"].scene
+    check(s.n_tris == 5122 and s.n_spheres == 1 and s.use_bvh,
+          "plytex: scene tables")
+    # ---- 42. volume: the volumetric wave, kernel 1 ----
+    volpath.flight_stats.update(calls=0, steps=0, shadow_calls=0,
+                                shadow_steps=0)
+    descs["volume"], out["volume"] = golden_rung("volume", dev, card, named,
+                                                 "tri_intersect", "42 volume")
+    s = descs["volume"].scene
+    check(s.has_media and s.has_medium_interfaces and not s.use_iface_bvh
+          and s.n_tris == 2, "volume: scene tables")
+    fs = dict(volpath.flight_stats)
+    out["volume"]["flight"] = fs
+    print(f"[42 volume] flight loops of the render: {fs['calls']} free "
+          f"flights in {fs['steps']} steps ({fs['steps'] / fs['calls']:.1f} "
+          f"a flight), {fs['shadow_calls']} shadow loops in "
+          f"{fs['shadow_steps']} steps "
+          f"({fs['shadow_steps'] / max(fs['shadow_calls'], 1):.1f} a loop)",
+          flush=True)
+
+    # ---- 43. kernel 4 on a plytex wave, kernel 1 on a volume wave ----
+    closest, shadow, lanes = wave_queries(bvh8, "bvh8_intersect", 4,
+                                          descs["plytex"],
+                                          GOLDEN_RUNGS["plytex"][1], dev)
+    wave = bvh_wave("bvh8", descs["plytex"].scene, closest, shadow, 4, card,
+                    dev, tag="43 plytex wave")
+    wave.update(lanes=lanes, launches=len(closest) + len(shadow))
+    out["plytex"]["wave"] = wave
+    print(f"[43 plytex wave] a render makes {out['plytex']['launches']} "
+          "launches of the BVH8 kernel", flush=True)
+    out["volume"]["wave"] = tri_wave(descs["volume"],
+                                     GOLDEN_RUNGS["volume"][1], dev, card,
+                                     "43 volume", out["volume"]["launches"])
+
+    # ---- 44. the medium shell: kernel 7 on the interface route ----
+    reset_counts(named.values())
+    t0 = time.perf_counter()
+    shell, cam = scenes.make_medium_shell(200, 200, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    check(shell.use_iface_bvh and shell.iface_tris.shape[0] == 320,
+          "medium shell: the interface BVH route")
+    sampler = smp.make_sampler("zsobol", spp=16, full_resolution=(200, 200))
+    img, stats = render.render(shell, cam, sampler=sampler, device=dev,
+                               opts=path_mod.PathOptions(max_depth=5))
+    launches = {c: k.launches for c, k in named.items()}
+    plain = sum(k.plain for k in named.values())
+    print(f"[44 shell] {shell.iface_tris.shape[0]} interface triangles "
+          f"(BVH depth {shell.iface_depth}), {shell.n_tris} triangles; "
+          f"launches {launches}, plain-version runs {plain}", flush=True)
+    check(launches["bvh2"] >= 1 and launches["tri_intersect"] >= 1
+          and sum(launches.values()) == launches["bvh2"]
+          + launches["tri_intersect"], "the shell left its kernels' route")
+    check(plain == 0, "the shell ran a plain version on the card")
+    check(bool(np.isfinite(img).all()) and float(img.mean()) > 0,
+          "the shell's image: finite and lit")
+    image.write_exr(_build.BUILD_DIR / "shell_200_16spp.exr", img)
+    print(f"[44 times] card {card}: medium shell 200x200x16 depth 5 "
+          f"{stats['paths_per_sec']:.6g} paths/s ({stats['seconds']:.3f} s),"
+          f" set-up {setup:.3f} s apart; image mean {float(img.mean()):.5f}",
+          flush=True)
+    desc = types.SimpleNamespace(scene=shell, camera=cam, sampler=sampler)
+    closest, shadow, lanes = wave_queries(bvh2, "bvh2_intersect", 5, desc,
+                                          5, dev)
+    check(closest and not shadow, "the shell's interface queries")
+    wave = bvh_wave("bvh2", shell, closest, shadow, 5, card, dev,
+                    tag="44 shell wave")
+    wave.update(lanes=lanes, launches=len(closest))
+    out["shell"] = dict(paths_per_sec=stats["paths_per_sec"],
+                        seconds=stats["seconds"], setup_s=setup,
+                        launches=launches["bvh2"],
+                        tri_launches=launches["tri_intersect"], wave=wave)
+    print(f"[44 shell wave] a render makes {launches['bvh2']} launches of "
+          "the single-level bvh2 kernel", flush=True)
     return out
 
 
@@ -2408,6 +2551,12 @@ def main():
     mk = manylight_killeroo_phases(dev, card, named)
     print(f"[40 times] phases 37-40 took {time.perf_counter() - t_new:.1f} "
           "s", flush=True)
+    t_new = time.perf_counter()
+    pv = plytex_volume_phases(dev, card, named)
+    shell = pv.pop("shell")
+    mk.update(pv)
+    print(f"[44 times] phases 41-44 took {time.perf_counter() - t_new:.1f} "
+          "s", flush=True)
 
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]
@@ -2465,7 +2614,11 @@ def main():
                mk[name]["wave"]["bare_sum_ms"] / mk[name]["wave"]["launches"],
                mk[name]["wave"]["bound_ms"]) for kname, name in (
                 ("tri_intersect", "manylight"), ("bvh8", "manylight16k"),
-                ("bvh8", "killeroo"))),
+                ("bvh8", "killeroo"), ("bvh8", "plytex"),
+                ("tri_intersect", "volume"))),
+            ("bvh2 (the medium shell's interfaces)", shell["launches"],
+             shell["wave"]["bare_sum_ms"] / shell["wave"]["launches"],
+             shell["wave"]["bound_ms"]),
             *((f"{name} ({path})", n,
                w.get("bare_sum_ms", w["sum_ms"]) / w["launches"],
                w["bound_ms"]) for name, path, n, w in (
@@ -2512,7 +2665,11 @@ def main():
              # phases 37 and 40: the manylight render's launches and one
              # manylight wave's queries at 1,324 triangles
              manylight_launches=mk["manylight"]["launches"],
-             manylight_wave=mk["manylight"]["wave"]),
+             manylight_wave=mk["manylight"]["wave"],
+             # phases 42-43: the volume render's launches (2 triangles;
+             # the interface box is tensor code) and one volume wave's
+             volume_launches=mk["volume"]["launches"],
+             volume_wave=mk["volume"]["wave"]),
         # launches: the meshfield render (phase 8); ms: closest hit at
         # 2^20 rays (any hit in any_hit_ms)
         dict(name="bvh8", route="cuda",
@@ -2531,16 +2688,22 @@ def main():
              manylight16k_launches=mk["manylight16k"]["launches"],
              manylight16k_wave=mk["manylight16k"]["wave"],
              killeroo_launches=mk["killeroo"]["launches"],
-             killeroo_wave=mk["killeroo"]["wave"]),
-        # launches: none on a render path (only tests reach the reference's
-        # kernel too); its checks and times: phases 12 and 15, closest hit
-        # on meshfield's binary BVH at 2^20 rays
+             killeroo_wave=mk["killeroo"]["wave"],
+             # phases 41 and 43: the plytex render (5,122 triangles and the
+             # merged sphere) and one plytex wave's queries
+             plytex_launches=mk["plytex"]["launches"],
+             plytex_wave=mk["plytex"]["wave"]),
+        # launches: the medium-shell render's interface queries (phase
+        # 44, its render path: interface pools above 256 triangles); its
+        # checks and times: phases 12 and 15, closest hit on meshfield's
+        # binary BVH at 2^20 rays; one shell wave's queries in shell_wave
         dict(name="bvh2", route="cuda", source="pbrt_tpu_torch/csrc/bvh2.cu",
              replaces="pbrt_tpu/ops/pallas_bvh.py:167",
-             launches=ilaunch["bvh2"], max_abs_err=k7_err,
+             launches=shell["launches"], max_abs_err=k7_err,
              ms=k7_ms[False][0], plain_ms=k7_ms[False][1],
              bound_ms=k7_bound[0], bound_by=k7_bound[1], library_ms=None,
-             any_hit_ms=k7_ms[True][0], any_hit_plain_ms=k7_ms[True][1]),
+             any_hit_ms=k7_ms[True][0], any_hit_plain_ms=k7_ms[True][1],
+             shell_wave=shell["wave"]),
         # launches: the instances render (phase 14); ms: closest hit on the
         # 64-instance grid at 2^20 rays (the golden's tables in golden_ms)
         dict(name="two_level", route="cuda",
@@ -2624,6 +2787,7 @@ def main():
         mrse=i_mrse, mean_ratio_err=i_ratio), hair=cr["hair"],
         hair_ref=cr["hair_ref"], rays_in=ri["render"],
         terrain_bvh8_ms=tr["bvh8_ms"], patches=pt, envlit=ev["render"],
+        shell={k: v for k, v in shell.items() if k != "wave"},
         **{name: {k: v for k, v in mk[name].items() if k != "wave"}
            for name in GOLDEN_RUNGS})))
     print(f"card: {card}")

@@ -26,7 +26,9 @@ the shading point, and weighs an emitter hit by its pmf from the ray's
 origin. Each lane carries the reference's ray cone (its width and spread:
 the spread starts at the camera's pixel spread and gains 0.25 at each
 non-specular bounce, the width grows by spread times the hit distance),
-whose uv footprint picks a texture's MIP level. The shading frame's +x
+whose uv footprint picks a texture's MIP level (at a quadric hit, through
+the quadric's own dpdu and dpdv). An emitter hit on a sphere light weighs
+its MIS by the light's cone pdf. The shading frame's +x
 follows the hit's dpdu, a curve's chord on a curve hit, as the hair BxDF
 needs. Dead lanes are masked, and their rays are queried with t_max = -1,
 which every query answers with a miss; a dead ray is not free: the
@@ -184,7 +186,7 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts,
         hit = isect["hit"] & active
         cone_w = cone_w + cone_s * torch.where(isect["hit"], isect["t"], 0.0)
 
-        # --- emitted radiance at hits of emissive triangles ---
+        # --- emitted radiance at hits of emissive triangles and spheres ---
         if scene.has_area_lights:
             is_emitter = hit & (isect["light"] >= 0)
             lrow = scene.lights_packed[torch.clamp(isect["light"], min=0)]
@@ -197,8 +199,13 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts,
             else:
                 pick_pmf = lrow[:, 14]
             pdf_light = lgt.pdf_li_area_tri(o, d, isect["p"], isect["p0"],
-                                            isect["p1"], isect["p2"]) * \
-                pick_pmf
+                                            isect["p1"], isect["p2"])
+            if scene.n_spheres > 0:
+                # a sphere light's cone pdf (reference path.py:280-282)
+                pdf_light = torch.where(
+                    lrow[:, 0].round() == lgt.LIGHT_AREA_SPHERE,
+                    lgt.pdf_li_sphere(lrow, o), pdf_light)
+            pdf_light = pdf_light * pick_pmf
             w_emit = mis_weight(depth, pdf_light)
             L = L + torch.where(is_emitter[:, None],
                                 beta * Le * w_emit[:, None], 0.0)

@@ -1,5 +1,6 @@
 """Render driver (counterpart of pbrt_tpu/integrators/render.py): a plain
-loop over sample-index batches.
+loop over sample-index batches, through the path integrator or, for a
+scene with media, the volumetric one (reference wave_module).
 
 Every wave covers the whole image and m consecutive sample indices (m a
 power of two, chosen like the reference's wave tiling: as many as fit
@@ -16,13 +17,21 @@ from .. import film as film_mod
 from .. import filters as flt
 from .. import samplers as smp
 from . import path as path_mod
+from . import volpath as volpath_mod
 
 MAX_WAVE_LANES = 1 << 18
 
 
+def wave_module(scene):
+    """The integrator of a scene (reference wave_module): volpath where the
+    scene has media, else path."""
+    return volpath_mod if scene.has_media else path_mod
+
+
 def render(scene, camera, spp=16, *, device, sampler=None, filt=None,
            opts: path_mod.PathOptions = None):
-    """Render and return (image (H, W, 3) float32 linear RGB, stats dict).
+    """Render and return (image (H, W, 3) float32 linear RGB, stats dict)
+    through wave_module(scene)'s waves.
 
     device: where to render; the scene's tables must live there."""
     device = dev_mod.resolve(device)
@@ -34,6 +43,7 @@ def render(scene, camera, spp=16, *, device, sampler=None, filt=None,
     filt = filt or flt.make_filter("gaussian")
     sensor = film_mod.make_pixel_sensor()
     opts = opts or path_mod.PathOptions()
+    wave = wave_module(scene)
     film = film_mod.make_film(W, H, device)
     n_pix = W * H
     n_waves = sampler.spp
@@ -47,8 +57,8 @@ def render(scene, camera, spp=16, *, device, sampler=None, filt=None,
     dev_mod.synchronize(device)
     t0 = time.perf_counter()
     for s in range(0, n_waves, m):
-        L, swl, fw = path_mod.render_wave(scene, camera, sampler, filt,
-                                          pixel_idx, s + lane_s, opts)
+        L, swl, fw = wave.render_wave(scene, camera, sampler, filt,
+                                      pixel_idx, s + lane_s, opts)
         rgb = film_mod.sensor_to_sensor_rgb(sensor, L, swl)
         film_mod.add_samples(film, pixel_idx, rgb, fw, identity=True)
     dev_mod.synchronize(device)

@@ -1,12 +1,14 @@
-"""Lights (counterpart of pbrt_tpu/lights.py): area triangles, the uniform
-infinite light and the image infinite light (an equal-area octahedral
-environment map, sampled through an alias table over its texels).
+"""Lights (counterpart of pbrt_tpu/lights.py): area triangles, the analytic
+sphere emitter, the uniform infinite light and the image infinite light
+(an equal-area octahedral environment map, sampled through an alias table
+over its texels).
 
 The packed light pool keeps the reference layout, (L, 24):
 [tag, p(3), dir(3), spec_idx, scale, tri, two_sided, cfs, cfe, is_delta,
 pmf, tri_verts(9)], each area light's triangle inlined, so the two
-builders can be compared array for array. Emission spectra are rows of the
-scene's dense spectrum pool, scaled per light.
+builders can be compared array for array; a sphere light keeps its centre
+in p, its radius in cfs and its quadric row in tri. Emission spectra are
+rows of the scene's dense spectrum pool, scaled per light.
 """
 from __future__ import annotations
 
@@ -19,12 +21,13 @@ from .utils import color as pcolor
 from .utils import sampling as usamp
 from .utils import spectrum as spc
 from .utils import vecmath as vm
-from .utils.math import INV_4PI, PI, safe_div
+from .utils.math import INV_4PI, PI, safe_div, safe_sqrt, sqr
 
 LIGHT_NONE = -1       # the reference's tags
 LIGHT_AREA_TRI = 3
 LIGHT_UNIFORM_INFINITE = 4
 LIGHT_IMAGE_INFINITE = 5
+LIGHT_AREA_SPHERE = 6
 PACKED_COLS = 24
 # a wave evaluates the whole spectrum pool once when it holds at most
 # this many spectra (reference SPEC_CACHE_MAX)
@@ -34,15 +37,16 @@ SPEC_CACHE_MAX = 64
 def compute_light_power(tag, scale, spectrum: spc.Spectrum, area=None,
                         two_sided=False, scene_radius=1.0) -> float:
     """Emitted power, the light sampler's weight (reference
-    compute_light_power)."""
+    compute_light_power; a sphere light is a one-sided area emitter of
+    area 4 pi r^2, as the reference's add_sphere weighs it)."""
     lum = scale * spectrum.to_photometric()
-    if tag == LIGHT_AREA_TRI:
+    if tag in (LIGHT_AREA_TRI, LIGHT_AREA_SPHERE):
         return (2 if two_sided else 1) * np.pi * area * lum
     if tag == LIGHT_UNIFORM_INFINITE:
         return 4 * np.pi * np.pi * scene_radius ** 2 * lum
     raise NotImplementedError(
-        f"light tag {tag}: only area triangles and the uniform and image "
-        "infinite lights are ported (ROADMAP.md slice 3 item 25, the "
+        f"light tag {tag}: only area triangles and spheres and the uniform "
+        "and image infinite lights are ported (ROADMAP.md slice 3 item 25, the "
         "analytic lights)")
 
 
@@ -126,9 +130,10 @@ def _sample_uniform_sphere(u):
 def sample_li(lights_packed, light_idx, p_ref, u2, lam, spectra_pool,
               scene_radius, tags_present, spec_cache=None, env=None):
     """Sample an incident direction from light light_idx (N,) toward p_ref
-    (N, 3) with u2 (N, 2) (reference sample_li, the area-triangle, uniform
-    and image infinite branches; env: the scene's EnvLight). Returns
-    dict(wi, L (N, 4), pdf (solid angle), p_light, is_delta, valid)."""
+    (N, 3) with u2 (N, 2) (reference sample_li, the area-triangle, sphere,
+    uniform and image infinite branches; env: the scene's EnvLight).
+    Returns dict(wi, L (N, 4), pdf (solid angle), p_light, is_delta,
+    valid)."""
     row = lights_packed[light_idx.to(torch.int64)]
     tag = row[:, 0].round().to(torch.int32)
     Lspec = light_spectrum(spectra_pool, row[:, 7].round(), row[:, 8], lam,
@@ -149,6 +154,8 @@ def sample_li(lights_packed, light_idx, p_ref, u2, lam, spectra_pool,
         branches[LIGHT_AREA_TRI] = (
             wi, torch.where(emit_ok[:, None], Lspec, 0.0),
             safe_div(dist2, torch.abs(cos_l) * area), p_tri)
+    if LIGHT_AREA_SPHERE in tags_present:
+        branches[LIGHT_AREA_SPHERE] = _sample_sphere(row, p_ref, u2, Lspec)
     if LIGHT_UNIFORM_INFINITE in tags_present:
         wi = _sample_uniform_sphere(u2)
         branches[LIGHT_UNIFORM_INFINITE] = (
@@ -184,6 +191,43 @@ def pdf_li_area_tri(p_ref, wi, p_hit, p0, p1, p2):
     dist2 = torch.clamp(vm.length_squared(p_hit - p_ref), min=1e-12)
     cos_l = torch.abs(vm.dot(ng, -wi))
     return safe_div(dist2, cos_l * area)
+
+
+def _sample_sphere(row, p_ref, u2, Lspec):
+    """The sphere light's branch of sample_li (reference Sphere::Sample
+    from a reference point): a direction uniform in the cone the sphere
+    subtends, the nearer intersection along it, the cone's solid-angle
+    pdf (0 from inside the sphere)."""
+    rad = row[:, 11]
+    dvec = row[:, 1:4] - p_ref
+    dc2 = torch.clamp(vm.length_squared(dvec), min=1e-12)
+    dc = torch.sqrt(dc2)
+    w_axis = dvec / dc[:, None]
+    sin2_max = torch.clamp(sqr(rad) / dc2, 0.0, 1.0)
+    cos_max = safe_sqrt(1.0 - sin2_max)
+    cos_t = 1.0 - u2[:, 0] * (1.0 - cos_max)
+    sin_t = safe_sqrt(1.0 - sqr(cos_t))
+    phi = 2.0 * PI * u2[:, 1]
+    t1, t2 = vm.coordinate_system(w_axis)
+    wi = (sin_t * torch.cos(phi))[:, None] * t1 + \
+        (sin_t * torch.sin(phi))[:, None] * t2 + cos_t[:, None] * w_axis
+    ds = dc * cos_t - safe_sqrt(torch.clamp(sqr(rad) - dc2 * sqr(sin_t),
+                                            min=0.0))
+    pdf = safe_div(torch.ones_like(cos_max), 2.0 * PI * (1.0 - cos_max))
+    pdf = torch.where(dc <= rad, 0.0, pdf)
+    return wi, Lspec, pdf, p_ref + wi * ds[:, None]
+
+
+def pdf_li_sphere(row, p_ref):
+    """The cone pdf sample_li gives a direction from p_ref that hits the
+    sphere light of rows (N, 24) (reference pdf_li_sphere), for MIS at an
+    emitter hit."""
+    rad = row[:, 11]
+    dc2 = torch.clamp(vm.length_squared(row[:, 1:4] - p_ref), min=1e-12)
+    sin2_max = torch.clamp(sqr(rad) / dc2, 0.0, 1.0)
+    cos_max = safe_sqrt(1.0 - sin2_max)
+    pdf = safe_div(torch.ones_like(cos_max), 2.0 * PI * (1.0 - cos_max))
+    return torch.where(dc2 <= sqr(rad), 0.0, pdf)
 
 
 def area_light_radiance(row, ng, wo, lam, spectra_pool, spec_cache=None):

@@ -359,10 +359,28 @@ def _outputs(N, device, n_out):
     return out + ((torch.empty_like(prim),) if n_out == 5 else ())
 
 
-def _launch(nodes, tris, o, d, t_max, any_hit):
-    """The single-level kernel."""
-    import ctypes
+def _launch(nodes, tris, o, d, t_max, any_hit, out=None):
+    """The single-level kernel. out: (t, prim, b1, b2) to write into (a
+    timing loop's); allocated here when None."""
     from . import _build
+    lib = _build.load_library("bvh2")
+    with torch.cuda.device(o.device):
+        args, out = launch_args_single(nodes, tris, o, d, t_max, any_hit,
+                                       out=out)
+        if args is None:
+            return out
+        err = lib.bvh2_intersect_launch(*args)
+    _build.check(err, "bvh2_intersect")
+    counter_bvh2.launches += 1
+    return out
+
+
+def launch_args_single(nodes, tris, o, d, t_max, any_hit, out=None):
+    """The arguments of bvh2_intersect_launch on the current device's
+    current stream and the outputs they write: (args, (t, prim, b1, b2)),
+    args None when there are no rays (as launch_args, for the single-level
+    entry)."""
+    import ctypes
     for x in (nodes, tris, o, d, t_max):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError("bvh2: float32 contiguous tensors only")
@@ -371,20 +389,15 @@ def _launch(nodes, tris, o, d, t_max, any_hit):
                          "floats")
     if nodes.data_ptr() % 16:
         raise ValueError("bvh2: node rows must be 16-byte aligned")
-    lib = _build.load_library("bvh2")
     N = o.shape[0]
-    t, prim, b1, b2 = _outputs(N, o.device, 4)
+    if out is None:
+        out = _outputs(N, o.device, 4)
     if N == 0:
-        return t, prim, b1, b2
-    with torch.cuda.device(o.device):
-        err = lib.bvh2_intersect_launch(
-            nodes.data_ptr(), tris.data_ptr(), o.data_ptr(), d.data_ptr(),
-            t_max.data_ptr(), t.data_ptr(), prim.data_ptr(), b1.data_ptr(),
-            b2.data_ptr(), N, int(any_hit),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, "bvh2_intersect")
-    counter_bvh2.launches += 1
-    return t, prim, b1, b2
+        return None, out
+    stream = torch.cuda.current_stream().cuda_stream
+    return (nodes.data_ptr(), tris.data_ptr(), o.data_ptr(), d.data_ptr(),
+            t_max.data_ptr(), *(x.data_ptr() for x in out), N, int(any_hit),
+            ctypes.c_void_p(stream)), out
 
 
 def _launch_two_level(nodes, kt: TwoLevelTables, tlas_root, o, d, t_max,

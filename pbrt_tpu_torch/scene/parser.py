@@ -6,15 +6,17 @@ The reference's pipeline, kept: regex tokenizer -> typed parameter lists
 compiled scene on the device the caller names. The directives handled are
 those of scenes/cornell.pbrt, scenes/meshfield.pbrt, scenes/instances.pbrt,
 scenes/patches.pbrt, scenes/envlit.pbrt, scenes/manylight.pbrt,
-scenes/manylight16k.pbrt and scenes/killeroo.pbrt:
+scenes/manylight16k.pbrt, scenes/killeroo.pbrt, scenes/plytex.pbrt and
+scenes/volume.pbrt:
 
     LookAt, Translate, Scale, Rotate, Transform, ConcatTransform
     Camera "perspective" (pinhole), Film "rgb", Sampler "zsobol",
-    Integrator "path" (its "string lightsampler": uniform, power, bvh,
-      exhaustive), WorldBegin, AttributeBegin, AttributeEnd
+    Integrator "path" or "volpath" (its "string lightsampler": uniform,
+      power, bvh, exhaustive), WorldBegin, AttributeBegin, AttributeEnd
     Material / MakeNamedMaterial / NamedMaterial, types "diffuse" (its
       reflectance a value or a texture), "conductor", "dielectric" /
-      "glass" (smooth or rough), "hair"
+      "glass" (smooth or rough), "hair", and the null material ("",
+      "none", "interface") of medium-interface meshes
     Texture "name" "spectrum" "imagemap" (.png through the sRGB curve,
       .exr, .pfm; uscale, vscale, scale; the uv mapping)
     AreaLightSource "diffuse"; LightSource "infinite", an L (uniform) or
@@ -22,7 +24,11 @@ scenes/manylight16k.pbrt and scenes/killeroo.pbrt:
       the equal-area square)
     Shape "trianglemesh", Shape "plymesh", Shape "curve" (cubic Bezier,
       the hair scene), Shape "bilinearmesh" (exact patches, or two
-      triangles a quad)
+      triangles a quad), Shape "sphere", "disk", "cylinder" (exact
+      quadrics; an emissive sphere that is partial or not uniformly
+      scaled is tessellated, as in the reference)
+    MakeNamedMedium "homogeneous" | "uniformgrid", MediumInterface (the
+      null-material meshes it bounds become interface triangles)
     ObjectBegin, ObjectEnd, ObjectInstance (static instances)
 
 Spectrum parameters take rgb values, inline [lambda value ...] lists,
@@ -45,6 +51,7 @@ from .. import cameras as cam_mod
 from .. import filters as flt
 from .. import samplers as smp
 from .. import scene_core as sc
+from .. import scenes as scenes_mod
 from ..utils import color as pcolor
 from ..utils import image
 from ..utils import image_env
@@ -57,13 +64,15 @@ class ParseError(ValueError):
     """Scene-description error, prefixed with 'file:line:col'."""
 
 
+# subdivisions of the icosphere an emissive partial or non-uniformly scaled
+# sphere is tessellated into (the reference parser's default)
+SPHERE_SUBDIV = 4
+
 _TOKEN_RE = re.compile(rb'"[^"]*"|\[|\]|[^\s"\[\]#]+|#[^\n]*')
 
 # where each refused directive or type is queued (ROADMAP.md)
 _LATER = {
     "Include": "slice 6 (front end)", "Import": "slice 6 (front end)",
-    "MakeNamedMedium": "slice 3 item 13 (volume)",
-    "MediumInterface": "slice 4 item 19 (medium interfaces)",
     "PixelFilter": "slice 4 item 21 (filters)",
     "Filter": "slice 4 item 21 (filters)",
     "ReverseOrientation": "slice 4 (remaining geometry)",
@@ -135,6 +144,10 @@ class ParamSet:
     def ints(self, name, default=None):
         v = self._get(name, ("integer",))
         return np.asarray(v, np.int64) if v is not None else default
+
+    def floats(self, name, default=None):
+        v = self._get(name, ("float", "integer"))
+        return np.asarray(v, np.float64) if v is not None else default
 
     def bool(self, name, default=None):
         v = self._get(name, ("bool",))
@@ -283,8 +296,9 @@ class Parser:
 class GraphicsState:
     def __init__(self):
         self.ctm = tfm.identity()
-        self.material = 0
+        self.material = 0       # -1: the null material (interfaces)
         self.area_light = None  # (Spectrum, scale, two_sided)
+        self.medium_interface = None  # (inside, outside) medium names
 
 
 class PbrtSceneDescription:
@@ -297,7 +311,8 @@ class PbrtSceneDescription:
         self.camera = camera
         self.sampler = sampler
         self.filter = filter_
-        self.integrator = integrator      # dict(name, max_depth)
+        self.integrator = integrator      # dict(name ("path" or
+        #                                   "volpath"), max_depth)
         self.film_params = film_params    # dict(xres, yres, filename)
 
 
@@ -329,6 +344,7 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
     spp = 16
     integrator = dict(name="path", max_depth=5)
     named_textures = {}     # Texture name -> its texture-pool row
+    named_media = {}        # MakeNamedMedium name -> its medium row
 
     def refuse(what, where, pos=None):
         raise ParseError(f"{p.loc(pos)}: {what} is not ported yet "
@@ -351,6 +367,9 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
                 ps.float("vroughness", None), ps.bool("remaproughness", True))
 
     def make_material(name, ps: ParamSet) -> int:
+        if name in ("", "none", "interface"):
+            # the null material: geometry that only bounds media
+            return -1
         if name == "hair":
             sig = ps.rgb("sigma_a", None)
             if sig is None:
@@ -503,6 +522,107 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
         b.add_mesh(P, idx, gs.material, normals=N, uvs=uv, emission=emission,
                    emission_scale=escale, two_sided=two_sided)
 
+    def medium_index(name):
+        if name is None:
+            return -1
+        if name not in named_media:
+            raise ParseError(f"{p.loc()}: MediumInterface names unknown "
+                             f"medium '{name}'")
+        return named_media[name]
+
+    def add_interface(name, ps: ParamSet):
+        """A null-material mesh: medium-interface triangles (reference
+        instantiate_shape's null-material branch), in world space, the
+        winding kept."""
+        if name not in ("trianglemesh", "plymesh"):
+            raise ParseError(f"{p.loc()}: interface (null-material) shapes "
+                             f"are supported for meshes only, not "
+                             f"'{name}'")
+        P, idx, _n, _uv = (trianglemesh_data if name == "trianglemesh"
+                           else plymesh_data)(ps)
+        inside, outside = gs.medium_interface or (None, None)
+        b.add_interface_mesh(
+            np.asarray(gs.ctm.apply_point(np.asarray(P, np.float32))), idx,
+            med_in=medium_index(inside), med_out=medium_index(outside))
+
+    def add_quadric(name, ps: ParamSet):
+        """Shape "sphere", "disk" or "cylinder" (reference parser.py:
+        632-689). Returns the tessellated (P, indices, N, uv) of an
+        emissive sphere that is partial or not uniformly scaled, for
+        add_mesh; None when the quadric was added."""
+        xf = gs.ctm
+        emission, escale, _two = gs.area_light or (None, 1.0, False)
+        m4 = np.asarray(xf.m, np.float64)
+        if name == "disk":
+            if emission is not None:
+                raise ParseError(f"{p.loc()}: area lights on disks are not "
+                                 "supported yet")
+            b.add_disk(m4, ps.float("radius", 1.0), gs.material,
+                       height=ps.float("height", 0.0),
+                       inner_radius=ps.float("innerradius", 0.0),
+                       phi_max=np.deg2rad(ps.float("phimax", 360.0)))
+            return None
+        if name == "cylinder":
+            if emission is not None:
+                raise ParseError(f"{p.loc()}: area lights on cylinders are "
+                                 "not supported yet")
+            b.add_cylinder(m4, ps.float("radius", 1.0),
+                           ps.float("zmin", -1.0), ps.float("zmax", 1.0),
+                           gs.material,
+                           phi_max=np.deg2rad(ps.float("phimax", 360.0)))
+            return None
+        radius = ps.float("radius", 1.0)
+        zmin = ps.float("zmin", -radius)
+        zmax = ps.float("zmax", radius)
+        phimax = ps.float("phimax", 360.0)
+        gram = m4[:3, :3] @ m4[:3, :3].T
+        s_sq = gram[0, 0]
+        uniform = np.allclose(gram, s_sq * np.eye(3), rtol=1e-4) and s_sq > 0
+        full = zmin <= -radius + 1e-6 and zmax >= radius - 1e-6 and \
+            phimax >= 360.0 - 1e-4
+        if uniform and full:
+            center = np.asarray(xf.apply_point(np.zeros((1, 3),
+                                                        np.float32)))[0]
+            b.add_sphere(center, radius * float(np.sqrt(s_sq)), gs.material,
+                         emission=emission, emission_scale=escale)
+            return None
+        if emission is not None:
+            P, idx, N = scenes_mod.make_sphere_mesh((0, 0, 0), radius,
+                                                    subdiv=SPHERE_SUBDIV)
+            return P, idx, N, None
+        if not full:
+            raise ParseError(f"{p.loc()}: partial spheres (zmin/zmax/phimax) "
+                             "are not yet supported as exact quadrics")
+        b.add_quadric_sphere(m4, radius, gs.material)
+        return None
+
+    def add_medium(nm, ps: ParamSet, pos):
+        """MakeNamedMedium (reference parser.py:873-946): homogeneous (in a
+        box around the whole scene) or uniformgrid (its density grid in
+        the transformed p0, p1 box)."""
+        mtype = ps.string("type", "homogeneous")
+        g = ps.float("g", 0.0)
+        sig_a = tuple(ps.rgb("sigma_a", (1.0,) * 3))
+        sig_s = tuple(ps.rgb("sigma_s", (1.0,) * 3))
+        mscale = ps.float("scale", 1.0)
+        if mtype == "homogeneous":
+            named_media[nm] = b.media.add_homogeneous(
+                sigma_a=sig_a, sigma_s=sig_s, g=g, scale=mscale)
+            return
+        if mtype != "uniformgrid":
+            refuse(f"medium type '{mtype}'",
+                   "slice 3 item 13 (the rgbgrid and cloud media; nanovdb "
+                   "with item 23)", pos)
+        nx, ny, nz = (ps.int(k, 1) for k in ("nx", "ny", "nz"))
+        p0 = ps.point3s("p0", np.zeros((1, 3)))[0]
+        p1 = ps.point3s("p1", np.ones((1, 3)))[0]
+        wc = np.asarray(gs.ctm.apply_point(np.array([p0, p1], np.float32)))
+        dens = ps.floats("density", np.ones(nx * ny * nz))
+        named_media[nm] = b.media.add_grid(
+            np.asarray(dens, np.float32).reshape(nz, ny, nx),
+            np.minimum(wc[0], wc[1]), np.maximum(wc[0], wc[1]),
+            sigma_a=sig_a, sigma_s=sig_s, g=g, scale=mscale)
+
     def add_curve(ps: ParamSet):
         """Shape "curve" (reference parser): bezier only, degree 3, chained
         spans of 3k + 1 points, the width lerped per span, type flat,
@@ -613,9 +733,9 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
         elif tok == "Integrator":
             name = p.parse_string()
             ps = p.parse_params()
-            if name != "path":
+            if name not in ("path", "volpath"):
                 refuse(f"integrator '{name}'",
-                       "slice 5 (the integrator family)", dpos)
+                       "slice 5 item 22 (the integrator family)", dpos)
             integrator = dict(name=name, max_depth=ps.int("maxdepth", 5))
             light_sampler = ps.string("lightsampler", light_sampler)
         elif tok == "WorldBegin":
@@ -680,20 +800,42 @@ def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
                 # lat-long: resample to the equal-area square
                 img = image_env.equalarea_from_latlong(img)
             b.add_image_infinite_light(img, ps.float("scale", 1.0))
+        elif tok == "MakeNamedMedium":
+            add_medium(p.parse_string(), p.parse_params(), dpos)
+        elif tok == "MediumInterface":
+            inside = p.parse_string()
+            outside = ""
+            if isinstance(p.peek(), str) and p.peek().startswith('"'):
+                outside = p.parse_string()
+            gs.medium_interface = (inside or None, outside or None)
         elif tok == "Shape":
             name = p.parse_string()
             ps = p.parse_params()
+            if current_object is None and gs.material == -1:
+                add_interface(name, ps)
+                continue
             if name in ("curve", "bilinearmesh") and current_object is None:
                 (add_curve if name == "curve" else add_bilinearmesh)(ps)
                 continue
-            if name not in ("trianglemesh", "plymesh"):
-                refuse(f"shape '{name}'" + (" in an object" if name in
-                                            ("curve", "bilinearmesh")
-                                            else ""),
-                       "slices 3-4 (quadrics with plytex, instanced curves "
-                       "and patches)", dpos)
-            data = (trianglemesh_data if name == "trianglemesh"
-                    else plymesh_data)(ps)
+            data = None
+            if name in ("sphere", "disk", "cylinder") and \
+                    current_object is None:
+                data = add_quadric(name, ps)
+                if data is None:
+                    continue
+            elif name in ("curve", "bilinearmesh", "sphere", "disk",
+                          "cylinder"):
+                refuse(f"shape '{name}' in an object", "slice 3 item 10 "
+                       "(instanced curves, patches and quadrics)", dpos)
+            elif name not in ("trianglemesh", "plymesh"):
+                refuse(f"shape '{name}'",
+                       "slice 4 item 26 (the other shapes)", dpos)
+            if current_object is not None and gs.material == -1:
+                refuse("a null-material shape in an object",
+                       "slice 3 item 10 (instanced medium interfaces)", dpos)
+            if data is None:
+                data = (trianglemesh_data if name == "trianglemesh"
+                        else plymesh_data)(ps)
             if current_object is None:
                 add_mesh(*data)
             else:

@@ -5,13 +5,15 @@ points of the general path wave.
 A scene is built on the host in numpy and moved once to the device the
 caller names. It holds triangle meshes (per-vertex normals and uvs when
 given) with diffuse, conductor, dielectric and hair materials, cubic
-Bezier curves, exact bilinear patches, area-triangle emission, uniform
-infinite lights and an image infinite light, under a uniform, power,
-light-BVH or exhaustive light sampler, image and constant textures on
-the diffuse reflectance, and static object instances of triangle
-prototypes. Other shapes, lights, materials, media, textures, animated
-instances and alpha are not ported: their builders do not exist here,
-and the parser refuses their directives.
+Bezier curves, exact bilinear patches, exact quadrics (spheres, disks,
+cylinders), area-triangle and sphere emission, uniform infinite lights and
+an image infinite light, under a uniform, power, light-BVH or exhaustive
+light sampler, image and constant textures on the diffuse reflectance,
+static object instances of triangle prototypes, homogeneous and grid
+media (media.py) and the null-material triangles of medium interfaces.
+Other shapes, lights, materials, media, textures, animated instances and
+alpha are not ported: their builders do not exist here, and the parser
+refuses their directives.
 
 Triangle queries follow the reference's dispatch (_tri_dispatch): a scene
 with instances sends every closest and any hit through the two-level
@@ -22,7 +24,14 @@ the whole scene, and below through the brute-force triangle kernel
 through the curve kernel (ops/curves.py) as well, over the curves' own
 BVH, and merges its hits as the reference does; a scene with bilinear
 patches tests every ray against its small patch pool in tensor code
-(ops/intersect.py), before the curves. The megakernel's
+(ops/intersect.py), before the curves, and a scene with quadrics tests
+every ray against each quadric in its object space (tensor code, a static
+loop over the quadrics as in the reference), before the patches.
+Medium-interface triangles stay out of the main tables, as in the
+reference: `intersect_interfaces` tests a pool of up to 256 of them in
+tensor code and a larger one through its own binary BVH and the
+single-level bvh2 kernel (ops/bvh2.bvh2_intersect), and shadow rays never
+see them. The megakernel's
 eligibility test is the reference's: an eligible scene (cornell class)
 also carries the megakernel's tables and metadata.
 """
@@ -38,6 +47,7 @@ from . import device as dev_mod
 from . import lights as lgt
 from . import lightsamplers as lsamp
 from . import materials as mtl
+from . import media as med_mod
 from . import textures as tex_mod
 from .ops import bvh as bvh_mod
 from .ops import bvh2 as bvh2_mod
@@ -54,6 +64,12 @@ from .utils.math import gamma_bound, next_float_down, next_float_up
 
 MAX_MEGA_TRIS = 64
 BVH_MIN_TRIS = 4096   # the reference's brute-force / BVH crossover
+IFACE_BVH_MIN = 257   # interface pools from this size traverse a BVH
+# the reference's quadric tags
+QUADRIC_SPHERE = 0
+QUADRIC_DISK = 1
+QUADRIC_CYLINDER = 2
+QUADRIC_COLS = 18
 
 
 @dataclasses.dataclass
@@ -86,7 +102,18 @@ class Scene:
     light's tables (lights.EnvLight), None without one. textures: the
     texture pool (textures.TexturePool); has_textures: a material reads
     a texture. The light sampler of a bvh or exhaustive scene holds its
-    own tables on the scene's device."""
+    own tables on the scene's device.
+    quadrics (Q, 18) the reference's rows [w2o (3x4), radius, p0, p1,
+    material, light, phi_max] (p0, p1: z range of a cylinder, inner radius
+    and height of a disk), quadric_o2w (Q, 9) the inverse of each row's
+    3x3 (the tangent transform), quadric_tags the host tuple of their
+    QUADRIC_* tags, n_spheres; None, () without quadrics. media: the
+    medium pool (media.MediumPool, always present; an empty one has a
+    single zero row), has_media; iface_tris (M, 10) the interface
+    triangles [p0, p1, p2, 0], iface_med (M, 2) [medium behind, in front
+    of] the geometric normal (-1 vacuum), iface_nodes / iface_tris_bvh /
+    iface_depth the pool's binary BVH and leaf-ordered rows (id in column
+    9) above 256 triangles, has_medium_interfaces."""
     tri_all: torch.Tensor
     tri_pallas: torch.Tensor
     bvh8: bvh8_mod.BVH8
@@ -122,6 +149,18 @@ class Scene:
     env: lgt.EnvLight = None
     textures: tex_mod.TexturePool = None
     has_textures: bool = False
+    quadrics: torch.Tensor = None
+    quadric_o2w: torch.Tensor = None
+    quadric_tags: tuple = ()
+    n_spheres: int = 0
+    media: med_mod.MediumPool = None
+    has_media: bool = False
+    iface_tris: torch.Tensor = None
+    iface_med: torch.Tensor = None
+    iface_nodes: torch.Tensor = None
+    iface_tris_bvh: torch.Tensor = None
+    iface_depth: int = 0
+    has_medium_interfaces: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -133,7 +172,13 @@ class Scene:
 
     @property
     def has_area_lights(self) -> bool:
-        return lgt.LIGHT_AREA_TRI in self.light_tags
+        """Emitting triangles or spheres (a hit can return emission)."""
+        return bool({lgt.LIGHT_AREA_TRI, lgt.LIGHT_AREA_SPHERE}
+                    & set(self.light_tags))
+
+    @property
+    def use_iface_bvh(self) -> bool:
+        return self.iface_nodes is not None
 
 
 def _mesh_rows(vertices, indices, normals, uvs):
@@ -183,6 +228,10 @@ class SceneBuilder:
         self.curve_mat_list = []     # material of each curve id
         self.blp_list = []           # (p00, p10, p01, p11, material)
         self._env_image = None       # (image, scale) of the image light
+        self.quadric_rows = []       # dicts: tag, w2o (3, 4), radius, p0,
+        #                              p1, mat, light, phi_max, bounds
+        self.iface_rows = []         # (p0, p1, p2, med_in, med_out)
+        self.media = med_mod.MediumBuilder(self.cs)
 
     def add_spectrum(self, s: spc.Spectrum, key=None) -> int:
         """Add a spectrum to the pool, deduplicated by content. key: a
@@ -301,6 +350,92 @@ class SceneBuilder:
                                 for x in (p00, p10, p01, p11)),
                               int(material)))
 
+    def add_interface_mesh(self, vertices, indices, med_in=-1, med_out=-1):
+        """Null-material medium-interface triangles (reference
+        add_interface_mesh): a ray that crosses one switches to med_in on
+        the back side of its geometric normal and to med_out on the front,
+        without scattering; shadow rays ignore them. med_in, med_out:
+        indices into self.media (-1 vacuum)."""
+        vertices = np.asarray(vertices, np.float32)
+        indices = np.asarray(indices, np.int64)
+        for i0, i1, i2 in indices:
+            self.iface_rows.append((vertices[i0], vertices[i1], vertices[i2],
+                                    int(med_in), int(med_out)))
+
+    def add_sphere(self, center, radius, material: int, emission=None,
+                   emission_scale=1.0) -> int:
+        """An exact sphere (reference add_sphere): its row holds the world
+        to object translation; emission makes it a sphere light (centre in
+        the light's p, radius in cfs, its quadric row in tri), weighed by
+        the power of a one-sided emitter of area 4 pi r^2. Returns the
+        light index, -1 without emission."""
+        center = np.asarray(center, np.float32)
+        qi = len(self.quadric_rows)
+        light = -1
+        if emission is not None:
+            light = len(self.light_rows)
+            self.light_rows.append(dict(
+                tag=lgt.LIGHT_AREA_SPHERE, p=center, dir=np.zeros(3),
+                spec_idx=self.add_spectrum(emission,
+                                           key=("emit", id(emission))),
+                scale=emission_scale, tri=qi, two_sided=False, cfs=radius,
+                cfe=0.0, is_delta=False,
+                power=lgt.compute_light_power(
+                    lgt.LIGHT_AREA_SPHERE, emission_scale, emission,
+                    area=4 * np.pi * radius ** 2)))
+        w2o = np.concatenate([np.eye(3, dtype=np.float32),
+                              -center[:, None]], axis=1)
+        self.quadric_rows.append(dict(
+            tag=QUADRIC_SPHERE, w2o=w2o, radius=float(radius),
+            p0=-float(radius), p1=float(radius), mat=material, light=light,
+            phi_max=2 * np.pi, bounds=(center - radius, center + radius)))
+        return light
+
+    def _add_transformed_quadric(self, tag, object_to_world, radius, p0, p1,
+                                 material, phi_max, obj_lo, obj_hi) -> int:
+        """A quadric row under an affine object_to_world (4, 4), inverted in
+        float64; its world box from the 8 transformed corners of its
+        object box."""
+        o2w = np.asarray(object_to_world, np.float64).reshape(4, 4)
+        w2o = np.linalg.inv(o2w)[:3, :4].astype(np.float32)
+        corners = np.stack(np.meshgrid(*zip(obj_lo, obj_hi), indexing="ij"),
+                           -1).reshape(-1, 3)
+        wc = corners @ o2w[:3, :3].T + o2w[:3, 3]
+        self.quadric_rows.append(dict(
+            tag=tag, w2o=w2o, radius=float(radius), p0=float(p0),
+            p1=float(p1), mat=material, light=-1, phi_max=float(phi_max),
+            bounds=(wc.min(axis=0).astype(np.float32),
+                    wc.max(axis=0).astype(np.float32))))
+        return len(self.quadric_rows) - 1
+
+    def add_quadric_sphere(self, object_to_world, radius,
+                           material: int) -> int:
+        """An exact sphere under any affine transform, ellipsoids included
+        (no emission: an emissive sphere is add_sphere's)."""
+        r = float(radius)
+        return self._add_transformed_quadric(
+            QUADRIC_SPHERE, object_to_world, r, -r, r, material, 2 * np.pi,
+            obj_lo=(-r, -r, -r), obj_hi=(r, r, r))
+
+    def add_disk(self, object_to_world, radius, material: int, height=0.0,
+                 inner_radius=0.0, phi_max=2 * np.pi) -> int:
+        """An exact disk: the annulus inner_radius <= r <= radius at z =
+        height in object space (no emission)."""
+        r = float(radius)
+        return self._add_transformed_quadric(
+            QUADRIC_DISK, object_to_world, r, inner_radius, height, material,
+            phi_max, obj_lo=(-r, -r, height - 1e-4),
+            obj_hi=(r, r, height + 1e-4))
+
+    def add_cylinder(self, object_to_world, radius, z_min, z_max,
+                     material: int, phi_max=2 * np.pi) -> int:
+        """An exact cylinder x^2 + y^2 = r^2, z_min <= z <= z_max in object
+        space (no emission)."""
+        r = float(radius)
+        return self._add_transformed_quadric(
+            QUADRIC_CYLINDER, object_to_world, r, z_min, z_max, material,
+            phi_max, obj_lo=(-r, -r, z_min), obj_hi=(r, r, z_max))
+
     def add_uniform_infinite_light(self, spectrum: spc.Spectrum,
                                    scale=1.0) -> int:
         """A constant environment; its power is set at build time from the
@@ -336,7 +471,8 @@ class SceneBuilder:
         rows = self.light_rows
         n_tri = len(p0)
         if (use_bvh or self.instances or self.curve_seg_rows
-                or self.blp_list
+                or self.blp_list or self.quadric_rows or self.iface_rows
+                or self.media.rows
                 or n_tri > MAX_MEGA_TRIS or not rows
                 or self.materials.tags() != (bxdfs.BXDF_DIFFUSE,)
                 or self.materials.has_textures()
@@ -366,7 +502,8 @@ class SceneBuilder:
         """Each light's LightBounds for the position-aware samplers
         (reference _light_bounds): an area triangle's box, its normal as
         the cone axis (cos_theta_o -1 when two-sided, else 1) and
-        cos_theta_e 0; infinite lights outside the tree."""
+        cos_theta_e 0; a sphere light's box, emitting every way; infinite
+        lights outside the tree."""
         L = len(rows)
         lo = np.zeros((L, 3), np.float32)
         hi = np.zeros((L, 3), np.float32)
@@ -384,6 +521,9 @@ class SceneBuilder:
                 nn = np.linalg.norm(ng)
                 w[i] = ng / nn if nn > 1e-12 else w[i]
                 cos_o[i] = -1.0 if r["two_sided"] else 1.0
+            elif r["tag"] == lgt.LIGHT_AREA_SPHERE:
+                lo[i] = r["p"] - r["cfs"]
+                hi[i] = r["p"] + r["cfs"]
             else:   # the infinite lights
                 inf[i] = True
         return dict(bounds_lo=lo, bounds_hi=hi, axis_w=w, cos_theta_o=cos_o,
@@ -392,10 +532,20 @@ class SceneBuilder:
                     is_infinite=inf)
 
     def _world_bounds(self, lo, hi):
-        """World box of the triangles, the bilinear patches' corners, the
+        """World box of the triangles, the medium boxes, the quadrics'
+        boxes, the interface triangles, the bilinear patches' corners, the
         curves' sub-segment boxes and every instance's prototype box
-        corners through its o2w (reference build, :627-648)."""
+        corners through its o2w (reference build, :614-648)."""
         world_lo, world_hi = lo.min(axis=0), hi.max(axis=0)
+        for r in self.media.rows:
+            world_lo = np.minimum(world_lo, r[15:18])
+            world_hi = np.maximum(world_hi, r[18:21])
+        for q in self.quadric_rows:
+            world_lo = np.minimum(world_lo, q["bounds"][0])
+            world_hi = np.maximum(world_hi, q["bounds"][1])
+        for *tri, _mi, _mo in self.iface_rows:
+            world_lo = np.minimum(world_lo, np.min(tri, axis=0))
+            world_hi = np.maximum(world_hi, np.max(tri, axis=0))
         for *corners, _m in self.blp_list:
             world_lo = np.minimum(world_lo, np.min(corners, axis=0))
             world_hi = np.maximum(world_hi, np.max(corners, axis=0))
@@ -486,6 +636,45 @@ class SceneBuilder:
                 f"{crv.MAX_DEPTH} (its {crv.STACK}-entry stack)")
         return cbvh.nodes, rows[cbvh.prim_indices], depth
 
+    def _quadric_tables(self, t):
+        """The quadric rows (reference build, :675-681), each row's tangent
+        transform, the tags and the sphere count."""
+        quad = np.stack([np.concatenate([
+            q["w2o"].reshape(-1), [q["radius"], q["p0"], q["p1"],
+                                   float(q["mat"]), float(q["light"]),
+                                   q["phi_max"]]])
+            for q in self.quadric_rows]).astype(np.float32)
+        o2w = np.stack([np.linalg.inv(r[0:12].reshape(3, 4)[:, :3])
+                        for r in quad]).reshape(-1, 9)
+        tags = tuple(q["tag"] for q in self.quadric_rows)
+        return dict(quadrics=t(quad), quadric_o2w=t(o2w), quadric_tags=tags,
+                    n_spheres=sum(1 for g in tags if g == QUADRIC_SPHERE))
+
+    def _interface_tables(self, t, device):
+        """The interface pool (reference build, :947-969): its rows and
+        media, and above 256 triangles its binary BVH and leaf-ordered rows
+        for the single-level bvh2 kernel."""
+        p0, p1, p2 = (np.stack([r[k] for r in self.iface_rows])
+                      for k in range(3))
+        n = len(p0)
+        out = dict(
+            iface_tris=t(np.concatenate([p0, p1, p2, np.zeros((n, 1))],
+                                        axis=1)),
+            iface_med=t([[r[3], r[4]] for r in self.iface_rows]),
+            has_medium_interfaces=True)
+        if n >= IFACE_BVH_MIN:
+            ibvh = bvh_mod.build_bvh(np.minimum(np.minimum(p0, p1), p2),
+                                     np.maximum(np.maximum(p0, p1), p2))
+            depth = bvh_mod.bvh_max_depth(ibvh.nodes)
+            if depth > bvh2_mod.MAX_DEPTH:
+                raise NotImplementedError(
+                    f"the interface BVH is {depth} deep, over the bvh2 "
+                    f"kernel's {bvh2_mod.MAX_DEPTH}")
+            out.update(iface_nodes=t(ibvh.nodes), iface_depth=depth,
+                       iface_tris_bvh=t(bvh_mod.pack_tri_geo(
+                           p0, p1, p2, order=ibvh.prim_indices)))
+        return out
+
     def build(self, light_sampler="power", force_bvh=None,
               device="cuda") -> Scene:
         device = dev_mod.resolve(device)
@@ -517,7 +706,8 @@ class SceneBuilder:
             self._light_bounds(rows, p0, p1, p2) if rows else None,
             device=device)
         if lsamp.positional(ls):
-            if any(r["tag"] != lgt.LIGHT_AREA_TRI for r in rows):
+            if any(r["tag"] not in (lgt.LIGHT_AREA_TRI, lgt.LIGHT_AREA_SPHERE)
+                   for r in rows):
                 # the reference's escape branches read pmf_table, which
                 # its position-aware samplers lack: it cannot render this
                 raise NotImplementedError(
@@ -570,6 +760,10 @@ class SceneBuilder:
             extra.update(has_blps=True, blp_rows=t(np.stack([
                 np.concatenate([*corners, [float(m), -1.0]])
                 for *corners, m in self.blp_list])))
+        if self.quadric_rows:
+            extra.update(self._quadric_tables(t))
+        if self.iface_rows:
+            extra.update(self._interface_tables(t, device))
         if self._env_image is not None:
             img, esc = self._env_image
             extra["env"] = lgt.make_env_light(
@@ -590,7 +784,9 @@ class SceneBuilder:
             light_tags=tuple(sorted({r["tag"] for r in rows})),
             n_tris=len(tri_geo), bxdf_tags=self.materials.tags(),
             textures=self.textures.build(device),
-            has_textures=self.materials.has_textures(), **extra)
+            has_textures=self.materials.has_textures(),
+            media=self.media.build(device), has_media=bool(self.media.rows),
+            **extra)
         mega = self._mega_meta(use_bvh, ls, p0, p1, p2)
         if mega is None:
             return scene
@@ -694,8 +890,11 @@ def intersect(scene: Scene, o, d, t_max):
                light=row[:, 26].round().to(torch.int64), wo=-d, p0=p0,
                p1=p1, p2=p2, dpdu=dpdu, dpdv=dpdv,
                p_err=intersection_p_error(b0, b1, b2, p0, p1, p2))
-    # the reference's order: patches, then curves, then the floor, under
-    # which a patch or curve hit keeps the triangle query's p_err
+    # the reference's order: quadrics, patches, then curves, then the
+    # floor, under which a patch or curve hit keeps the triangle query's
+    # p_err
+    if scene.quadric_tags:
+        out = _merge_quadric_hits(scene, o, d, t_max, out)
     if scene.has_blps:
         out = _merge_blp_hits(scene, o, d, t_max, out)
     if scene.has_curves:
@@ -703,6 +902,143 @@ def intersect(scene: Scene, o, d, t_max):
     out["p_err"] = torch.maximum(out["p_err"], gamma_bound(7)
                                  * torch.abs(out["p"]))
     return out
+
+
+def _affine3(m, x, stride=3, offset=False):
+    """x (N, 3) through the 3x3 part of row-major rows m (stride floats a
+    row): out_i = sum_j m[i, j] x_j, plus m[i, 3] with offset (a 3x4
+    row), elementwise in the reference's order."""
+    out = [m[stride * i] * x[:, 0] + m[stride * i + 1] * x[:, 1]
+           + m[stride * i + 2] * x[:, 2] for i in range(3)]
+    if offset:
+        out = [v + m[stride * i + 3] for i, v in enumerate(out)]
+    return torch.stack(out, dim=-1)
+
+
+def _quadric_ray(row, o, d):
+    """World rays into a quadric's object space by its w2o (the direction
+    is not normalised, so t stays the world ray's)."""
+    return _affine3(row, o, 4, offset=True), _affine3(row, d, 4)
+
+
+def _quadric_test(tag, row, o_obj, d_obj, t_best):
+    """The object-space test of a quadric of static tag below t_best."""
+    radius, q0, q1, phi_max = row[12], row[13], row[14], row[17]
+    if tag == QUADRIC_SPHERE:
+        return isect_ops.ray_sphere(o_obj, d_obj, t_best, radius)
+    if tag == QUADRIC_DISK:
+        return isect_ops.ray_disk(o_obj, d_obj, t_best, radius, height=q1,
+                                  inner_radius=q0, phi_max=phi_max)
+    return isect_ops.ray_cylinder(o_obj, d_obj, t_best, radius, q0, q1,
+                                  phi_max=phi_max)
+
+
+def _merge_quadric_hits(scene: Scene, o, d, t_max, out):
+    """Merge each quadric's hit below the best so far (reference
+    _merge_quadric_hits, a static loop over the quadrics): the position on
+    the world ray, the object normal through w2o^T, uv = (phi / phi_max,
+    theta / pi | the radial or the height fraction), dpdu the object phi
+    direction (-y, x, 0) through the tangent transform (a frame about the
+    normal at the poles), dpdv = n x dpdu, prim -(q + 1), the quadric's
+    material and light, p_err gamma(5) |p|. p0, p1, p2 stay the triangle
+    query's: a sphere light's MIS reads its own pdf."""
+    t_best = torch.where(out["hit"], out["t"], t_max)
+    for q, tag in enumerate(scene.quadric_tags):
+        row = scene.quadrics[q]
+        o_obj, d_obj = _quadric_ray(row, o, d)
+        rq = _quadric_test(tag, row, o_obj, d_obj, t_best)
+        hit_q = rq["hit"] & (rq["t"] < t_best)
+        t_best = torch.where(hit_q, rq["t"], t_best)
+        p_obj = rq["p"]
+        radius, q0, q1, phi_max = row[12], row[13], row[14], row[17]
+        zero = torch.zeros_like(p_obj[:, 2])
+        if tag == QUADRIC_SPHERE:
+            n_obj = p_obj / torch.clamp(radius, min=1e-9)
+            theta = torch.acos(torch.clamp(
+                p_obj[:, 2] / torch.clamp(radius, min=1e-9), -1, 1))
+            uv_q = torch.stack([rq["phi"] / phi_max, theta / np.pi], -1)
+        elif tag == QUADRIC_DISK:
+            n_obj = torch.stack([zero, zero, zero + 1.0], -1)
+            r_hit = torch.sqrt(p_obj[:, 0] ** 2 + p_obj[:, 1] ** 2)
+            v = (radius - r_hit) / torch.clamp(radius - q0, min=1e-9)
+            uv_q = torch.stack([rq["phi"] / phi_max, v], -1)
+        else:
+            n_obj = torch.stack([p_obj[:, 0], p_obj[:, 1], zero], -1) / \
+                torch.clamp(radius, min=1e-9)
+            v = (p_obj[:, 2] - q0) / torch.clamp(q1 - q0, min=1e-9)
+            uv_q = torch.stack([rq["phi"] / phi_max, v], -1)
+        p_q = o + rq["t"][:, None] * d
+        # n A (the transpose of w2o's 3x3 applied to n)
+        n_q = vm.normalize(torch.stack(
+            [n_obj[:, 0] * row[j] + n_obj[:, 1] * row[4 + j]
+             + n_obj[:, 2] * row[8 + j] for j in range(3)], -1))
+        dpdu_obj = torch.stack([-p_obj[:, 1], p_obj[:, 0], zero], -1)
+        dpdu_q = vm.normalize(_affine3(scene.quadric_o2w[q], dpdu_obj))
+        t1q, _ = vm.coordinate_system(n_q)
+        bad = vm.length_squared(dpdu_obj) < 1e-12
+        dpdu_q = torch.where(bad[:, None], t1q, dpdu_q)
+        dpdv_q = vm.normalize(vm.cross(n_q, dpdu_q))
+        h = hit_q[:, None]
+        out = dict(out,
+                   hit=out["hit"] | hit_q,
+                   t=torch.where(hit_q, rq["t"], out["t"]),
+                   prim=torch.where(hit_q, -(q + 1), out["prim"]),
+                   p=torch.where(h, p_q, out["p"]),
+                   ng=torch.where(h, n_q, out["ng"]),
+                   ns=torch.where(h, n_q, out["ns"]),
+                   uv=torch.where(h, uv_q, out["uv"]),
+                   dpdu=torch.where(h, dpdu_q, out["dpdu"]),
+                   dpdv=torch.where(h, dpdv_q, out["dpdv"]),
+                   mat=torch.where(hit_q, row[15].to(torch.int64),
+                                   out["mat"]),
+                   light=torch.where(hit_q, row[16].to(torch.int64),
+                                     out["light"]),
+                   p_err=torch.where(h, gamma_bound(5) * torch.abs(p_q),
+                                     out["p_err"]))
+    return out
+
+
+def intersect_interfaces(scene: Scene, o, d, t_max):
+    """Closest hit of rays o, d (N, 3) below t_max (N,) on the
+    medium-interface triangles (reference intersect_interfaces): a pool of
+    up to 256 every ray against every triangle (Moeller-Trumbore, t >
+    1e-5), a larger one through its BVH and the single-level bvh2 kernel
+    (its plain version on the CPU). Returns dict(hit, t (inf on a miss),
+    ng (the triangle's unit normal), med_in, med_out (int64))."""
+    if scene.use_iface_bvh:
+        r = bvh2_mod.bvh2_intersect(scene.iface_nodes, scene.iface_tris_bvh,
+                                    o.contiguous(), d.contiguous(),
+                                    t_max.contiguous(), False,
+                                    depth=scene.iface_depth)
+        hit = r["hit"]
+        k = torch.clamp(r["prim"], min=0).to(torch.int64)
+        t_hit = r["t"]
+    else:
+        tri = scene.iface_tris
+        p0 = tri[None, :, 0:3]
+        e1 = tri[None, :, 3:6] - p0
+        e2 = tri[None, :, 6:9] - p0
+        ov = o[:, None, :]
+        dv = d[:, None, :]
+        pv = vm.cross(dv, e2)
+        det = vm.dot(e1, pv)
+        inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1.0, det)
+        tv = ov - p0
+        u = vm.dot(tv, pv) * inv_det
+        qv = vm.cross(tv, e1)
+        v = vm.dot(dv, qv) * inv_det
+        t = vm.dot(e2, qv) * inv_det
+        ok = (torch.abs(det) > 1e-12) & (u >= 0) & (v >= 0) & \
+            (u + v <= 1) & (t > 1e-5) & (t < t_max[:, None])
+        t = torch.where(ok, t, torch.inf)
+        t_hit, k = torch.min(t, dim=-1)
+        hit = torch.isfinite(t_hit)
+    row = scene.iface_tris[k]
+    ng = vm.normalize(vm.cross(row[:, 3:6] - row[:, 0:3],
+                               row[:, 6:9] - row[:, 0:3]))
+    med = scene.iface_med[k].round().to(torch.int64)
+    return dict(hit=hit, t=torch.where(hit, t_hit, torch.inf), ng=ng,
+                med_in=med[:, 0], med_out=med[:, 1])
 
 
 def _blp_query(scene: Scene, o, d, t_max):
@@ -790,6 +1126,11 @@ def intersect_p(scene: Scene, o, d, t_max):
     """Any-hit (shadow) query. Returns bool occluded (N,)."""
     o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()
     occluded = _tri_dispatch(scene, o, d, t_max, any_hit=True)["hit"]
+    for q, tag in enumerate(scene.quadric_tags):
+        row = scene.quadrics[q]
+        o_obj, d_obj = _quadric_ray(row, o, d)
+        occluded = occluded | _quadric_test(tag, row, o_obj, d_obj,
+                                            t_max)["hit"]
     if scene.has_blps:
         occluded = occluded | _blp_query(scene, o, d, t_max)["hit"]
     if scene.has_curves:
@@ -813,3 +1154,12 @@ def offset_ray_origin_exact(p, p_err, ng, w):
     po = p + offset
     return torch.where(offset > 0, next_float_up(po),
                        torch.where(offset < 0, next_float_down(po), po))
+
+
+def offset_ray_origin(p, ng, w):
+    """The scaled-epsilon offset where no error bound is known (reference
+    offset_ray_origin): 1e-4 max(max |p|, 1) along ng, to the side of w
+    (the volumetric wave's interface crossings)."""
+    eps = 1e-4 * torch.clamp(torch.abs(p).amax(dim=-1), min=1.0)
+    sign = torch.where(vm.dot(w, ng) > 0, 1.0, -1.0)
+    return p + (sign * eps)[:, None] * ng

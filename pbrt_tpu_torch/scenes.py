@@ -1,16 +1,20 @@
 """Built-in scenes (counterpart of pbrt_tpu/scenes.py), with the
 reference's geometry, materials and cameras: the Cornell box of the main
-path, a box lit under the uniform light sampler, and the two furnace
-scenes whose images are known analytically."""
+path, a box lit under the uniform light sampler, the material showcase
+(three exact spheres under an environment map), a homogeneous medium
+inside an interface shell, and the two furnace scenes whose images are
+known analytically."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import cameras as cam_mod
 from . import scene_core as sc
 from .utils import color as pcolor
 from .utils import spectrum as spc
 from .utils import transform as tfm
+from .utils import vecmath as vm
 
 
 def _quad(builder, corners, material, **kw):
@@ -143,6 +147,55 @@ def make_sphere_mesh(center, radius, subdiv=3):
     return verts.astype(np.float32), faces, normals.astype(np.float32)
 
 
+def _showcase_sky(res=64):
+    """The showcase's equal-area sky: a gradient brightening upwards and a
+    sun disk (reference make_material_showcase's default env_image)."""
+    u, v = np.meshgrid((np.arange(res) + 0.5) / res,
+                       (np.arange(res) + 0.5) / res, indexing="xy")
+    d = vm.equal_area_square_to_sphere(torch.as_tensor(
+        np.stack([u, v], -1).reshape(-1, 2), dtype=torch.float32)).numpy()
+    z = d[:, 2].reshape(res, res)
+    sky = np.stack([0.4 + 0.3 * np.maximum(z, 0),
+                    0.5 + 0.4 * np.maximum(z, 0),
+                    0.8 + 0.8 * np.maximum(z, 0)], -1).astype(np.float32)
+    sun_dir = np.asarray([0.4, 0.8, 0.3])
+    sun_dir = sun_dir / np.linalg.norm(sun_dir)
+    cosd = (d @ sun_dir).reshape(res, res)
+    return sky + (cosd > 0.995)[..., None] * np.asarray([400.0, 380.0, 320.0])
+
+
+def make_material_showcase(width=400, height=300, env_image=None,
+                           device="cuda"):
+    """Gold, glass and copper exact spheres (add_sphere) on a diffuse floor
+    under an environment map (reference make_material_showcase): the
+    API-built quadric scene. Returns (scene, camera)."""
+    b = sc.SceneBuilder()
+    floor = b.materials.add_diffuse((0.4, 0.4, 0.4))
+    named = {k: b.add_spectrum(spc.get_named_spectrum(f"metal-{k}"),
+                               key=k.lower())
+             for k in ("Au-eta", "Au-k", "Cu-eta", "Cu-k")}
+    gold = b.materials.add_conductor(eta_spec_idx=named["Au-eta"],
+                                     k_spec_idx=named["Au-k"], roughness=0.1)
+    copper = b.materials.add_conductor(eta_spec_idx=named["Cu-eta"],
+                                       k_spec_idx=named["Cu-k"],
+                                       roughness=0.005)
+    glass = b.materials.add_dielectric(eta=1.5, roughness=0.0)
+    _quad(b, [(-8, 0, -8), (8, 0, -8), (8, 0, 8), (-8, 0, 8)], floor,
+          uvs=[[0, 0], [8, 0], [8, 8], [0, 8]])
+    for cx, cz, mat in ((-2.2, 0.0, gold), (0.0, 0.0, glass),
+                        (2.2, 0.0, copper)):
+        b.add_sphere((cx, 1.0, cz), 1.0, mat)
+    b.add_image_infinite_light(_showcase_sky() if env_image is None
+                               else env_image)
+    scene = b.build(light_sampler="power", force_bvh=True, device=device)
+    cam = cam_mod.make_camera(
+        "perspective",
+        camera_from_world=tfm.look_at((0, 2.2, -7.5), (0, 1.0, 0),
+                                      (0, 1, 0)).inverse(),
+        width=width, height=height, fov=32.0)
+    return scene, cam
+
+
 def make_furnace_sphere(albedo=1.0, env_radiance=1.0, width=64, height=64,
                         subdiv=3, device="cuda", force_bvh=True):
     """The white furnace: a unit diffuse sphere under a uniform
@@ -164,3 +217,31 @@ def make_furnace_sphere(albedo=1.0, env_radiance=1.0, width=64, height=64,
                                       (0, 1, 0)).inverse(),
         width=width, height=height, fov=40.0)
     return scene, cam
+
+
+def make_medium_shell(width=200, height=200, device="cuda"):
+    """A homogeneous medium bounded by an icosphere of 320 null-material
+    interface triangles (above 256, so its crossings go through the
+    interface BVH and the single-level bvh2 kernel) over a diffuse floor,
+    lit by an area lamp. Returns (scene, camera); render picks the
+    volumetric integrator."""
+    b = sc.SceneBuilder()
+    m = b.materials.add_diffuse((0.6, 0.55, 0.5))
+    quad = [[0, 1, 2], [0, 2, 3]]
+    b.add_mesh(np.asarray([[-4, -0.3, -4], [4, -0.3, -4], [4, -0.3, 4],
+                           [-4, -0.3, 4]], np.float32), quad, m)
+    b.add_mesh(np.asarray([[-0.6, 2.5, -0.6], [0.6, 2.5, -0.6],
+                           [0.6, 2.5, 0.6], [-0.6, 2.5, 0.6]], np.float32),
+               quad, m, emission=pcolor.RGBIlluminantSpectrum((9, 8, 7),
+                                                              b.cs))
+    med = b.media.add_homogeneous(sigma_a=(0.3, 0.2, 0.1),
+                                  sigma_s=(1.2, 1.5, 1.8), g=0.4,
+                                  bounds_lo=(-1.05, -0.25, -1.05),
+                                  bounds_hi=(1.05, 1.85, 1.05))
+    verts, faces, _n = make_sphere_mesh((0.0, 0.8, 0.0), 1.0, 2)
+    b.add_interface_mesh(verts, faces, med_in=med, med_out=-1)
+    cam = cam_mod.make_camera(
+        "perspective", camera_from_world=tfm.look_at(
+            (0, 1.2, 4.5), (0, 0.8, 0), (0, 1, 0)).inverse(),
+        width=width, height=height, fov=40.0)
+    return b.build(device=device), cam

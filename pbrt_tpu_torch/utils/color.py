@@ -161,3 +161,19 @@ def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
     x = torch.clamp(x, 0.0, 1.0)
     return torch.where(x <= 0.04045, x / 12.92,
                        torch.pow((x + 0.055) / 1.055, 2.4))
+
+
+def sigmoid_poly_max_value(coeffs) -> float:
+    """Largest value over [360, 830] nm of the sigmoid polynomial with
+    coefficients (3,) (reference sigmoid_poly_max_value): the ends and the
+    polynomial's extremum where it lies inside, in float32."""
+    c = torch.as_tensor(np.asarray(coeffs, np.float32))
+    c0, c1, c2 = c[0], c[1], c[2]
+
+    def at(lam):
+        return sigmoid_polynomial(c0, c1, c2, lam)
+    result = torch.maximum(at(torch.tensor(360.0)), at(torch.tensor(830.0)))
+    lam_ext = -c1 / (2.0 * torch.where(c0 == 0, 1.0, c0))
+    if c0 != 0 and 360.0 < lam_ext < 830.0:
+        result = torch.maximum(result, at(lam_ext))
+    return float(result)

@@ -79,3 +79,21 @@ def next_float_down(v: torch.Tensor) -> torch.Tensor:
     out = torch.where(v > 0, ui - 1, ui + 1).view(torch.float32)
     out = torch.where(v == 0.0, -_TINY, out)
     return torch.where(torch.isinf(v) & (v < 0), v, out)
+
+
+def quadratic(a, b, c):
+    """Roots of a t^2 + b t + c = 0 (reference utils/math.quadratic): q =
+    -(b + sign(b) sqrt(disc)) / 2, t0 = q / a, t1 = c / q, ordered; b t + c
+    = 0 where a == 0. Returns (has_solution, t0, t1), t0 <= t1."""
+    disc = b * b - 4.0 * a * c
+    has = (disc >= 0.0) & (a != 0.0)
+    root = safe_sqrt(disc)
+    q = -0.5 * (b + torch.where(b < 0.0, -root, root))
+    t0 = safe_div(q, a)
+    t1 = safe_div(c, q)
+    lo = torch.minimum(t0, t1)
+    hi = torch.maximum(t0, t1)
+    lin_ok = (a == 0.0) & (b != 0.0)
+    lin_t = safe_div(-c, b)
+    return (has | lin_ok, torch.where(lin_ok, lin_t, lo),
+            torch.where(lin_ok, lin_t, hi))

@@ -8,6 +8,8 @@ intermediate leaves int64. Bit-exact with the reference.
 """
 from __future__ import annotations
 
+import torch
+
 MASK32 = 0xFFFFFFFF
 
 
@@ -31,11 +33,23 @@ def hash_u32(*words):
     """Combine uint32 words (ints or int64 tensors) into one uint32
     (reference rng.hash_u32). With only ints it is the host hash the
     megakernel bakes into its per-dimension seed table."""
-    h = 0x9E3779B9
+    return hash_continue(0x9E3779B9, *words)
+
+
+def hash_continue(h, *words):
+    """hash_u32's fold from its state h on: hash_u32(a, b, c) is
+    hash_continue(hash_u32(a, b), c), so a hash whose leading words stay
+    fixed across calls is finished from its stored prefix."""
     for w in words:
         h = fmix32((w & MASK32) ^ ((mul32(h, 0x01000193) + 0x517CC1B7)
                                    & MASK32))
     return h
+
+
+def u32_to_float01(u):
+    """u32 values -> float32 in [0, 1): the top 24 bits times 2^-24
+    (reference rng.u32_to_float01)."""
+    return (u >> 8).to(torch.float32) * (2.0 ** -24)
 
 
 def reverse_bits_32(n):

@@ -742,11 +742,13 @@ def test_envlit_renders_through_the_general_wave(cuda_device):
 
 def _golden_scene(name, device, size=64, spp=4):
     """scenes/<name>.pbrt parsed on device at size x size and spp."""
+    import re
     text = (Path(__file__).resolve().parent.parent / "scenes"
             / f"{name}.pbrt").read_text().replace(
         '"integer xresolution" [200] "integer yresolution" [200]',
-        f'"integer xresolution" [{size}] "integer yresolution" [{size}]'
-    ).replace('"integer pixelsamples" [32]', f'"integer pixelsamples" [{spp}]')
+        f'"integer xresolution" [{size}] "integer yresolution" [{size}]')
+    text = re.sub(r'"integer pixelsamples" \[\d+\]',
+                  f'"integer pixelsamples" [{spp}]', text)
     return parser.parse_string(text, base_dir=Path(__file__).resolve()
                                .parent.parent / "scenes", device=device)
 
@@ -769,7 +771,8 @@ def _record(module, name, run):
 
 
 GOLDEN_WAVES = [("manylight", "tri_intersect", 3),
-                ("manylight16k", "bvh8", 3), ("killeroo", "bvh8", 5)]
+                ("manylight16k", "bvh8", 3), ("killeroo", "bvh8", 5),
+                ("plytex", "bvh8", 5)]
 
 
 @pytest.mark.cuda
@@ -777,7 +780,8 @@ GOLDEN_WAVES = [("manylight", "tri_intersect", 3),
 def test_kernels_bit_equal_on_golden_rung_wave_queries(cuda_device, name,
                                                        route, depth):
     """The kernel queries of one wave (64x64 lanes) of manylight (triangle
-    kernel), manylight16k and killeroo (BVH8 kernel): the camera rays,
+    kernel), manylight16k, killeroo and plytex (BVH8 kernel; plytex's
+    sphere merged in tensor code): the camera rays,
     each bounce and each shadow query, t, prim, b1 and b2 bit-equal to
     the plain version (the hit flag at any hit)."""
     from pbrt_tpu_torch.integrators import path as path_mod
@@ -812,8 +816,9 @@ def test_kernels_bit_equal_on_golden_rung_wave_queries(cuda_device, name,
 @pytest.mark.parametrize("name, route, depth", GOLDEN_WAVES)
 def test_golden_rungs_render_through_the_general_wave(cuda_device, name,
                                                       route, depth):
-    """manylight and manylight16k (the bvh light sampler) and killeroo (a
-    texture) are outside the megakernel: render takes the general wave,
+    """manylight and manylight16k (the bvh light sampler), killeroo (a
+    texture) and plytex (a quadric) are outside the megakernel: render
+    takes the general wave,
     every query through the rung's kernel, and the image is finite and
     lit."""
     from pbrt_tpu_torch.integrators import path as path_mod
@@ -830,3 +835,71 @@ def test_golden_rungs_render_through_the_general_wave(cuda_device, name,
     assert counter.plain == before[2]
     assert img.shape == (32, 32, 3) and np.isfinite(img).all()
     assert img.mean() > 1e-3
+
+
+@pytest.mark.cuda
+def test_volume_renders_through_the_volumetric_wave(cuda_device):
+    """volume.pbrt at 32x32, 4 spp: render takes the volumetric wave, every
+    main query through the triangle kernel (no plain version), the image
+    finite and lit; every triangle-kernel query of one wave bit-equal to
+    the plain version."""
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.integrators import volpath
+    desc = _golden_scene("volume", cuda_device, size=32)
+    s = desc.scene
+    assert render.wave_module(s) is volpath and s.tri_pallas is not None
+    before = (ti.counter.launches, ti.counter.plain)
+    img, _st = render.render(s, desc.camera, sampler=desc.sampler,
+                             device=cuda_device,
+                             opts=path_mod.PathOptions(max_depth=6))
+    assert ti.counter.launches > before[0] and ti.counter.plain == before[1]
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+    assert img.mean() > 1e-2
+    pix = torch.arange(32 * 32, device=cuda_device)
+    calls = _record(ti, "tri_intersect", lambda: volpath.render_wave(
+        s, desc.camera, desc.sampler, flt.make_filter("gaussian"), pix,
+        torch.zeros_like(pix), path_mod.PathOptions(max_depth=6)))
+    assert any(a[5] for a, _k in calls) and any(not a[5] for a, _k in calls)
+    for a, _k in calls:
+        o, d = a[1].contiguous(), a[2].contiguous()
+        t_max = torch.as_tensor(a[3], dtype=torch.float32,
+                                device=cuda_device).expand(o.shape[0])
+        t_max = t_max.contiguous()
+        got = ti._launch(s.tri_pallas, o, d, t_max, s.n_tris, bool(a[5]))
+        want = ti.tri_intersect_plain(s.tri_pallas, o, d, t_max, s.n_tris,
+                                      bool(a[5]))
+        _bit_equal(got, want, bool(a[5]), ("t", "prim", "b1", "b2"))
+
+
+@pytest.mark.cuda
+def test_interface_kernel_bit_equal_on_a_shell_wave(cuda_device):
+    """scenes.make_medium_shell at 32x32, 4 spp: its 320 interface
+    triangles go through the single-level bvh2 kernel; render launches it
+    and no plain version, and every interface query of one wave is
+    bit-equal to the plain version."""
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.integrators import volpath
+    from pbrt_tpu_torch.ops import bvh2
+    s, cam = scenes.make_medium_shell(32, 32, device=cuda_device)
+    sampler = smp.make_sampler("zsobol", spp=4, full_resolution=(32, 32))
+    assert s.use_iface_bvh
+    before = (bvh2.counter_bvh2.launches, bvh2.counter_bvh2.plain)
+    img, _st = render.render(s, cam, sampler=sampler, device=cuda_device,
+                             opts=path_mod.PathOptions(max_depth=5))
+    assert bvh2.counter_bvh2.launches > before[0]
+    assert bvh2.counter_bvh2.plain == before[1]
+    assert np.isfinite(img).all() and img.mean() > 1e-3
+    pix = torch.arange(32 * 32, device=cuda_device)
+    calls = _record(bvh2, "bvh2_intersect", lambda: volpath.render_wave(
+        s, cam, sampler, flt.make_filter("gaussian"), pix,
+        torch.zeros_like(pix), path_mod.PathOptions(max_depth=5)))
+    assert len(calls) >= 5
+    for a, _k in calls:
+        o, d, t_max = (x.contiguous() for x in a[2:5])
+        got = bvh2._launch(s.iface_nodes, s.iface_tris_bvh, o, d, t_max,
+                           False)
+        want = bvh2.bvh2_intersect_plain(s.iface_nodes, s.iface_tris_bvh, o,
+                                         d, t_max, False)
+        _bit_equal(got, want, False, ("t", "prim", "b1", "b2"))

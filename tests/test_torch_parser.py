@@ -109,7 +109,7 @@ def test_transforms_normals_and_lights_match_reference():
 
 
 @pytest.mark.parametrize("snippet, item", [
-    (b'Shape "sphere" "float radius" [1]', "slices 3-4"),
+    (b'Shape "loopsubdiv" "integer levels" [1]', "slice 4 item 26"),
     (b'LightSource "point" "rgb I" [1 1 1]', "slice 3"),
     (b'Material "coateddiffuse"', "slice 3"),
     (b'Texture "t" "spectrum" "checkerboard"', "slice 3 item 9"),

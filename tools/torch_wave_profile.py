@@ -3,8 +3,8 @@
 
 Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/torch_wave_profile.py [--scene NAME]  (NAME: cornell,
-    meshfield, instances, hair, envlit, manylight, manylight16k, killeroo
-    or all, the default)
+    meshfield, instances, hair, envlit, manylight, manylight16k, killeroo,
+    plytex, volume or all, the default)
 
 cornell: the main path, 400x400, 64 spp, max depth 5, on the megakernel.
 meshfield: scenes/meshfield.pbrt, 200x200, 32 spp, max depth 4, on the
@@ -22,7 +22,14 @@ on the general wave, the light-BVH sampler and the triangle or the BVH8
 kernel. killeroo: scenes/killeroo.pbrt (163,842 triangles, a MIP-mapped
 imagemap texture, the sky image light, a rough conductor and a rough
 dielectric), 200x200, 32 spp, max depth 5, on the general wave and the
-BVH8 kernel. (pbrt_tpu_torch only; no jax.)
+BVH8 kernel. plytex: scenes/plytex.pbrt (killeroo's floor, sky and
+materials on blob.ply, 5,122 triangles, and an exact rough dielectric
+sphere), 200x200, 64 spp, max depth 5, on the general wave and the BVH8
+kernel. volume: scenes/volume.pbrt (a 24^3 uniformgrid medium inside a
+12-triangle interface box over a 2-triangle floor, a uniform infinite
+light), 200x200, 32 spp, max depth 6, on the volumetric wave
+(integrators/volpath.py) and the triangle kernel. (pbrt_tpu_torch only; no
+jax.)
 Prints the card's name and power limit, then for each scene
   1. the stages of one wave (160,000 lanes), each timed with a synchronize
      around it, median of --reps waves after one warm-up. cornell: the
@@ -49,7 +56,12 @@ Prints the card's name and power limit, then for each scene
      pmf_bvh_light at each emitter hit, tensor code) and a textured one the
      texture lookups (textures.eval_texture, inside shading); on the BVH8
      route the BVH8 kernel's launches (CUDA events around
-     ops/bvh8.bvh8_intersect) inside the queries;
+     ops/bvh8.bvh8_intersect) inside the queries; a scene with media also
+     times the free flights (volpath.sample_t_maj), the shadow rays'
+     ratio tracking (volpath.transmittance_ratio) and the interface
+     queries (scene_core.intersect_interfaces), and prints the flight
+     loops' steps per call (volpath.flight_stats): the loop's
+     iterations a bounce;
   2. --renders full renders, unprofiled: paths/s of each;
   3. a render of --profiled-spp samples under torch.profiler: wall time,
      the sum of device self times and their ratio (the device busy share;
@@ -177,6 +189,7 @@ def profile_parsed(args, dev, name, max_depth, path=None):
     from pbrt_tpu_torch import textures as tex_mod
     from pbrt_tpu_torch.integrators import path as path_mod
     from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.integrators import volpath
     from pbrt_tpu_torch.ops import bvh8
     from pbrt_tpu_torch.ops import curves as crv
     from pbrt_tpu_torch.ops import tri_intersect as ti
@@ -221,8 +234,13 @@ def profile_parsed(args, dev, name, max_depth, path=None):
         (("image light",) if env else ()) + \
         (("conductor, dielectric",) if specular else ()) + \
         (("light BVH",) if light_bvh else ()) + \
-        (("textures",) if scene.has_textures else ()) + kernel_names
+        (("textures",) if scene.has_textures else ()) + \
+        (("flight", "shadow transmittance") if scene.has_media else ()) + \
+        (("interfaces",) if scene.has_medium_interfaces else ()) + \
+        kernel_names
+    wave = render.wave_module(scene)
     per_wave = {k: [] for k in names}
+    flights = []
     for rep in range(args.reps + 1):
         timers = StageTimers()
         for fn in ("sample_1d", "sample_2d", "sample_pixel_2d"):
@@ -247,6 +265,14 @@ def profile_parsed(args, dev, name, max_depth, path=None):
             timers.wrap(lbvh, "pmf_bvh_light", "light BVH")
         if scene.has_textures:
             timers.wrap(tex_mod, "eval_texture", "textures")
+        if scene.has_media:
+            timers.wrap(volpath, "sample_t_maj", "flight")
+            timers.wrap(volpath, "transmittance_ratio",
+                        "shadow transmittance")
+        if scene.has_medium_interfaces:
+            timers.wrap(sc, "intersect_interfaces", "interfaces")
+        volpath.flight_stats.update(calls=0, steps=0, shadow_calls=0,
+                                    shadow_steps=0)
         if scene.has_curves:
             timers.wrap_events(crv, "curves_intersect",
                                lambda a: kernel_names[bool(a[5])])
@@ -259,9 +285,8 @@ def profile_parsed(args, dev, name, max_depth, path=None):
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
-            L, swl, fw = path_mod.render_wave(scene, cam, sampler, filt, pix,
-                                              si + (m * rep) % sampler.spp,
-                                              opts)
+            L, swl, fw = wave.render_wave(scene, cam, sampler, filt, pix,
+                                          si + (m * rep) % sampler.spp, opts)
             torch.cuda.synchronize()
             wave_ms = (time.perf_counter() - t) * 1e3
         finally:
@@ -279,10 +304,26 @@ def profile_parsed(args, dev, name, max_depth, path=None):
         if rep:   # the first wave is the warm-up
             for k in names:
                 per_wave[k].append(timers.ms.get(k, 0.0))
+            flights.append(dict(volpath.flight_stats))
     stage_ms = {k: statistics.median(v) for k, v in per_wave.items()}
     print(f"{name} stage ms, median of {args.reps} waves of {W * H * m} "
           f"lanes: {json.dumps(stage_ms)}; set-up {setup_s:.2f} s",
           flush=True)
+    flight = None
+    if scene.has_media:
+        fs = flights[-1]
+        flight = dict(fs, steps_per_flight=fs["steps"] / max(fs["calls"], 1),
+                      steps_per_shadow=fs["shadow_steps"]
+                      / max(fs["shadow_calls"], 1),
+                      share=(stage_ms["flight"]
+                             + stage_ms["shadow transmittance"])
+                      / sum(v for k, v in stage_ms.items()
+                            if k not in kernel_names))
+        print(f"{name}: flight loops of the last wave {json.dumps(fs)}: "
+              f"{flight['steps_per_flight']:.1f} steps a free flight, "
+              f"{flight['steps_per_shadow']:.1f} a shadow ray's (one flight "
+              "and one shadow loop a bounce); the two loops are "
+              f"{flight['share']:.4f} of the wave", flush=True)
     if hair:
         share = stage_ms["hair BxDF"] / (stage_ms["hair BxDF"]
                                          + stage_ms["shading"])
@@ -311,14 +352,15 @@ def profile_parsed(args, dev, name, max_depth, path=None):
         f"{name}, {args.profiled_spp} spp")
     return dict(stage_ms=stage_ms, render_paths_per_sec=renders,
                 profiled_wall_ms=wall_ms, device_ms=dev_ms,
-                busy_share=dev_ms / wall_ms, setup_s=setup_s)
+                busy_share=dev_ms / wall_ms, setup_s=setup_s, flight=flight)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scene", choices=("cornell", "meshfield", "instances",
                                         "hair", "envlit", "manylight",
-                                        "manylight16k", "killeroo", "all"),
+                                        "manylight16k", "killeroo",
+                                        "plytex", "volume", "all"),
                     default="all")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--renders", type=int, default=5)
@@ -351,7 +393,8 @@ def main():
         path.write_text(hair_scene_text(8192, 0, 400, 400, 16))
         out["hair"] = profile_parsed(args, dev, "hair", 5, path)
     for name, depth in (("envlit", 5), ("manylight", 3),
-                        ("manylight16k", 3), ("killeroo", 5)):
+                        ("manylight16k", 3), ("killeroo", 5), ("plytex", 5),
+                        ("volume", 6)):
         if args.scene in (name, "all"):
             out[name] = profile_parsed(args, dev, name, depth)
     print(json.dumps(out))
