@@ -2070,10 +2070,9 @@ def plytex_volume_phases(dev, card, named):
     import numpy as np
     import torch
     from pbrt_tpu_torch import samplers as smp
-    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch import scenes, spans
     from pbrt_tpu_torch.integrators import path as path_mod
     from pbrt_tpu_torch.integrators import render
-    from pbrt_tpu_torch.integrators import volpath
     from pbrt_tpu_torch.ops import _build
     from pbrt_tpu_torch.ops import bvh2
     from pbrt_tpu_torch.ops import bvh8
@@ -2086,14 +2085,15 @@ def plytex_volume_phases(dev, card, named):
     check(s.n_tris == 5122 and s.n_spheres == 1 and s.use_bvh,
           "plytex: scene tables")
     # ---- 42. volume: the volumetric wave, kernel 1 ----
-    volpath.flight_stats.update(calls=0, steps=0, shadow_calls=0,
-                                shadow_steps=0)
+    flight = dict(calls="flight.calls", steps="flight.steps",
+                  shadow_calls="shadow.calls", shadow_steps="shadow.steps")
+    before = {k: spans.counter(c) for k, c in flight.items()}
     descs["volume"], out["volume"] = golden_rung("volume", dev, card, named,
                                                  "tri_intersect", "42 volume")
     s = descs["volume"].scene
     check(s.has_media and s.has_medium_interfaces and not s.use_iface_bvh
           and s.n_tris == 2, "volume: scene tables")
-    fs = dict(volpath.flight_stats)
+    fs = {k: spans.counter(c) - before[k] for k, c in flight.items()}
     out["volume"]["flight"] = fs
     print(f"[42 volume] flight loops of the render: {fs['calls']} free "
           f"flights in {fs['steps']} steps ({fs['steps'] / fs['calls']:.1f} "

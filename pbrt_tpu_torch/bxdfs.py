@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import spans
 from .utils import vecmath as vm
 from .utils.math import INV_PI, PI, safe_div, safe_sqrt, sqr
 
@@ -511,6 +512,7 @@ def _select(p: BSDFParams, per_tag):
     return out
 
 
+@spans.span("bsdf.eval")
 def bsdf_f(p: BSDFParams, wo, wi):
     """f(wo, wi) of the non-specular lobes, (N, 4)."""
     _check(p)
@@ -518,6 +520,7 @@ def bsdf_f(p: BSDFParams, wo, wi):
                        for t in p.tags_present})
 
 
+@spans.span("bsdf.eval")
 def bsdf_pdf(p: BSDFParams, wo, wi):
     """Solid-angle pdf of sampling wi, (N,)."""
     _check(p)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from . import device as dev_mod
+from . import spans
 from .utils import color as pcolor
 from .utils import spectrum as spc
 
@@ -31,6 +32,7 @@ def make_pixel_sensor() -> PixelSensor:
                        imaging_ratio=1.0)
 
 
+@spans.span("film.sensor_rgb")
 def sensor_to_sensor_rgb(sensor: PixelSensor, L: torch.Tensor,
                          swl: spc.SampledWavelengths) -> torch.Tensor:
     """Monte Carlo projection of sampled radiance L (N, 4) onto the sensor
@@ -55,6 +57,7 @@ def make_film(width, height, device) -> Film:
                 width=width, height=height)
 
 
+@spans.span("film.add")
 def add_samples(film: Film, pixel_index: torch.Tensor, rgb: torch.Tensor,
                 weight: torch.Tensor, identity=False) -> Film:
     """Add weighted samples into the film, in place (reference
@@ -75,6 +78,7 @@ def add_samples(film: Film, pixel_index: torch.Tensor, rgb: torch.Tensor,
     return film
 
 
+@spans.span("film.get_image")
 def get_image(film: Film, sensor: PixelSensor) -> np.ndarray:
     """(H, W, 3) float32 linear sRGB (reference RGBFilm::GetPixelRGB)."""
     acc = film.accum.detach().cpu().numpy()

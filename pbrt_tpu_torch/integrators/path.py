@@ -52,6 +52,7 @@ from .. import lightsamplers as lsamp
 from .. import materials as mtl
 from .. import samplers as smp
 from .. import scene_core as sc
+from .. import spans
 from ..ops import megawave
 from ..utils import spectrum as spc
 from ..utils import vecmath as vm
@@ -127,6 +128,7 @@ def _nee(scene, sampler, px, py, si, lam, spec_cache, isect, ns, ng, t1, t2,
     ok = active & ls["valid"] & (pdf_l > 0) & (f > 0).any(dim=-1)
     o_sh = sc.offset_ray_origin_exact(isect["p"], isect["p_err"], ng, wi)
     dist = vm.length(ls["p_light"] - o_sh)
+    spans.tally("shadow.rays", ok)
     ok = ok & ~sc.intersect_p(scene, o_sh, wi,
                               torch.where(ok, dist * 0.999, -1.0))
     w_mis = torch.where(ls["is_delta"], 1.0,
@@ -182,78 +184,88 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts,
                            power_heuristic(1.0, prev_pdf, 1.0, pdf_light))
 
     for depth in range(opts.max_depth):
-        isect = sc.intersect(scene, o, d, torch.where(active, 1e30, -1.0))
+        spans.tally("lanes.alive", active, depth)
+        with spans.span("scene.intersect", depth=depth):
+            isect = sc.intersect(scene, o, d,
+                                 torch.where(active, 1e30, -1.0))
         hit = isect["hit"] & active
         cone_w = cone_w + cone_s * torch.where(isect["hit"], isect["t"], 0.0)
 
-        # --- emitted radiance at hits of emissive triangles and spheres ---
-        if scene.has_area_lights:
-            is_emitter = hit & (isect["light"] >= 0)
-            lrow = scene.lights_packed[torch.clamp(isect["light"], min=0)]
-            Le = lgt.area_light_radiance(lrow, isect["ng"], isect["wo"], lam,
-                                         scene.spectra_pool, spec_cache)
-            if lsamp.positional(ls):
-                # the pick's pmf from the ray's origin
-                pick_pmf = lsamp.light_pmf(
-                    ls, torch.clamp(isect["light"], min=0), p=o)
-            else:
-                pick_pmf = lrow[:, 14]
-            pdf_light = lgt.pdf_li_area_tri(o, d, isect["p"], isect["p0"],
-                                            isect["p1"], isect["p2"])
-            if scene.n_spheres > 0:
-                # a sphere light's cone pdf (reference path.py:280-282)
-                pdf_light = torch.where(
-                    lrow[:, 0].round() == lgt.LIGHT_AREA_SPHERE,
-                    lgt.pdf_li_sphere(lrow, o), pdf_light)
-            pdf_light = pdf_light * pick_pmf
-            w_emit = mis_weight(depth, pdf_light)
-            L = L + torch.where(is_emitter[:, None],
-                                beta * Le * w_emit[:, None], 0.0)
+        with spans.span("wave.emission", depth=depth):
+            # --- emitted radiance at hits of emissive triangles, spheres ---
+            if scene.has_area_lights:
+                is_emitter = hit & (isect["light"] >= 0)
+                lrow = scene.lights_packed[torch.clamp(isect["light"], min=0)]
+                Le = lgt.area_light_radiance(lrow, isect["ng"], isect["wo"],
+                                             lam, scene.spectra_pool,
+                                             spec_cache)
+                if lsamp.positional(ls):
+                    # the pick's pmf from the ray's origin
+                    pick_pmf = lsamp.light_pmf(
+                        ls, torch.clamp(isect["light"], min=0), p=o)
+                else:
+                    pick_pmf = lrow[:, 14]
+                pdf_light = lgt.pdf_li_area_tri(o, d, isect["p"],
+                                                isect["p0"], isect["p1"],
+                                                isect["p2"])
+                if scene.n_spheres > 0:
+                    # a sphere light's cone pdf (reference path.py:280-282)
+                    pdf_light = torch.where(
+                        lrow[:, 0].round() == lgt.LIGHT_AREA_SPHERE,
+                        lgt.pdf_li_sphere(lrow, o), pdf_light)
+                pdf_light = pdf_light * pick_pmf
+                w_emit = mis_weight(depth, pdf_light)
+                L = L + torch.where(is_emitter[:, None],
+                                    beta * Le * w_emit[:, None], 0.0)
 
-        # --- escaped rays: the image infinite light ---
-        if scene.env is not None:
-            escaped = active & ~isect["hit"]
-            Le_env = lgt.env_radiance(scene.env, d, lam)
-            pdf_env = lgt.env_pdf_li(scene.env, d) * float(
-                ls.pmf_table[scene.env.light_index])
-            w_env = mis_weight(depth, pdf_env)
-            L = L + torch.where(escaped[:, None],
-                                beta * Le_env * w_env[:, None], 0.0)
+            # --- escaped rays: the image infinite light ---
+            if scene.env is not None:
+                escaped = active & ~isect["hit"]
+                Le_env = lgt.env_radiance(scene.env, d, lam)
+                pdf_env = lgt.env_pdf_li(scene.env, d) * float(
+                    ls.pmf_table[scene.env.light_index])
+                w_env = mis_weight(depth, pdf_env)
+                L = L + torch.where(escaped[:, None],
+                                    beta * Le_env * w_env[:, None], 0.0)
 
-        # --- escaped rays: uniform infinite lights ---
-        if scene.inf_indices:
-            escaped = active & ~isect["hit"]
-            Le_inf = lgt.infinite_light_radiance(
-                scene.lights_packed, scene.inf_indices, lam,
-                scene.spectra_pool, spec_cache)
-            pdf_inf = torch.full_like(prev_pdf, float(
-                np.float32(ls.pmf_table[scene.inf_indices[0]])
-                * np.float32(INV_4PI)))
-            w_inf = mis_weight(depth, pdf_inf)
-            L = L + torch.where(escaped[:, None],
-                                beta * Le_inf * w_inf[:, None], 0.0)
+            # --- escaped rays: uniform infinite lights ---
+            if scene.inf_indices:
+                escaped = active & ~isect["hit"]
+                Le_inf = lgt.infinite_light_radiance(
+                    scene.lights_packed, scene.inf_indices, lam,
+                    scene.spectra_pool, spec_cache)
+                pdf_inf = torch.full_like(prev_pdf, float(
+                    np.float32(ls.pmf_table[scene.inf_indices[0]])
+                    * np.float32(INV_4PI)))
+                w_inf = mis_weight(depth, pdf_inf)
+                L = L + torch.where(escaped[:, None],
+                                    beta * Le_inf * w_inf[:, None], 0.0)
 
         active = hit
         ns, ng = isect["ns"], isect["ng"]
         t1, t2 = _shading_frame(ns, isect["dpdu"])
         wo_local = _to_local(ns, t1, t2, isect["wo"])
-        footprint = None
-        if textures is not None:
-            # the cone's width in uv, through the parametric derivatives
-            inv_dpdu = 1.0 / torch.clamp(vm.length(isect["dpdu"]), min=1e-8)
-            inv_dpdv = 1.0 / torch.clamp(vm.length(isect["dpdv"]), min=1e-8)
-            footprint = cone_w * torch.maximum(inv_dpdu, inv_dpdv)
-        bp = mtl.get_bsdf_params(scene.mat_pool, isect["mat"], lam,
-                                 scene.bxdf_tags, uv=isect["uv"],
-                                 spectra_pool=scene.spectra_pool,
-                                 spec_cache=spec_cache, textures=textures,
-                                 footprint=footprint)
+        with spans.span("material.params", depth=depth):
+            footprint = None
+            if textures is not None:
+                # the cone's width in uv, through the parametric derivatives
+                inv_dpdu = 1.0 / torch.clamp(vm.length(isect["dpdu"]),
+                                             min=1e-8)
+                inv_dpdv = 1.0 / torch.clamp(vm.length(isect["dpdv"]),
+                                             min=1e-8)
+                footprint = cone_w * torch.maximum(inv_dpdu, inv_dpdv)
+            bp = mtl.get_bsdf_params(scene.mat_pool, isect["mat"], lam,
+                                     scene.bxdf_tags, uv=isect["uv"],
+                                     spectra_pool=scene.spectra_pool,
+                                     spec_cache=spec_cache,
+                                     textures=textures, footprint=footprint)
 
         # --- next-event estimation ---
         if ls.n_lights > 0:
-            L = L + beta * _nee(scene, sampler, px, py, sample_index, lam,
-                                spec_cache, isect, ns, ng, t1, t2, wo_local,
-                                bp, active, depth)
+            with spans.span("nee", depth=depth):
+                L = L + beta * _nee(scene, sampler, px, py, sample_index,
+                                    lam, spec_cache, isect, ns, ng, t1, t2,
+                                    wo_local, bp, active, depth)
         if depth + 1 == opts.max_depth:
             break   # the last bounce's sample and roulette add nothing to L
 
@@ -263,7 +275,8 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts,
         if {bxdfs.BXDF_HAIR, bxdfs.BXDF_DIELECTRIC} & set(scene.bxdf_tags):
             uc = smp.sample_1d(sampler, px, py, sample_index, base + 3)
         u2 = smp.sample_2d(sampler, px, py, sample_index, base + 4)
-        bs = bxdfs.bsdf_sample(bp, wo_local, uc, u2)
+        with spans.span("bsdf.sample", depth=depth):
+            bs = bxdfs.bsdf_sample(bp, wo_local, uc, u2)
         wi_world = _to_world(ns, t1, t2, bs["wi"])
         throughput = bs["f"] * safe_div(torch.abs(bs["wi"][:, 2]),
                                         bs["pdf"])[:, None]
@@ -282,15 +295,16 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts,
 
         # --- Russian roulette on max(beta) * eta_scale ---
         if depth >= opts.rr_start_depth:
-            rr_max = beta.amax(dim=-1) * eta_scale
-            u_rr = smp.sample_1d(sampler, px, py, sample_index, base + 6)
-            q = torch.clamp(1.0 - rr_max, min=0.0)
-            do_rr = rr_max < 1.0
-            killed = do_rr & (u_rr < q)
-            active = active & ~killed
-            beta = torch.where((do_rr & ~killed)[:, None],
-                               beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
-                               beta)
+            with spans.span("wave.roulette", depth=depth):
+                rr_max = beta.amax(dim=-1) * eta_scale
+                u_rr = smp.sample_1d(sampler, px, py, sample_index, base + 6)
+                q = torch.clamp(1.0 - rr_max, min=0.0)
+                do_rr = rr_max < 1.0
+                killed = do_rr & (u_rr < q)
+                active = active & ~killed
+                beta = torch.where(
+                    (do_rr & ~killed)[:, None],
+                    beta / torch.clamp(1.0 - q, min=1e-6)[:, None], beta)
         o = sc.offset_ray_origin_exact(isect["p"], isect["p_err"], ng,
                                        wi_world)
         d = wi_world
@@ -300,6 +314,7 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts,
     return L
 
 
+@spans.span("wave.lanes")
 def camera_lanes(camera, sampler, pixel_idx, sample_index):
     """A wave's lanes from flat pixel ids (N,) and sample indices (N,):
     (px, py, the sampled wavelengths)."""
@@ -309,6 +324,7 @@ def camera_lanes(camera, sampler, pixel_idx, sample_index):
     return px, py, spc.sample_visible_wavelengths(u_lam)
 
 
+@spans.span("wave.camera")
 def camera_rays(camera, sampler, filt, px, py, sample_index):
     """The general wave's camera front end: each lane's filter sample and
     pinhole ray. Returns (o, d (N, 3), filter weight (N,))."""

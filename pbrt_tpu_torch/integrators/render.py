@@ -4,7 +4,9 @@ scene with media, the volumetric one (reference wave_module).
 
 Every wave covers the whole image and m consecutive sample indices (m a
 power of two, chosen like the reference's wave tiling: as many as fit
-under 2^18 lanes), then adds its samples into the film.
+under 2^18 lanes), then adds its samples into the film. Each call is one
+image of spans.py: the root span `render.image`, a `render.wave` span a
+wave, and the counter `wave.lanes`.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from .. import device as dev_mod
 from .. import film as film_mod
 from .. import filters as flt
 from .. import samplers as smp
+from .. import spans
 from . import path as path_mod
 from . import volpath as volpath_mod
 
@@ -44,26 +47,30 @@ def render(scene, camera, spp=16, *, device, sampler=None, filt=None,
     sensor = film_mod.make_pixel_sensor()
     opts = opts or path_mod.PathOptions()
     wave = wave_module(scene)
-    film = film_mod.make_film(W, H, device)
     n_pix = W * H
     n_waves = sampler.spp
     m = 1
     while m * 2 * n_pix <= MAX_WAVE_LANES and n_waves % (m * 2) == 0:
         m *= 2
-    pixel_idx = torch.arange(n_pix, dtype=torch.int64, device=device) \
-        .repeat(m)
-    lane_s = torch.arange(n_pix * m, dtype=torch.int64, device=device) \
-        // n_pix
-    dev_mod.synchronize(device)
-    t0 = time.perf_counter()
-    for s in range(0, n_waves, m):
-        L, swl, fw = wave.render_wave(scene, camera, sampler, filt,
-                                      pixel_idx, s + lane_s, opts)
-        rgb = film_mod.sensor_to_sensor_rgb(sensor, L, swl)
-        film_mod.add_samples(film, pixel_idx, rgb, fw, identity=True)
-    dev_mod.synchronize(device)
-    dt = time.perf_counter() - t0
-    img = film_mod.get_image(film, sensor)
+    with spans.image(device, spp=sampler.spp, width=W, height=H,
+                     lanes_per_wave=n_pix * m, waves=n_waves // m):
+        film = film_mod.make_film(W, H, device)
+        pixel_idx = torch.arange(n_pix, dtype=torch.int64, device=device) \
+            .repeat(m)
+        lane_s = torch.arange(n_pix * m, dtype=torch.int64, device=device) \
+            // n_pix
+        dev_mod.synchronize(device)
+        t0 = time.perf_counter()
+        for s in range(0, n_waves, m):
+            with spans.span("render.wave", wave=s // m):
+                spans.count("wave.lanes", n_pix * m)
+                L, swl, fw = wave.render_wave(scene, camera, sampler, filt,
+                                              pixel_idx, s + lane_s, opts)
+                rgb = film_mod.sensor_to_sensor_rgb(sensor, L, swl)
+                film_mod.add_samples(film, pixel_idx, rgb, fw, identity=True)
+        dev_mod.synchronize(device)
+        dt = time.perf_counter() - t0
+        img = film_mod.get_image(film, sensor)
     n_paths = n_pix * n_waves
     return img, dict(seconds=dt, paths_per_sec=n_paths / max(dt, 1e-9),
                      spp=sampler.spp, lanes_per_wave=n_pix * m)

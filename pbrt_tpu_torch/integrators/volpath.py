@@ -41,6 +41,7 @@ from .. import materials as mtl
 from .. import media as med_mod
 from .. import samplers as smp
 from .. import scene_core as sc
+from .. import spans
 from ..utils import rng as prng
 from ..utils import sampling as usamp
 from ..utils import vecmath as vm
@@ -57,10 +58,6 @@ _SHADOW_STREAMS = (0x7b55, 0x3d91)   # the event's distance, roulette
 _BOUNCE_SALT = 0x6d3a
 # gather the flying lanes once at most this share of the gathered set flies
 _COMPACT_SHARE = 0.5
-
-# steps of the flight loops since the last reset: the profile tool's
-# iterations per bounce (host ints, no device work)
-flight_stats = dict(calls=0, steps=0, shadow_calls=0, shadow_steps=0)
 
 
 def _avg(x):
@@ -145,9 +142,10 @@ def _dda_step(st, flying, has_event):
     return advance & ((t_cell >= st["t1"]) | out)
 
 
-def _flight_loop(idx, extra, full, step, stat_key):
+def _flight_loop(idx, extra, full, step, counter):
     """Run step(st, it, flying) -> flying over the lanes idx (N',) until
-    none flies or MAX_FLIGHT_EVENTS steps. st holds each lane's tensors
+    none flies or MAX_FLIGHT_EVENTS steps, and add the steps to the spans'
+    counter `counter`. st holds each lane's tensors
     (first dimension N'): those of `full` (N, ...), gathered, into which
     they scatter back, and `extra`, already gathered (the constants and
     the DDA's state). The flying lanes are gathered again whenever at
@@ -172,7 +170,7 @@ def _flight_loop(idx, extra, full, step, stat_key):
         it += 1
     for k in keys:
         full[k][idx] = st[k]
-    flight_stats[stat_key] += it
+    spans.count(counter, it)
 
 
 def _start(pool, o, d, t_max, lam, seed, in_grid):
@@ -206,6 +204,7 @@ def _sigma(pool, st, cur_med, t):
     return row, torch.where(none, 0.0, sa), torch.where(none, 0.0, ss)
 
 
+@spans.span("media.flight")
 def sample_t_maj(scene, o, d, t_max, lam, seed, active, beta, r_u, r_l,
                  cur_med=None):
     """The free flight of rays o, d (N, 3) up to t_max (N,) with the
@@ -226,13 +225,13 @@ def sample_t_maj(scene, o, d, t_max, lam, seed, active, beta, r_u, r_l,
                 t_ev=torch.zeros_like(t_max), g_ev=torch.zeros_like(t_max),
                 beta=beta.clone(), r_u=r_u.clone(), r_l=r_l.clone())
     idx, extra = _start(pool, o, d, t_max, lam, seed, in_grid)
-    flight_stats["calls"] += 1
+    spans.count("flight.calls")
     if idx is not None:
         full["status"][idx] = _FLYING
         if cur_med is not None:
             extra["cur_med"] = cur_med[idx]
         _flight_loop(idx, extra, full, functools.partial(_flight_step, pool),
-                     "steps")
+                     "flight.steps")
     status = torch.where(full["status"] == _FLYING, EV_REACH, full["status"])
     return dict(status=status, t=full["t_ev"], g=full["g_ev"],
                 beta=full["beta"], r_u=full["r_u"], r_l=full["r_l"])
@@ -278,6 +277,7 @@ def _flight_step(pool, st, it, flying):
     return st["status"] == _FLYING
 
 
+@spans.span("media.transmittance")
 def transmittance_ratio(scene, o, d, dist, lam, seed, active):
     """Ratio-tracked transmittance of shadow rays o, d (N, 3) over dist
     (N,) with rescaled pdfs (reference transmittance_ratio, the SampleLd
@@ -289,10 +289,10 @@ def transmittance_ratio(scene, o, d, dist, lam, seed, active):
     full = {k: torch.ones((N, 4), dtype=torch.float32, device=o.device)
             for k in ("T_ray", "r_l", "r_u")}
     idx, extra = _start(pool, o, d, dist, lam, seed, active & (t1 > t0))
-    flight_stats["shadow_calls"] += 1
+    spans.count("shadow.calls")
     if idx is not None:
         _flight_loop(idx, extra, full, functools.partial(_shadow_step, pool),
-                     "shadow_steps")
+                     "shadow.steps")
     return full["T_ray"], full["r_l"], full["r_u"]
 
 
@@ -353,6 +353,7 @@ def _sample_ld(scene, sampler, px, py, si, lam, spec_cache, p, p_err, ns,
     o_sh = sc.offset_ray_origin_exact(p, p_err, ng, wi)
     o_sh = torch.where(scattered[:, None], p + 1e-5 * wi, o_sh)
     dist = vm.length(ls["p_light"] - o_sh)
+    spans.tally("shadow.rays", ok)
     ok = ok & ~sc.intersect_p(scene, o_sh, wi,
                               torch.where(ok, dist * 0.999, -1.0))
     T_ray, r_l_sh, r_u_sh = transmittance_ratio(scene, o_sh, wi, dist, lam,
@@ -400,7 +401,10 @@ def trace_paths(scene, sampler, px, py, sample_index, o, d, swl,
     for it in range(n_iters):
         if not bool(active.any()):
             break
-        isect = sc.intersect(scene, o, d, torch.where(active, 1e30, -1.0))
+        spans.tally("lanes.alive", active, it)
+        with spans.span("scene.intersect", depth=it):
+            isect = sc.intersect(scene, o, d,
+                                 torch.where(active, 1e30, -1.0))
         if has_ifaces:
             ii = sc.intersect_interfaces(
                 scene, o, d, torch.where(active, isect["t"], -1.0))
@@ -424,67 +428,78 @@ def trace_paths(scene, sampler, px, py, sample_index, o, d, swl,
         hit = isect["hit"] & active & reach & ~passthru
         first = (depth == 0) | spec_bounce
 
-        # --- emission at area-light hits ---
-        if scene.has_area_lights:
-            is_emitter = hit & (isect["light"] >= 0)
-            li_safe = torch.clamp(isect["light"], min=0)
-            lrow = scene.lights_packed[li_safe]
-            Le = lgt.area_light_radiance(lrow, isect["ng"], isect["wo"], lam,
-                                         scene.spectra_pool, spec_cache)
-            if lsamp.positional(ls):
-                pick_pmf = lsamp.light_pmf(ls, li_safe, p=o)
-            else:
-                pick_pmf = lrow[:, 14]
-            pdf_light = lgt.pdf_li_area_tri(o, d, isect["p"], isect["p0"],
-                                            isect["p1"], isect["p2"])
-            if scene.n_spheres > 0:
-                pdf_light = torch.where(
-                    lrow[:, 0].round() == lgt.LIGHT_AREA_SPHERE,
-                    lgt.pdf_li_sphere(lrow, o), pdf_light)
-            p_l = pdf_light * pick_pmf
-            denom = torch.where(first, _avg(r_u),
-                                _avg(r_u + r_l * p_l[:, None]))
-            L = L + torch.where(is_emitter[:, None], beta * Le / torch.clamp(
-                denom, min=_EPS)[:, None], 0.0)
+        with spans.span("wave.emission", depth=it):
+            # --- emission at area-light hits ---
+            if scene.has_area_lights:
+                is_emitter = hit & (isect["light"] >= 0)
+                li_safe = torch.clamp(isect["light"], min=0)
+                lrow = scene.lights_packed[li_safe]
+                Le = lgt.area_light_radiance(lrow, isect["ng"], isect["wo"],
+                                             lam, scene.spectra_pool,
+                                             spec_cache)
+                if lsamp.positional(ls):
+                    pick_pmf = lsamp.light_pmf(ls, li_safe, p=o)
+                else:
+                    pick_pmf = lrow[:, 14]
+                pdf_light = lgt.pdf_li_area_tri(o, d, isect["p"],
+                                                isect["p0"], isect["p1"],
+                                                isect["p2"])
+                if scene.n_spheres > 0:
+                    pdf_light = torch.where(
+                        lrow[:, 0].round() == lgt.LIGHT_AREA_SPHERE,
+                        lgt.pdf_li_sphere(lrow, o), pdf_light)
+                p_l = pdf_light * pick_pmf
+                denom = torch.where(first, _avg(r_u),
+                                    _avg(r_u + r_l * p_l[:, None]))
+                L = L + torch.where(is_emitter[:, None],
+                                    beta * Le / torch.clamp(
+                                        denom, min=_EPS)[:, None], 0.0)
 
-        escaped = active & reach & ~isect["hit"] & ~passthru
-        # --- escapes: the image infinite light ---
-        if scene.env is not None:
-            Le_env = lgt.env_radiance(scene.env, d, lam)
-            pdf_env = lgt.env_pdf_li(scene.env, d) * float(
-                ls.pmf_table[scene.env.light_index])
-            denom = torch.where(first, _avg(r_u),
-                                _avg(r_u + r_l * pdf_env[:, None]))
-            L = L + torch.where(escaped[:, None], beta * Le_env / torch.clamp(
-                denom, min=_EPS)[:, None], 0.0)
-        # --- escapes: the uniform infinite lights ---
-        if scene.inf_indices:
-            Le_inf = lgt.infinite_light_radiance(
-                scene.lights_packed, scene.inf_indices, lam,
-                scene.spectra_pool, spec_cache)
-            pdf_inf = float(np.float32(ls.pmf_table[scene.inf_indices[0]])
-                            * np.float32(INV_4PI))
-            denom = torch.where(first, _avg(r_u), _avg(r_u + r_l * pdf_inf))
-            L = L + torch.where(escaped[:, None], beta * Le_inf / torch.clamp(
-                denom, min=_EPS)[:, None], 0.0)
+            escaped = active & reach & ~isect["hit"] & ~passthru
+            # --- escapes: the image infinite light ---
+            if scene.env is not None:
+                Le_env = lgt.env_radiance(scene.env, d, lam)
+                pdf_env = lgt.env_pdf_li(scene.env, d) * float(
+                    ls.pmf_table[scene.env.light_index])
+                denom = torch.where(first, _avg(r_u),
+                                    _avg(r_u + r_l * pdf_env[:, None]))
+                L = L + torch.where(escaped[:, None],
+                                    beta * Le_env / torch.clamp(
+                                        denom, min=_EPS)[:, None], 0.0)
+            # --- escapes: the uniform infinite lights ---
+            if scene.inf_indices:
+                Le_inf = lgt.infinite_light_radiance(
+                    scene.lights_packed, scene.inf_indices, lam,
+                    scene.spectra_pool, spec_cache)
+                pdf_inf = float(
+                    np.float32(ls.pmf_table[scene.inf_indices[0]])
+                    * np.float32(INV_4PI))
+                denom = torch.where(first, _avg(r_u),
+                                    _avg(r_u + r_l * pdf_inf))
+                L = L + torch.where(escaped[:, None],
+                                    beta * Le_inf / torch.clamp(
+                                        denom, min=_EPS)[:, None], 0.0)
 
         real_ev = hit | scattered      # the events that take a depth
         active = real_ev | passthru
         ns, ng = isect["ns"], isect["ng"]
         t1, t2 = _shading_frame(ns, isect["dpdu"])
         wo_local = _to_local(ns, t1, t2, isect["wo"])
-        bp = mtl.get_bsdf_params(scene.mat_pool, isect["mat"], lam,
-                                 scene.bxdf_tags, uv=isect["uv"],
-                                 spectra_pool=scene.spectra_pool,
-                                 spec_cache=spec_cache, textures=textures)
+        with spans.span("material.params", depth=it):
+            bp = mtl.get_bsdf_params(scene.mat_pool, isect["mat"], lam,
+                                     scene.bxdf_tags, uv=isect["uv"],
+                                     spectra_pool=scene.spectra_pool,
+                                     spec_cache=spec_cache,
+                                     textures=textures)
 
         # --- next-event estimation at the real events ---
         if ls.n_lights > 0:
-            p_shade = torch.where(scattered[:, None], p_med, isect["p"])
-            L = L + beta * _sample_ld(
-                scene, sampler, px, py, sample_index, lam, spec_cache,
-                p_shade, isect["p_err"], ns, ng, t1, t2, wo_local, bp,
-                real_ev, depth, r_u, scattered, -d, fl["g"], seed_fl)
+            with spans.span("nee", depth=it):
+                p_shade = torch.where(scattered[:, None], p_med, isect["p"])
+                L = L + beta * _sample_ld(
+                    scene, sampler, px, py, sample_index, lam, spec_cache,
+                    p_shade, isect["p_err"], ns, ng, t1, t2, wo_local, bp,
+                    real_ev, depth, r_u, scattered, -d, fl["g"], seed_fl)
         if it + 1 == n_iters:
             break   # the last iteration's sample and roulette add nothing
 
@@ -493,7 +508,8 @@ def trace_paths(scene, sampler, px, py, sample_index, o, d, swl,
         uc = smp.sample_1d(sampler, px, py, sample_index, base + 3) \
             if need_uc else None
         u2 = smp.sample_2d(sampler, px, py, sample_index, base + 4)
-        bs = bxdfs.bsdf_sample(bp, wo_local, uc, u2)
+        with spans.span("bsdf.sample", depth=it):
+            bs = bxdfs.bsdf_sample(bp, wo_local, uc, u2)
         wi_world = _to_world(ns, t1, t2, bs["wi"])
         throughput = bs["f"] * safe_div(torch.abs(bs["wi"][:, 2]),
                                         bs["pdf"])[:, None]
@@ -525,16 +541,18 @@ def trace_paths(scene, sampler, px, py, sample_index, o, d, swl,
                                             bs["eta_scale"])
 
         # --- Russian roulette on max(beta) eta_scale / avg(r_u) ---
-        rr_max = beta.amax(dim=-1) * eta_scale / torch.clamp(_avg(r_u),
-                                                             min=_EPS)
-        u_rr = smp.sample_1d(sampler, px, py, sample_index, base + 6)
-        q = torch.clamp(1.0 - rr_max, min=0.0)
-        do_rr = (depth >= opts.rr_start_depth) & (rr_max < 1.0) & ~passthru
-        killed = do_rr & (u_rr < q)
-        active = active & ~killed
-        beta = torch.where((do_rr & ~killed)[:, None],
-                           beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
-                           beta)
+        with spans.span("wave.roulette", depth=it):
+            rr_max = beta.amax(dim=-1) * eta_scale / torch.clamp(_avg(r_u),
+                                                                 min=_EPS)
+            u_rr = smp.sample_1d(sampler, px, py, sample_index, base + 6)
+            q = torch.clamp(1.0 - rr_max, min=0.0)
+            do_rr = (depth >= opts.rr_start_depth) & (rr_max < 1.0) & \
+                ~passthru
+            killed = do_rr & (u_rr < q)
+            active = active & ~killed
+            beta = torch.where((do_rr & ~killed)[:, None],
+                               beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
+                               beta)
 
         o_next = sc.offset_ray_origin_exact(isect["p"], isect["p_err"], ng,
                                             wi_world)

@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import spans
 from .utils import color as pcolor
 from .utils import sampling as usamp
 from .utils import spectrum as spc
@@ -127,6 +128,7 @@ def _sample_uniform_sphere(u):
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
+@spans.span("light.sample_li")
 def sample_li(lights_packed, light_idx, p_ref, u2, lam, spectra_pool,
               scene_radius, tags_present, spec_cache=None, env=None):
     """Sample an incident direction from light light_idx (N,) toward p_ref

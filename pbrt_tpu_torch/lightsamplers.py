@@ -11,6 +11,7 @@ import torch
 
 from . import device as dev_mod
 from . import lightsampler_bvh as lbvh
+from . import spans
 from .utils.sampling import AliasTable
 
 LS_UNIFORM = 0   # the reference's kind codes
@@ -86,6 +87,7 @@ def positional(ls) -> bool:
     return ls.kind in (LS_BVH, LS_EXHAUSTIVE)
 
 
+@spans.span("light.pick")
 def sample_light(ls, u, rows=None, p=None, n_ref=None):
     """Pick a light with u (N,) (reference sample_light). rows: the power
     sampler's (L, 4) alias rows as a tensor on u's device; p (N, 3): the

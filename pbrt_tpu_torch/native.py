@@ -25,6 +25,8 @@ from pathlib import Path
 
 import numpy as np
 
+from . import spans
+
 PKG = Path(__file__).resolve().parent
 BUILD_DIR = PKG / "_build"
 NATIVE_DIR = PKG / "csrc" / "host"
@@ -99,8 +101,9 @@ def build() -> tuple[Path, str]:
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    path, _log = build()
-    lib = ctypes.CDLL(str(path))
+    with spans.span("native.load"):
+        path, _log = build()
+        lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -24,6 +24,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from .. import spans
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -110,6 +112,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+@spans.span("kernels.build")
 def build(names=None) -> dict:
     """Compile the libraries of `names` (default: every source) that are
     not built yet, one nvcc process per source, all started together.
@@ -154,8 +157,9 @@ def build(names=None) -> dict:
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
-    path, _log = build([name])[name]
-    lib = ctypes.CDLL(str(path))
+    with spans.span("kernels.load", library=name):
+        path, _log = build([name])[name]
+        lib = ctypes.CDLL(str(path))
     for fn_name, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 
 from .. import native
+from .. import spans
 
 MAX_LEAF_PRIMS = 4
 
@@ -25,6 +26,7 @@ class BVH:
     prim_indices: np.ndarray   # (P,) int32: leaf order -> original prim
 
 
+@spans.span("bvh.build")
 def build_bvh(prim_lo, prim_hi, max_leaf=MAX_LEAF_PRIMS) -> BVH:
     """Binned SAH build (reference aggregates.cpp, 12 buckets), native
     only: raises if the C++ builder cannot be compiled."""

@@ -41,6 +41,7 @@ import dataclasses
 
 import torch
 
+from .. import spans
 from . import LaunchCounter
 from .bvh8 import _slab
 
@@ -55,8 +56,8 @@ INST_COLS = 66
 MAX_DEPTH = 60
 MAX_DEPTH_TWO_LEVEL = 56
 
-counter_bvh2 = LaunchCounter()
-counter_two_level = LaunchCounter()
+counter_bvh2 = LaunchCounter("bvh2")
+counter_two_level = LaunchCounter("two_level")
 INST_QUADS = 16      # floats of the kernel's instance row
 TRI_ROW = 12         # floats of the kernel's triangle row
 
@@ -320,8 +321,9 @@ def bvh2_intersect(nodes, tris, o, d, t_max, any_hit: bool = False, *,
     t_max, cuda = _prepare("bvh2_intersect", o, d, t_max, (nodes, tris),
                            depth, MAX_DEPTH)
     if not cuda:
-        return _result(*bvh2_intersect_plain(nodes, tris, o, d, t_max,
-                                             any_hit))
+        with spans.span("bvh2.kernel"):
+            return _result(*bvh2_intersect_plain(nodes, tris, o, d, t_max,
+                                                 any_hit))
     return _result(*_launch(nodes, tris, o, d, t_max, any_hit))
 
 
@@ -338,8 +340,9 @@ def two_level_intersect(nodes_all, inst_rows, tris, tlas_root: int, o, d,
                            (nodes_all, inst_rows, tris), depth,
                            MAX_DEPTH_TWO_LEVEL)
     if not cuda:
-        return _result(*two_level_plain(nodes_all, inst_rows, tris,
-                                        tlas_root, o, d, t_max, any_hit))
+        with spans.span("two_level.kernel"):
+            return _result(*two_level_plain(nodes_all, inst_rows, tris,
+                                            tlas_root, o, d, t_max, any_hit))
     if kernel is None:
         raise ValueError("two_level_intersect: on the card pass kernel=, the "
                          "tables of kernel_tables(inst_rows, tris) "
@@ -369,7 +372,8 @@ def _launch(nodes, tris, o, d, t_max, any_hit, out=None):
                                        out=out)
         if args is None:
             return out
-        err = lib.bvh2_intersect_launch(*args)
+        with spans.span("bvh2.kernel"):
+            err = lib.bvh2_intersect_launch(*args)
     _build.check(err, "bvh2_intersect")
     counter_bvh2.launches += 1
     return out
@@ -411,7 +415,8 @@ def _launch_two_level(nodes, kt: TwoLevelTables, tlas_root, o, d, t_max,
                                 out=out)
         if args is None:
             return out
-        err = lib.two_level_launch(*args)
+        with spans.span("two_level.kernel"):
+            err = lib.two_level_launch(*args)
     _build.check(err, "two_level_intersect")
     counter_two_level.launches += 1
     return out

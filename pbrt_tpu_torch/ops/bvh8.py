@@ -41,6 +41,7 @@ import torch
 
 from .. import device as dev_mod
 from .. import native
+from .. import spans
 from . import LaunchCounter
 from . import bvh as bvh_mod
 
@@ -52,7 +53,7 @@ CNT_EMPTY = 255
 MAX_LEAF = 8
 T_MIN = 1e-5
 
-counter = LaunchCounter()
+counter = LaunchCounter("bvh8")
 
 
 @dataclasses.dataclass
@@ -169,6 +170,7 @@ def pack_tris_flat10(tri_geo_ordered) -> np.ndarray:
     return out.reshape(-1)
 
 
+@spans.span("bvh.build")
 def build_bvh8(prim_lo, prim_hi, tri_geo, max_leaf: int = MAX_LEAF,
                binary_bvh=None, device="cuda") -> BVH8:
     """Binary SAH (max leaf 4) -> 8-wide collapse -> quantised tables on
@@ -558,7 +560,8 @@ def bvh8_intersect(b8: BVH8, o, d, t_max, any_hit: bool = False):
         raise ValueError("bvh8_intersect: t_max must be (N,) or a scalar")
     devices = {x.device.type for x in (b8.nodes_f, o, d, t_max)}
     if devices == {"cpu"}:
-        t, prim, b1, b2 = bvh8_intersect_plain(b8, o, d, t_max, any_hit)
+        with spans.span("bvh8.kernel"):
+            t, prim, b1, b2 = bvh8_intersect_plain(b8, o, d, t_max, any_hit)
     elif devices == {"cuda"}:
         t, prim, b1, b2 = _launch(b8, o, d, t_max, any_hit)
     else:
@@ -593,7 +596,8 @@ def _launch(b8: BVH8, o, d, t_max, any_hit, out=None):
         args, out = launch_args(b8, o, d, t_max, any_hit, out=out)
         if args is None:
             return out
-        err = lib.bvh8_intersect_launch(*args)
+        with spans.span("bvh8.kernel"):
+            err = lib.bvh8_intersect_launch(*args)
     _build.check(err, "bvh8_intersect")
     counter.launches += 1
     return out

@@ -62,8 +62,8 @@ MAX_FOREST_TRIS = 1 << 24   # float32 ids are exact up to here
 PAGES_PER_ROUND = 16
 ENTRY_GROUP = 16
 
-counter_forest = LaunchCounter()
-counter_binned = LaunchCounter()
+counter_forest = LaunchCounter("bvh8_forest")
+counter_binned = LaunchCounter("bvh8_binned")
 
 
 def _rays(what, o, d, t_max):

@@ -41,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import spans
 from . import LaunchCounter
 from .bvh2 import STACK, _prepare
 from .bvh8 import _slab
@@ -65,7 +66,7 @@ WIDE_COLS = 16
 REFILL_IDLE = 8
 MIN_WALKERS = 8
 
-counter = LaunchCounter()
+counter = LaunchCounter("curves")
 
 
 def wide_nodes(nodes):
@@ -304,7 +305,8 @@ def curves_intersect(nodes, segs, o, d, t_max, any_hit: bool = False, *,
     t_max, cuda = _prepare("curves_intersect", o, d, t_max, (nodes, segs),
                            depth, MAX_DEPTH)
     if not cuda:
-        return curves_intersect_plain(nodes, segs, o, d, t_max, any_hit)
+        with spans.span("curves.kernel"):
+            return curves_intersect_plain(nodes, segs, o, d, t_max, any_hit)
     if wide is None:
         wide = wide_nodes(nodes)
     return _launch(nodes, wide, segs, o, d, t_max, any_hit)
@@ -322,7 +324,8 @@ def _launch(nodes, wide, segs, o, d, t_max, any_hit, *,
                                        min_walkers=min_walkers)
         if args is None:
             return out
-        err = lib.curves_intersect_launch(*args)
+        with spans.span("curves.kernel"):
+            err = lib.curves_intersect_launch(*args)
     _build.check(err, "curves_intersect")
     counter.launches += 1
     return out

@@ -65,10 +65,10 @@ MODES = ("pipelined", "manual")
 STAGES = (1, 2, 3, 4)
 SCHEDULES = ("var2", "min", "seeded", "ordered")
 
-counter_var = LaunchCounter()
-counter_pipelined = LaunchCounter()
-counter_manual = LaunchCounter()
-counter_ladder = LaunchCounter()
+counter_var = LaunchCounter("dma_var")
+counter_pipelined = LaunchCounter("dma_sched_pipelined")
+counter_manual = LaunchCounter("dma_sched_manual")
+counter_ladder = LaunchCounter("dma_ladder")
 
 
 def make_pages(K: int, R: int, device="cuda", fill: str = "arange"):

@@ -38,6 +38,7 @@ from .. import filters as flt
 from .. import lights as lgt
 from .. import materials as mtl
 from .. import samplers as smp
+from .. import spans
 from ..utils import lowdiscrepancy as ld
 from ..utils import rng as prng
 from ..utils.math import (INV_PI, next_float_down, next_float_up,
@@ -72,7 +73,7 @@ class MegaMeta(NamedTuple):
     ls_uniform: bool   # uniform light sampler (else power alias)
 
 
-counter = LaunchCounter()
+counter = LaunchCounter("megawave")
 
 
 def n_dims(max_depth: int) -> int:
@@ -238,6 +239,7 @@ def _prepare(scene, sampler, px, py, sample_index, lam, max_depth,
         ls_uniform=bool(meta.ls_uniform), **rays)
 
 
+@spans.span("megawave.prepare")
 def prepare_full(scene, sampler, camera, filt, px, py, sample_index, lam,
                  max_depth=5, rr_start=1) -> FullWave:
     """The wave of trace_full: camera rays made in the kernel."""
@@ -277,7 +279,8 @@ def wave_full(w: FullWave):
                w.o, w.d)
     devices = {x.device.type for x in tensors if x is not None}
     if devices == {"cpu"}:
-        return wave_full_plain(w)
+        with spans.span("megawave.kernel"):
+            return wave_full_plain(w)
     if devices != {"cuda"}:
         raise ValueError(f"megawave: tensors on mixed devices {devices}")
     return _launch(w)
@@ -615,7 +618,8 @@ def _launch(w: FullWave, *, out=None):
         args, L, fw, _keep = launch_args(w, out=out)
         if args is None:
             return L, fw
-        err = lib.megawave_launch(*args)
+        with spans.span("megawave.kernel"):
+            err = lib.megawave_launch(*args)
     _build.check(err, "megawave")
     counter.launches += 1
     return L, fw

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import spans
 from . import LaunchCounter
 
 GROUP = 4     # triangles per any-hit group; the pool is padded to it
@@ -26,7 +27,7 @@ T_MIN = 1e-6
 REL_TOL = 1e-6
 
 
-counter = LaunchCounter()
+counter = LaunchCounter("tri")
 
 
 def pad_triangles(tri_verts) -> np.ndarray:
@@ -103,7 +104,8 @@ def tri_intersect(tri, o, d, t_max, n_real: int, any_hit: bool = False):
         raise ValueError("tri_intersect: pool must be pad_triangles rows")
     devices = {x.device.type for x in (tri, o, d, t_max)}
     if devices == {"cpu"}:
-        return tri_intersect_plain(tri, o, d, t_max, n_real, any_hit)
+        with spans.span("tri.kernel"):
+            return tri_intersect_plain(tri, o, d, t_max, n_real, any_hit)
     if devices != {"cuda"}:
         raise ValueError(f"tri_intersect: tensors on mixed devices {devices}")
     return _launch(tri, o, d, t_max, n_real, any_hit)
@@ -128,7 +130,7 @@ def _launch(tri, o, d, t_max, n_real, any_hit, out=None):
     t, prim, b1, b2 = out
     if N == 0:
         return t, prim, b1, b2
-    with torch.cuda.device(o.device):
+    with torch.cuda.device(o.device), spans.span("tri.kernel"):
         err = lib.tri_intersect_launch(
             tri.data_ptr(), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
             t.data_ptr(), prim.data_ptr(), b1.data_ptr(), b2.data_ptr(),

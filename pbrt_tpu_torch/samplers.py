@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import spans
 from .utils import rng as prng
 from .utils import lowdiscrepancy as ld
 
@@ -75,6 +76,7 @@ def _dims(px, dim):
                            device=px.device).expand(px.shape)
 
 
+@spans.span("sampler.draw")
 def sample_1d(params: SamplerParams, px, py, sample_index, dim):
     """dim: int (one dimension for every lane) or int tensor, the sampler
     dimension. Returns (N,) f32."""
@@ -85,6 +87,7 @@ def sample_1d(params: SamplerParams, px, py, sample_index, dim):
         ld.fast_owen_scramble(ld.sobol_sample_u32(idx, 0), h))
 
 
+@spans.span("sampler.draw")
 def sample_2d(params: SamplerParams, px, py, sample_index, dim):
     """Consumes dims (dim, dim + 1). Returns (N, 2) f32."""
     dim = _dims(px, dim)
@@ -98,6 +101,7 @@ def sample_2d(params: SamplerParams, px, py, sample_index, dim):
     return torch.stack([ua, ub], dim=-1)
 
 
+@spans.span("sampler.draw")
 def sample_pixel_2d(params: SamplerParams, px, py, sample_index, dim):
     """Pixel-position sample (reference GetPixel2D): sample_2d for ZSobol."""
     return sample_2d(params, px, py, sample_index, dim)

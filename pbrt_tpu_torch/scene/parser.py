@@ -52,6 +52,7 @@ from .. import filters as flt
 from .. import samplers as smp
 from .. import scene_core as sc
 from .. import scenes as scenes_mod
+from .. import spans
 from ..utils import color as pcolor
 from ..utils import image
 from ..utils import image_env
@@ -322,6 +323,7 @@ def parse_file(path, **overrides) -> PbrtSceneDescription:
                         **overrides)
 
 
+@spans.span("scene.parse")
 def parse_string(text, base_dir=".", light_sampler="power", force_bvh=None,
                  fname=None, device="cuda") -> PbrtSceneDescription:
     """Parse a scene and build it on `device`. base_dir: where the files it

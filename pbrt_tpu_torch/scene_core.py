@@ -48,6 +48,7 @@ from . import lights as lgt
 from . import lightsamplers as lsamp
 from . import materials as mtl
 from . import media as med_mod
+from . import spans
 from . import textures as tex_mod
 from .ops import bvh as bvh_mod
 from .ops import bvh2 as bvh2_mod
@@ -675,6 +676,7 @@ class SceneBuilder:
                            p0, p1, p2, order=ibvh.prim_indices)))
         return out
 
+    @spans.span("scene.build")
     def build(self, light_sampler="power", force_bvh=None,
               device="cuda") -> Scene:
         device = dev_mod.resolve(device)
@@ -727,6 +729,7 @@ class SceneBuilder:
             np.asarray(self.t_light, np.float32)[:, None]],
             axis=1).astype(np.float32)
 
+        @spans.span("scene.upload")
         def t(a):
             return torch.as_tensor(np.ascontiguousarray(a, np.float32),
                                    device=device)
@@ -998,6 +1001,7 @@ def _merge_quadric_hits(scene: Scene, o, d, t_max, out):
     return out
 
 
+@spans.span("scene.interfaces")
 def intersect_interfaces(scene: Scene, o, d, t_max):
     """Closest hit of rays o, d (N, 3) below t_max (N,) on the
     medium-interface triangles (reference intersect_interfaces): a pool of
@@ -1122,6 +1126,7 @@ def _merge_curve_hits(scene: Scene, o, d, t_max, out):
                 light=torch.where(hit_c, -1, out["light"]))
 
 
+@spans.span("scene.shadow")
 def intersect_p(scene: Scene, o, d, t_max):
     """Any-hit (shadow) query. Returns bool occluded (N,)."""
     o, d, t_max = o.contiguous(), d.contiguous(), t_max.contiguous()

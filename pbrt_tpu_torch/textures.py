@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from . import device as dev_mod
+from . import spans
 
 TEX_CONSTANT = 0   # the reference's tags
 TEX_IMAGE = 1
@@ -224,6 +225,7 @@ def _image_trilinear(pool: TexturePool, row, mip_row, u, v, lod):
     return v0 * (1.0 - f) + v1 * f
 
 
+@spans.span("texture.eval")
 def eval_texture(pool: TexturePool, tex_idx, uv, footprint=None):
     """Texture tex_idx (N,) at uv (N, 2) (reference eval_texture, its
     constant and image branches). footprint (N,): the uv-space width of

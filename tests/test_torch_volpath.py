@@ -49,6 +49,7 @@ from pbrt_tpu.scene import parser as jparser  # noqa: E402
 from pbrt_tpu.utils import spectrum as jspc  # noqa: E402
 from pbrt_tpu_torch import scene_core as sc  # noqa: E402
 from pbrt_tpu_torch import scenes  # noqa: E402
+from pbrt_tpu_torch import spans  # noqa: E402
 from pbrt_tpu_torch.integrators import path as path_mod  # noqa: E402
 from pbrt_tpu_torch.integrators import render  # noqa: E402
 from pbrt_tpu_torch.integrators import volpath  # noqa: E402
@@ -214,11 +215,11 @@ def test_flight_cap_ends_as_reach(volume, monkeypatch):
     # the capped loop stopped at 3 steps, lanes that would scatter or be
     # absorbed later reach
     monkeypatch.setattr(volpath, "MAX_FLIGHT_EVENTS", 512)
-    steps = volpath.flight_stats["steps"]
+    steps = spans.counter("flight.steps")
     uncapped = volpath.sample_t_maj(
         dp.scene, *(torch.as_tensor(x) for x in (o, d, t_max, lam, seeds,
                                                  active, beta, r_u, r_l)))
-    assert volpath.flight_stats["steps"] - steps > 3
+    assert spans.counter("flight.steps") - steps > 3
     assert (got["status"] != volpath.EV_REACH).sum() < \
         (uncapped["status"] != volpath.EV_REACH).sum()
 
@@ -384,7 +385,7 @@ def test_entry_points_keep_the_card_default():
 def test_new_modules_import_no_jax():
     code = (
         "import sys, dataclasses, torch\n"
-        "from pbrt_tpu_torch import media, models, scenes\n"
+        "from pbrt_tpu_torch import media, models, scenes, spans\n"
         "from pbrt_tpu_torch.integrators import render, volpath, path\n"
         "from pbrt_tpu_torch.ops import intersect\n"
         "from pbrt_tpu_torch.scene import parser\n"
@@ -399,7 +400,7 @@ def test_new_modules_import_no_jax():
         "    img, _ = render.render(d.scene, cam, spp=1, device='cpu',\n"
         "                           opts=path.PathOptions(max_depth=2))\n"
         "    assert img.shape == (4, 4, 3)\n"
-        "assert volpath.flight_stats['calls'] > 0\n"
+        "assert spans.counter('flight.calls') > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'pbrt_tpu')]\n"
         "assert not bad, bad\n"
