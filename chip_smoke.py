@@ -13,7 +13,9 @@ Phases, each of which raises on failure (exit code 1):
      16 spp, max depth 5;
   5. the main path through the user entry point
      (pbrt_tpu_torch.integrators.render.render): cornell 400x400, 64 spp,
-     max depth 5, launch counts read around it, the image gated against
+     max depth 5, launch counts read around it (the front end's lanes
+     kernel, the megakernel and the film kernel once a wave), the image
+     gated against
      the reference renderer's golden (goldens/cornell_400_64spp.exr) with
      the MRSE and mean-ratio gates of tools/golden.py, and written to
      pbrt_tpu_torch/_build/;
@@ -216,7 +218,11 @@ Phases, each of which raises on failure (exit code 1):
      counterpart, on a render path), the main queries through the
      triangle kernel, no plain version, the image finite and lit; then
      every interface query of one wave bit-equal to the plain version,
-     bare launches queued beside their bounds.
+     bare launches queued beside their bounds;
+ 45. the megakernel front end's lanes and film kernels (ops/megafront)
+     on a 1920x1080 cornell wave: each bit-equal to its plain version,
+     then bare launches queued beside their bounds (bytes) and the
+     megakernel's (front_phases).
 A bare launch (the launch alone, its arguments prepared once) is timed
 queued: its launches are enqueued behind a spin kernel, so that the card
 runs them back to back and the time is the device's, whatever the host
@@ -2159,6 +2165,61 @@ def plytex_volume_phases(dev, card, named):
     return out
 
 
+def front_phases(dev, card):
+    """Phase 45: the front end's lanes and film kernels (ops/megafront) on
+    cornell.1080p's wave (1920x1080, one sample index a wave, sample index
+    37 of 64): each against its plain version on the card (mi, lam, le and
+    the film's accumulator bit for bit), then each timed with CUDA events
+    as bare launches queued behind a spin (the device's time) beside its
+    bound (bytes once over 3.35 TB/s) and its plain version's time, and the
+    megakernel's launch on the same wave."""
+    import torch
+    from pbrt_tpu_torch import film as film_mod
+    from pbrt_tpu_torch import filters as flt
+    from pbrt_tpu_torch import samplers as smp
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.ops import megafront, megawave
+    W, H, s = 1920, 1080, 37
+    scene, cam = scenes.make_cornell_box(W, H, device=dev)
+    film = film_mod.make_film(W, H, dev)
+    front = megafront.prepare(
+        scene, cam, smp.make_sampler("zsobol", 64, 3, full_resolution=(W, H)),
+        flt.make_filter("gaussian"), film_mod.make_pixel_sensor(), film, 1)
+    w, n = front.full, W * H
+    megafront.lanes(front, s)
+    got = [x.clone() for x in (w.mi, w.lam, w.le)]
+    megafront.lanes_plain(front, s)
+    lanes_eq = all(torch.equal(g.view(torch.int32), x.view(torch.int32))
+                   for g, x in zip(got, (w.mi, w.lam, w.le)))
+    megawave.launch(front.mega_args)
+    film.accum.uniform_()
+    accum0 = film.accum.clone()
+    megafront.film(front)
+    got = film.accum.clone()
+    film.accum.copy_(accum0)
+    megafront.film_plain(front)
+    film_eq = torch.equal(got.view(torch.int32), film.accum.view(torch.int32))
+    print(f"[45 front] {n} lanes: lanes kernel bit-equal to its plain version"
+          f" {lanes_eq}; film kernel's accumulator bit-equal {film_eq}",
+          flush=True)
+    check(lanes_eq, "the lanes kernel differs from its plain version")
+    check(film_eq, "the film kernel differs from its plain version")
+    lanes_b = bound(n * (4 + 16 + 16) + 4 * 471, 0)
+    film_b = bound(n * (16 + 4 + 16) + 2 * 32 * n, 0)
+    t = dict(lanes=cuda_ms(lambda: megafront.lanes(front, s), 50, 3, True),
+             film=cuda_ms(lambda: megafront.film(front), 50, 3, True),
+             megawave=cuda_ms(lambda: megawave.launch(front.mega_args), 20,
+                              3, True),
+             lanes_plain=cuda_ms(lambda: megafront.lanes_plain(front, s), 5),
+             film_plain=cuda_ms(lambda: megafront.film_plain(front), 5))
+    print(f"[45 times] card {card}: bare queued ms: lanes kernel "
+          f"{t['lanes']:.4f} (bound {lanes_b[0]:.4f}, {lanes_b[1]}; plain "
+          f"{t['lanes_plain']:.3f}), film kernel {t['film']:.4f} (bound "
+          f"{film_b[0]:.4f}, {film_b[1]}; plain {t['film_plain']:.3f}), "
+          f"megakernel {t['megawave']:.4f}", flush=True)
+    return dict(ms=t, lanes_bound=lanes_b, film_bound=film_b)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2179,12 +2240,15 @@ def main():
     from pbrt_tpu_torch.ops import bvh8_pages as bp
     from pbrt_tpu_torch.ops import curves
     from pbrt_tpu_torch.ops import dma_probe as dp
+    from pbrt_tpu_torch.ops import megafront
     from pbrt_tpu_torch.ops import megawave
     from pbrt_tpu_torch.ops import tri_intersect as ti
     from pbrt_tpu_torch.scene import parser
     from pbrt_tpu_torch.utils import image
     from pbrt_tpu_torch.utils import spectrum as spc
     named = {"megawave": megawave.counter, "tri_intersect": ti.counter,
+             "mega_lanes": megafront.lanes_counter,
+             "mega_film": megafront.film_counter,
              "bvh8": bvh8.counter, "bvh2": bvh2.counter_bvh2,
              "two_level": bvh2.counter_two_level, "curves": curves.counter,
              "bvh8_forest": bp.counter_forest,
@@ -2267,14 +2331,17 @@ def main():
     reset_counts(counters)
     img, stats = render.render(scene, cam, spp=64, device=dev,
                                opts=path_mod.PathOptions(max_depth=5))
-    launches = {"megawave": megawave.counter.launches,
-                "tri_intersect": ti.counter.launches}
+    launches = {k: named[k].launches for k in ("mega_lanes", "megawave",
+                                               "mega_film", "tri_intersect")}
     plain_runs = sum(c.plain for c in counters)
+    waves5 = 64 * 400 * 400 // stats["lanes_per_wave"]
     print(f"[5 render] launches {launches}, plain-version runs "
           f"{plain_runs}; {stats['seconds']:.3f} s, "
           f"{stats['paths_per_sec']:.6g} paths/s, "
           f"{stats['lanes_per_wave']} lanes per wave", flush=True)
-    check(launches["megawave"] >= 1, "main path launched no megakernel")
+    check(launches["megawave"] == launches["mega_lanes"] ==
+          launches["mega_film"] == waves5,
+          "main path: not one lanes, megakernel and film launch a wave")
     check(plain_runs == 0, "main path ran a plain version on the card")
     check(img.shape == (400, 400, 3) and bool(np.isfinite(img).all()),
           "render output shape or values")
@@ -2557,6 +2624,7 @@ def main():
     mk.update(pv)
     print(f"[44 times] phases 41-44 took {time.perf_counter() - t_new:.1f} "
           "s", flush=True)
+    mk["front"] = front_phases(dev, card)
 
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]

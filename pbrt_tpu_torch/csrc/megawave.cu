@@ -37,12 +37,9 @@
 //   counter, one atomicAdd a warp, and start them (the camera section, or
 //   the given ray) while the others bounce on. A lane's result depends on
 //   its own inputs alone, so the order lanes run in changes no bit.
-// - The Sobol' products without their 32-step loop: dimension 0's
-//   generator matrix is the bit reversal (column i is 1 << (31 - i)), so
-//   its product is __brev; dimension 1's is four lookups in 256-entry byte
-//   tables (4 KB in shared memory). Both are the same integers as the
-//   matrix products. The tables come from the wrapper's
-//   per-device upload, not from a copy on every launch.
+// - The Sobol' products without their 32-step loop (zsobol.cuh): dimension
+//   1's byte tables sit in shared memory (4 KB). The tables come from the
+//   wrapper's per-device upload, not from a copy on every launch.
 // - Rows are read by integer index; a warp's uniform reads broadcast. The
 //   sampler dimension of a draw follows the lane's own depth, so the seed
 //   rows a warp reads may differ lane to lane.
@@ -58,12 +55,14 @@
 #include <utility>
 
 #include "tri_intersect.cuh"
+#include "zsobol.cuh"
 
 namespace {
 
 using pbrt_tpu_torch::Hit;
 using pbrt_tpu_torch::intersect_pool;
 using pbrt_tpu_torch::kTriFloats;
+using pbrt_tpu_torch::ZSobol;
 
 constexpr int kThreads = 512;
 constexpr int kMinBlocks = 1;
@@ -153,53 +152,6 @@ __device__ __forceinline__ F3 offset_origin(F3 p, F3 pe, F3 ng, F3 w) {
   }
   return F3{out[0], out[1], out[2]};
 }
-
-// --- ZSobol (fast index shuffle) -----------------------------------------
-
-__device__ __forceinline__ uint32_t fast_owen(uint32_t v, uint32_t seed) {
-  v = __brev(v);
-  v ^= v * 0x3D20ADEAu;
-  v += seed;
-  v *= (seed >> 16) | 1u;
-  v ^= v * 0x05526C56u;
-  v ^= v * 0x53A22864u;
-  return __brev(v);
-}
-
-// u32 -> [0, 1): __uint2float_rn(v) * 2^-32 is the round-to-nearest
-// conversion the reference builds from two exact int32 parts (a Mosaic
-// workaround, megawave.py _u32_to_f); bit-identical
-__device__ __forceinline__ float u32_to_f(uint32_t v) {
-  return fminf(__uint2float_rn(v) * 0x1p-32f, 0x1.fffffep-1f);
-}
-
-struct ZSobol {
-  int shift;                    // 32 - the index's meaningful bits
-  const uint32_t* seeds;        // (n_dims, 3) in shared memory
-  const uint32_t* sobol;        // the Sobol' table in shared memory
-
-  __device__ __forceinline__ uint32_t index(uint32_t mi, int dim) const {
-    return fast_owen(mi << shift, seeds[3 * dim]) >> shift;
-  }
-  // dimension 0's product: its columns are 1 << (31 - i)
-  __device__ __forceinline__ uint32_t product0(uint32_t idx) const {
-    return __brev(idx);
-  }
-  // dimension 1's: the xor of one entry of each byte table
-  __device__ __forceinline__ uint32_t product1(uint32_t idx) const {
-    return sobol[idx & 255u] ^ sobol[256 + ((idx >> 8) & 255u)] ^
-           sobol[512 + ((idx >> 16) & 255u)] ^ sobol[768 + (idx >> 24)];
-  }
-  __device__ __forceinline__ float d1(uint32_t mi, int dim) const {
-    return u32_to_f(fast_owen(product0(index(mi, dim)), seeds[3 * dim + 1]));
-  }
-  __device__ __forceinline__ void d2(uint32_t mi, int dim, float& a,
-                                     float& b) const {
-    const uint32_t idx = index(mi, dim);
-    a = u32_to_f(fast_owen(product0(idx), seeds[3 * dim + 1]));
-    b = u32_to_f(fast_owen(product1(idx), seeds[3 * dim + 2]));
-  }
-};
 
 __device__ __forceinline__ uint32_t compact_bits_2(uint32_t v) {
   v &= 0x55555555u;

@@ -336,13 +336,19 @@ def camera_rays(camera, sampler, filt, px, py, sample_index):
     return o, d, f_weight * cam_wt
 
 
+def in_kernel_camera(scene, sampler, camera, filt, opts) -> bool:
+    """Whether render_wave takes the megakernel with in-kernel camera
+    rays."""
+    return _megakernel_allowed(opts) and megawave.eligible_full(
+        scene, sampler, camera, filt)
+
+
 def render_wave(scene, camera, sampler, filt, pixel_idx: torch.Tensor,
                 sample_index: torch.Tensor, opts: PathOptions):
     """One wave over flat pixel ids (N,) and per-lane sample indices (N,).
     Returns (spectral L (N, 4), wavelengths, filter weight (N,))."""
     px, py, swl = camera_lanes(camera, sampler, pixel_idx, sample_index)
-    if _megakernel_allowed(opts) and megawave.eligible_full(scene, sampler,
-                                                             camera, filt):
+    if in_kernel_camera(scene, sampler, camera, filt, opts):
         L, fw = megawave.trace_full(scene, sampler, camera, filt, px, py,
                                     sample_index, swl.lam,
                                     max_depth=opts.max_depth,

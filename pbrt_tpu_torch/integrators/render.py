@@ -4,9 +4,12 @@ scene with media, the volumetric one (reference wave_module).
 
 Every wave covers the whole image and m consecutive sample indices (m a
 power of two, chosen like the reference's wave tiling: as many as fit
-under 2^18 lanes), then adds its samples into the film. Each call is one
-image of spans.py: the root span `render.image`, a `render.wave` span a
-wave, and the counter `wave.lanes`.
+under 2^18 lanes), then adds its samples into the film. On a card, a
+render whose waves take the megakernel with in-kernel camera rays
+(path.in_kernel_camera) runs each wave as ops/megafront.wave: the lanes
+kernel, the megakernel and the film kernel, their arguments made once a
+render. Each call is one image of spans.py: the root span `render.image`,
+a `render.wave` span a wave, and the counter `wave.lanes`.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from .. import film as film_mod
 from .. import filters as flt
 from .. import samplers as smp
 from .. import spans
+from ..ops import megafront
 from . import path as path_mod
 from . import volpath as volpath_mod
 
@@ -55,15 +59,25 @@ def render(scene, camera, spp=16, *, device, sampler=None, filt=None,
     with spans.image(device, spp=sampler.spp, width=W, height=H,
                      lanes_per_wave=n_pix * m, waves=n_waves // m):
         film = film_mod.make_film(W, H, device)
-        pixel_idx = torch.arange(n_pix, dtype=torch.int64, device=device) \
-            .repeat(m)
-        lane_s = torch.arange(n_pix * m, dtype=torch.int64, device=device) \
-            // n_pix
+        front = None
+        if device.type == "cuda" and wave is path_mod and \
+                path_mod.in_kernel_camera(scene, sampler, camera, filt, opts):
+            front = megafront.prepare(scene, camera, sampler, filt, sensor,
+                                      film, m, opts.max_depth,
+                                      opts.rr_start_depth)
+        else:
+            pixel_idx = torch.arange(n_pix, dtype=torch.int64,
+                                     device=device).repeat(m)
+            lane_s = torch.arange(n_pix * m, dtype=torch.int64,
+                                  device=device) // n_pix
         dev_mod.synchronize(device)
         t0 = time.perf_counter()
         for s in range(0, n_waves, m):
             with spans.span("render.wave", wave=s // m):
                 spans.count("wave.lanes", n_pix * m)
+                if front is not None:
+                    megafront.wave(front, s)
+                    continue
                 L, swl, fw = wave.render_wave(scene, camera, sampler, filt,
                                               pixel_idx, s + lane_s, opts)
                 rgb = film_mod.sensor_to_sensor_rgb(sensor, L, swl)

@@ -53,6 +53,12 @@ SIGNATURES = {
         # blocks an SM, threads a block
         "megawave_grid": [_I] * 6 + [_P] * 3,
     },
+    "megafront": {
+        # s, seeds, spec, mi, lam, le, n, n_pix, width, log2_spp, B, stream
+        "mega_lanes_launch": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+        # L, fw, lam, accum, n_pix, m, imaging_ratio, stream
+        "mega_film_launch": [_P] * 4 + [_I] * 2 + [_F] + [_P],
+    },
     "bvh8": {
         # nodes_f, nodes_q, tris, prim_indices, o, d, t_max, t, prim, b1,
         # b2, n, any_hit, stream

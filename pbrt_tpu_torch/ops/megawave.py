@@ -187,7 +187,8 @@ def eligible_full(scene, sampler, camera, filt) -> bool:
 @dataclasses.dataclass
 class FullWave:
     """Inputs of one megakernel launch. Tensors live on one device; mi is
-    the int64 morton|spp lane index (u32 values); lam and le are (N, 4).
+    the morton|spp lane index, int64 u32 values or int32 holding their bits
+    (as the front end's lanes kernel writes them); lam and le are (N, 4).
     The camera rays are made in the kernel from cam and filt, or given as
     o, d (N, 3) (then cam and filt are None)."""
     cam: torch.Tensor | None
@@ -216,27 +217,42 @@ class FullWave:
         return seed_table(self.seed, self.max_depth)
 
 
+def light_spectrum(scene, lam):
+    """The light spectrum at the lanes' wavelengths lam (N, 4): the
+    spectra_pool row every light of an eligible scene shares."""
+    N = lam.shape[0]
+    return lgt.eval_light_spectrum(
+        scene.spectra_pool,
+        torch.full((N,), scene.mega.light_spec, dtype=torch.int64,
+                   device=lam.device),
+        torch.ones((N,), dtype=torch.float32, device=lam.device), lam)
+
+
+def wave_of(scene, sampler, mi, lam, le, max_depth, rr_start,
+            **rays) -> FullWave:
+    """The wave over the lanes' index mi, wavelengths lam and light
+    spectrum le, with the scene's constant tables; `rays`: cam and filt,
+    or o and d."""
+    meta = scene.mega
+    attr, light, mat = scene_tables(scene)
+    return FullWave(
+        tri=scene.tri_pallas, attr=attr, light=light, mat=mat, mi=mi,
+        lam=lam, le=le, seed=int(sampler.seed),
+        n_real=meta.n_tris, n_mats=meta.n_mats, n_lights=meta.n_lights,
+        max_depth=int(max_depth), rr_start=int(rr_start),
+        B=smp.zsobol_index_bits(sampler), log2_spp=sampler.log2_spp,
+        ls_uniform=bool(meta.ls_uniform), **rays)
+
+
 def _prepare(scene, sampler, px, py, sample_index, lam, max_depth,
              rr_start, **rays) -> FullWave:
     """Front end of both entries in plain torch: the lane index, the light
     spectrum at the lanes' wavelengths, and the constant tables; `rays`:
     cam and filt, or o and d."""
-    N = px.shape[0]
-    mi = smp.morton_index(sampler, px, py, sample_index)
-    meta = scene.mega
-    le = lgt.eval_light_spectrum(
-        scene.spectra_pool,
-        torch.full((N,), meta.light_spec, dtype=torch.int64,
-                   device=lam.device),
-        torch.ones((N,), dtype=torch.float32, device=lam.device), lam)
-    attr, light, mat = scene_tables(scene)
-    return FullWave(
-        tri=scene.tri_pallas, attr=attr, light=light, mat=mat, mi=mi,
-        lam=lam.contiguous(), le=le.contiguous(), seed=int(sampler.seed),
-        n_real=meta.n_tris, n_mats=meta.n_mats, n_lights=meta.n_lights,
-        max_depth=int(max_depth), rr_start=int(rr_start),
-        B=smp.zsobol_index_bits(sampler), log2_spp=sampler.log2_spp,
-        ls_uniform=bool(meta.ls_uniform), **rays)
+    return wave_of(scene, sampler,
+                   smp.morton_index(sampler, px, py, sample_index),
+                   lam.contiguous(), light_spectrum(scene, lam).contiguous(),
+                   max_depth, rr_start, **rays)
 
 
 @spans.span("megawave.prepare")
@@ -380,6 +396,8 @@ def wave_full_plain(w: FullWave):
     None when rays were given). counter.work: what the kernel runs on these
     inputs (`_path_loop`), for its bound."""
     counter.plain += 1
+    if w.mi.dtype == torch.int32:
+        w = dataclasses.replace(w, mi=w.mi.to(torch.int64) & prng.MASK32)
     zs = _ZSobol(w.mi, w.seeds, w.B)
     if w.o is None:
         o, d, fw = _camera_rays(w, zs)
@@ -612,17 +630,22 @@ def grid(w: FullWave) -> dict:
 
 def _launch(w: FullWave, *, out=None):
     """out: (L, fw) to write into (fw None for rays in)."""
-    from . import _build
-    lib = _build.load_library("megawave")
     with torch.cuda.device(w.lam.device):
         args, L, fw, _keep = launch_args(w, out=out)
-        if args is None:
-            return L, fw
-        with spans.span("megawave.kernel"):
-            err = lib.megawave_launch(*args)
+        if args is not None:
+            launch(args)
+    return L, fw
+
+
+def launch(args):
+    """One launch of the kernel with the arguments launch_args made, on the
+    current device."""
+    from . import _build
+    lib = _build.load_library("megawave")
+    with spans.span("megawave.kernel"):
+        err = lib.megawave_launch(*args)
     _build.check(err, "megawave")
     counter.launches += 1
-    return L, fw
 
 
 def launch_args(w: FullWave, *, out=None):
@@ -648,7 +671,8 @@ def launch_args(w: FullWave, *, out=None):
         raise ValueError("megawave: camera table must have 19 entries")
     dev = w.lam.device
     # u32 values reinterpreted as int32 (the kernel reads uint32)
-    mi32 = torch.where(w.mi >= 2 ** 31, w.mi - 2 ** 32, w.mi) \
+    mi32 = w.mi.contiguous() if w.mi.dtype == torch.int32 else \
+        torch.where(w.mi >= 2 ** 31, w.mi - 2 ** 32, w.mi) \
         .to(torch.int32).contiguous()
     seeds, sobol = _device_seeds(dev, w.seed, w.max_depth), _device_sobol(dev)
     # float4 access: the kernel needs 16-byte aligned (N, 4) rows

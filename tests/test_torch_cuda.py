@@ -553,6 +553,135 @@ def test_megakernel_writes_every_lane_once(cuda_device, entry, size):
         torch.testing.assert_close(fw, fw_p, rtol=1e-5, atol=1e-6)
 
 
+def _front(device, width, height, m, seed=11):
+    """A cornell render's front (ops/megafront.prepare) on device, 8 spp,
+    waves of m sample indices, its film's accumulator seeded (the film
+    kernel adds in place)."""
+    from pbrt_tpu_torch import film as film_mod
+    from pbrt_tpu_torch.ops import megafront
+    scene, cam = scenes.make_cornell_box(width, height, device=device)
+    sampler = smp.make_sampler("zsobol", 8, seed,
+                               full_resolution=(width, height))
+    film = film_mod.make_film(width, height, device)
+    film.accum.copy_(torch.rand(film.accum.shape,
+                                generator=torch.Generator().manual_seed(3)))
+    return megafront.prepare(scene, cam, sampler, flt.make_filter("gaussian"),
+                             film_mod.make_pixel_sensor(), film, m)
+
+
+FRONT_FILMS = [(64, 48, 1), (16, 16, 4), (400, 400, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width, height, m", FRONT_FILMS)
+def test_lanes_kernel_bit_equal_to_plain(cuda_device, width, height, m):
+    """The lanes kernel's mi, lam and le bit for bit against its plain
+    version on the card, for the first and the last wave."""
+    from pbrt_tpu_torch.ops import megafront
+    front = _front(cuda_device, width, height, m)
+    w = front.full
+    for s in (0, 8 - m):
+        w.mi.fill_(-7)
+        w.lam.fill_(float("nan"))
+        w.le.fill_(float("nan"))
+        before = megafront.lanes_counter.launches
+        megafront.lanes(front, s)
+        torch.cuda.synchronize()
+        assert megafront.lanes_counter.launches == before + 1
+        got = [x.clone() for x in (w.mi, w.lam, w.le)]
+        megafront.lanes_plain(front, s)
+        for g, want, name in zip(got, (w.mi, w.lam, w.le),
+                                 ("mi", "lam", "le")):
+            assert torch.equal(g.view(torch.int32), want.view(torch.int32)), \
+                name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width, height, m", FRONT_FILMS)
+def test_film_kernel_matches_plain(cuda_device, width, height, m):
+    """The film kernel's accumulator against its plain version's on the
+    card, after the megakernel's wave: bit for bit at m = 1 (one row a
+    pixel: the same operations in the same order), within 1e-6 relative at
+    m > 1 (the plain version sums a pixel's m rows in torch's reduction
+    order)."""
+    import dataclasses
+    from pbrt_tpu_torch import film as film_mod
+    from pbrt_tpu_torch.ops import megafront
+    front = _front(cuda_device, width, height, m)
+    plain = dataclasses.replace(front, film=film_mod.Film(
+        front.film.accum.clone(), width, height))
+    for s in (0, 8 - m):
+        megafront.lanes(front, s)
+        megawave.launch(front.mega_args)
+        before = megafront.film_counter.launches
+        megafront.film(front)
+        torch.cuda.synchronize()
+        assert megafront.film_counter.launches == before + 1
+        megafront.film_plain(plain)
+        got, want = front.film.accum, plain.film.accum
+        if m == 1:
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_cornell_render_launches_each_kernel_once_a_wave(cuda_device):
+    """render.render on cornell 512x512 at 4 spp (four waves of one sample
+    index): the lanes kernel, the megakernel and the film kernel once a
+    wave, no plain version, and the image equal to the chain of
+    path.render_wave, film.sensor_to_sensor_rgb and film.add_samples on the
+    card."""
+    from pbrt_tpu_torch import film as film_mod
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.ops import megafront
+    size, spp = 512, 4
+    scene, cam = scenes.make_cornell_box(size, size, device=cuda_device)
+    sampler = smp.make_sampler("zsobol", spp, 5,
+                               full_resolution=(size, size))
+    counters = (megafront.lanes_counter, megawave.counter,
+                megafront.film_counter)
+    before = [(c.launches, c.plain) for c in counters]
+    img, st = render.render(scene, cam, spp, device=cuda_device,
+                            sampler=sampler)
+    assert st["lanes_per_wave"] == size * size
+    for c, (launches, plain) in zip(counters, before):
+        assert (c.launches, c.plain) == (launches + spp, plain)
+    sensor = film_mod.make_pixel_sensor()
+    film = film_mod.make_film(size, size, cuda_device)
+    pix = torch.arange(size * size, device=cuda_device)
+    for s in range(spp):
+        L, swl, fw = path_mod.render_wave(
+            scene, cam, sampler, flt.make_filter("gaussian"), pix,
+            torch.full_like(pix, s), path_mod.PathOptions())
+        rgb = film_mod.sensor_to_sensor_rgb(sensor, L, swl)
+        film_mod.add_samples(film, pix, rgb, fw, identity=True)
+    want = film_mod.get_image(film, sensor)
+    assert np.array_equal(img, want)
+
+
+@pytest.mark.cuda
+def test_general_wave_launches_neither_front_kernel(cuda_device):
+    """cornell through the general wave (PathOptions(megakernel=False))
+    and envlit (outside the megakernel): the lanes and film kernels never
+    launch."""
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.ops import megafront
+    scene, cam = scenes.make_cornell_box(32, 32, device=cuda_device)
+    desc = _envlit(cuda_device, size=16, spp=4)
+    before = (megafront.lanes_counter.launches,
+              megafront.film_counter.launches, megawave.counter.launches)
+    render.render(scene, cam, 4, device=cuda_device,
+                  opts=path_mod.PathOptions(megakernel=False))
+    render.render(desc.scene, desc.camera, sampler=desc.sampler,
+                  device=cuda_device)
+    assert (megafront.lanes_counter.launches,
+            megafront.film_counter.launches,
+            megawave.counter.launches) == before
+
+
 def _terrain(device, n=101, n_rays=1 << 14):
     """tools/terrain_rays.py's terrain (20,000 triangles at n = 101), its
     three builds, and raster and bounce rays."""

@@ -14,7 +14,8 @@
   counters on a crop of volume.pbrt (the counts the volumetric wave's own
   counter dict gave before the spans took it over), and the LaunchCounters
   read as launches.* and plain.*;
-- on the card (marker cuda): device times of the kernels' spans, and the
+- on the card (marker cuda): device times of the kernels' spans (on
+  cornell the lanes kernel, the megakernel and the film kernel) and the
   image equal to the host mode's.
 
 The file imports no jax: on a machine without it run its card test with
@@ -287,16 +288,24 @@ def test_device_mode_on_the_card():
                   '"integer pixelsamples" [4]', text)
     mesh = parser.parse_string(text, base_dir=str(SCENES), device=dev)
     assert mesh.scene.bvh8 is not None
-    for run, kernel in ((lambda: _render_cornell(cornell, device=dev),
-                         "megawave.kernel"),
-                        (lambda: _render_desc(mesh, 3, device=dev),
-                         "bvh8.kernel")):
+    # cornell's waves on the card: the lanes kernel (megawave.prepare), the
+    # megakernel and the film kernel (film.add), no tensor front end
+    card_mega = {"render.image", "render.wave", "megawave.prepare",
+                 "megawave.kernel", "film.add", "film.get_image"}
+    for run, kernels, names in (
+            (lambda: _render_cornell(cornell, device=dev),
+             ("megawave.prepare", "megawave.kernel", "film.add"), card_mega),
+            (lambda: _render_desc(mesh, 3, device=dev), ("bvh8.kernel",),
+             None)):
         run()
         host = run()[0]
         spans.configure("device")
         img = run()[0]
         spans.configure("host")
         s = spans.images()[-1]["spans"]
-        assert s[kernel]["device_ns"] > 0
-        assert s["render.image"]["device_ns"] >= s[kernel]["device_ns"]
+        for kernel in kernels:
+            assert s[kernel]["device_ns"] > 0
+            assert s["render.image"]["device_ns"] >= s[kernel]["device_ns"]
+        assert names is None or set(s) == names
         assert np.array_equal(img, host)
+
