@@ -9,13 +9,17 @@ What differs from the package it was copied from:
   plain versions for CUDA tensors too. The kernel launch functions beside
   them are never reached; their build module and the `.cu` sources are
   not copied.
-- Only what the cells' scenes use is copied: triangle meshes (text and
-  PLY), the diffuse, conductor and dielectric materials, area-triangle,
-  uniform and image infinite lights under the uniform or power light
-  sampler, image textures, the path integrator. Instances, curves,
-  bilinear patches, quadrics, sphere lights, media, the volumetric
-  integrator, the light-BVH and exhaustive samplers are left out, and the
+- Only what the cells' scenes use, and the scenes queued for the next
+  cells, is copied: triangle meshes (text and PLY), the diffuse,
+  conductor and dielectric materials, area-triangle, uniform and image
+  infinite lights, the uniform and power light samplers and the
+  position-aware ones (`lightsampler_bvh.py`, the light-BVH walk; the
+  exhaustive sampler in `lightsamplers.py`), image textures, the path
+  integrator. Instances, curves, bilinear patches, quadrics, sphere
+  lights, media and the volumetric integrator are left out, and the
   parser refuses them.
+- The program's spans (`spans.py`) are not copied: the reference times
+  nothing.
 - `utils.DATA_DIR` points at the same shared data tables (`pbrt_tpu/data`,
   read by path, as the program reads them).
 - The host BVH builder (`csrc/host/*.cpp`, compiled with g++ by

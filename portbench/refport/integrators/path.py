@@ -12,10 +12,12 @@ wave, never the rays-in megakernel (the reference passes the camera's
 time for that).
 
 The general wave keeps every lane's state in tensors and runs one depth
-at a time: the closest hit, emission with MIS at area-light hits, escaped
-rays to the image and uniform infinite lights (an MIS weight of 1 at depth
-0 and after a specular bounce), next-event estimation with an any-hit
-shadow ray, the BSDF sample (diffuse, conductor or dielectric), the
+at a time: the closest hit, emission with MIS at area-light hits (under
+the light-BVH or exhaustive sampler, the pick's pmf taken from the ray's
+origin), escaped rays to the image and uniform infinite lights (an MIS
+weight of 1 at depth 0 and after a specular bounce), next-event
+estimation with an any-hit shadow ray (the light picked at the shading
+point), the BSDF sample (diffuse, conductor or dielectric), the
 dispersion of a spectral dielectric (the secondary wavelengths terminated
 once, the hero's weight times 4) and Russian roulette on max(beta) times
 the accumulated eta_scale, with the reference's sampler dimension layout
@@ -185,7 +187,12 @@ def _general_wave(scene, sampler, px, py, sample_index, o, d, swl, opts,
             lrow = scene.lights_packed[torch.clamp(isect["light"], min=0)]
             Le = lgt.area_light_radiance(lrow, isect["ng"], isect["wo"], lam,
                                          scene.spectra_pool, spec_cache)
-            pick_pmf = lrow[:, 14]
+            if lsamp.positional(ls):
+                # the pick's pmf from the ray's origin
+                pick_pmf = lsamp.light_pmf(
+                    ls, torch.clamp(isect["light"], min=0), p=o)
+            else:
+                pick_pmf = lrow[:, 14]
             pdf_light = lgt.pdf_li_area_tri(o, d, isect["p"], isect["p0"],
                                             isect["p1"], isect["p2"])
             pdf_light = pdf_light * pick_pmf

@@ -7,8 +7,8 @@ compiled scene on the device the caller names. The directives handled:
 
     LookAt, Translate, Scale, Rotate, Transform, ConcatTransform
     Camera "perspective" (pinhole), Film "rgb", Sampler "zsobol",
-    Integrator "path" (its "string lightsampler": uniform, power),
-      WorldBegin, AttributeBegin, AttributeEnd
+    Integrator "path" (its "string lightsampler": uniform, power, bvh,
+      exhaustive); WorldBegin, AttributeBegin, AttributeEnd
     Material / MakeNamedMaterial / NamedMaterial, types "diffuse" (its
       reflectance a value or a texture), "conductor", "dielectric" /
       "glass" (smooth or rough)
@@ -23,7 +23,12 @@ named spectra (utils/spectrum.get_named_spectrum) and constants.
 
 Any other directive, type or parameter that changes the image raises
 ParseError with the file location: it is not in the benchmark's
-reference.
+reference. Among them, what the program renders and this copy refuses:
+Shape "sphere", "disk", "cylinder" (the quadrics and the sphere light),
+"curve", "bilinearmesh"; ObjectBegin, ObjectEnd, ObjectInstance;
+MakeNamedMedium, MediumInterface and Integrator "volpath". The scene
+builder refuses, as the program's does, a bvh or exhaustive light sampler
+beside an infinite light.
 """
 from __future__ import annotations
 

@@ -2,9 +2,11 @@
 what the benchmark's cells reach: the SceneBuilder's triangle meshes
 (per-vertex normals and uvs when given) with diffuse, conductor,
 dielectric materials, area-triangle emission, uniform infinite
-lights and an image infinite light, under a uniform or power light
-sampler, image and constant textures on the diffuse reflectance; the
-device tables; the intersection entry points of the general path wave.
+lights and an image infinite light, under a uniform, power, light-BVH or
+exhaustive light sampler (the last two with area triangles alone, as in
+the program), image and constant textures on the diffuse reflectance;
+the device tables; the intersection entry points of the general path
+wave.
 
 A scene is built on the host in numpy and moved once to the device the
 caller names. Triangle queries follow the program's dispatch
@@ -13,8 +15,9 @@ traversal (ops/bvh8.py) over the whole scene, and below through the
 brute-force triangle test (ops/tri_intersect.py), each in its plain
 version. The megakernel's eligibility test is the program's: an eligible
 scene (cornell class) also carries the megakernel's tables and metadata.
-Instances, curves, bilinear patches, quadrics, sphere lights, media and
-medium interfaces are not copied: the parser refuses them.
+Instances, curves, bilinear patches, quadrics, sphere lights (and their
+light bounds), media and medium interfaces are not copied: the parser
+refuses them.
 """
 from __future__ import annotations
 
@@ -247,6 +250,37 @@ class SceneBuilder:
                         light_spec=int(rows[0]["spec_idx"]),
                         ls_uniform=bool(ls.kind == lsamp.LS_UNIFORM))
 
+    @staticmethod
+    def _light_bounds(rows, p0, p1, p2):
+        """Each light's LightBounds for the position-aware samplers
+        (reference _light_bounds): an area triangle's box, its normal as
+        the cone axis (cos_theta_o -1 when two-sided, else 1) and
+        cos_theta_e 0; infinite lights outside the tree. (The program's
+        sphere-light branch is not copied: the parser refuses spheres.)"""
+        L = len(rows)
+        lo = np.zeros((L, 3), np.float32)
+        hi = np.zeros((L, 3), np.float32)
+        w = np.tile(np.asarray([0, 0, 1.0], np.float32), (L, 1))
+        cos_o = np.full(L, -1.0, np.float32)
+        cos_e = np.zeros(L, np.float32)
+        inf = np.zeros(L, bool)
+        for i, r in enumerate(rows):
+            if r["tag"] == lgt.LIGHT_AREA_TRI:
+                t = r["tri"]
+                pts = np.stack([p0[t], p1[t], p2[t]])
+                lo[i] = pts.min(0)
+                hi[i] = pts.max(0)
+                ng = np.cross(p1[t] - p0[t], p2[t] - p0[t])
+                nn = np.linalg.norm(ng)
+                w[i] = ng / nn if nn > 1e-12 else w[i]
+                cos_o[i] = -1.0 if r["two_sided"] else 1.0
+            else:   # the infinite lights
+                inf[i] = True
+        return dict(bounds_lo=lo, bounds_hi=hi, axis_w=w, cos_theta_o=cos_o,
+                    cos_theta_e=cos_e,
+                    power=np.asarray([r["power"] for r in rows], np.float64),
+                    is_infinite=inf)
+
     def build(self, light_sampler="power", force_bvh=None,
               device="cuda") -> Scene:
         device = dev_mod.resolve(device)
@@ -274,8 +308,21 @@ class SceneBuilder:
                 r["power"] = lgt.compute_light_power(
                     r["tag"], r["scale"], base, scene_radius=radius)
         ls = lsamp.make_light_sampler(
-            light_sampler, [r["power"] for r in rows], device=device)
-        pmf = ls.pmf_table
+            light_sampler, [r["power"] for r in rows],
+            self._light_bounds(rows, p0, p1, p2) if rows else None,
+            device=device)
+        if lsamp.positional(ls):
+            if any(r["tag"] != lgt.LIGHT_AREA_TRI for r in rows):
+                # the reference's escape branches read pmf_table, which
+                # its position-aware samplers lack: it cannot render this
+                raise NotImplementedError(
+                    f"the {light_sampler!r} light sampler with an infinite "
+                    "light: the reference renders no such scene (ROADMAP.md "
+                    "section 3, recorded behaviours of the reference)")
+            # the pool's pmf column is uniform; the sampler gives the pick's
+            pmf = np.full(len(rows), 1.0 / len(rows), np.float32)
+        else:
+            pmf = ls.pmf_table
         lights_packed = lgt.pack_light_pool(rows, p0, p1, p2, pmf)
         tri_geo = bvh_mod.pack_tri_geo(p0, p1, p2)
         tri_shade = np.concatenate([
