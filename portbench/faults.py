@@ -6,12 +6,16 @@ Each patches the film and path modules of one package while it is open.
 - unchanged: each wave's film update returns the film as it was;
 - half: the second half of each wave's lanes left out (their filter
   weight zeroed), the film's mean taken over the rest;
-- altered: one pixel of each image altered (doubled) where the film
-  produces it.
+- altered: one pixel of each image altered where the film produces it:
+  the brightest (the largest mean of its channels; the first in row-major
+  order on a tie) doubled, or, where the image is black everywhere, pixel
+  [0, 0] set to 1.0, so that the fault always changes the image.
 (A cell on one chip has no exchange between chips to leave out.)"""
 from __future__ import annotations
 
 import contextlib
+
+import numpy as np
 
 FAULTS = ("unchanged", "half", "altered")
 
@@ -36,8 +40,11 @@ def planted(fault: str, film_mod, path_mod):
 
     def altered(*a, **k):
         img = get_image(*a, **k).copy()
-        h, w = img.shape[0] // 2, img.shape[1] // 2
-        img[h, w] *= 2.0
+        if not img.any():
+            img[0, 0] = 1.0
+            return img
+        lum = img.mean(axis=-1)
+        img[np.unravel_index(np.argmax(lum), lum.shape)] *= 2.0
         return img
 
     if fault == "unchanged":

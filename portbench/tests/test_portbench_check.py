@@ -6,6 +6,7 @@ import json
 import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -67,6 +68,67 @@ def test_fault_in_the_timed_path_is_not_correct(name, fault):
     assert any(c["value"] > c["limit"] for c in result["checks"].values())
     clean = harness.run(cell, 2 ** 31 + 99, 0.05, False, "cpu", 0.0)
     assert clean["correct"] is True
+
+
+def altered(img):
+    """`img` as the film produces it with the fault `altered` planted."""
+    film = types.SimpleNamespace(add_samples=None, get_image=lambda: img)
+    path = types.SimpleNamespace(render_wave=None)
+    with faults.planted("altered", film, path):
+        out = film.get_image()
+    assert film.get_image() is img
+    return out
+
+
+def test_altered_doubles_the_brightest_pixel():
+    """Where the centre is black, the brightest pixel, and it alone,
+    doubles; of pixels with the same mean of their channels, the first in
+    row-major order; on an all-black image one pixel changes, to 1.0."""
+    img = np.zeros((8, 8, 3), np.float32)
+    img[1, 5] = (0.2, 0.4, 0.6)
+    img[3, 3] = (0.1, 0.1, 0.1)
+    out = altered(img)
+    want = img.copy()
+    want[1, 5] *= 2.0
+    assert np.array_equal(out, want) and img[1, 5, 0] == np.float32(0.2)
+
+    tie = np.zeros((8, 8, 3), np.float32)
+    tie[2, 6] = (0.25, 0.5, 0.75)
+    tie[5, 1] = (0.75, 0.5, 0.25)
+    tie[6, 0] = (0.5, 0.5, 0.5)
+    changed = np.argwhere((altered(tie) != tie).any(axis=-1))
+    assert changed.tolist() == [[2, 6]]
+
+    black = np.zeros((8, 8, 3), np.float32)
+    out = altered(black)
+    assert (out != black).any(axis=-1).sum() == 1
+    assert np.array_equal(out[0, 0], np.ones(3, np.float32))
+
+
+def test_altered_is_caught_where_the_centre_is_black(monkeypatch):
+    """manylight16k on a crop (16x16, 4 spp, the scene's depth 3), whose
+    every image rendered is black in its centre pixel and lit elsewhere:
+    with `altered` planted correct comes out false, without it true."""
+    from pbrt_tpu_torch import film
+    from pbrt_tpu_torch.integrators import path
+    from portbench.tests.test_portbench_refport_lights import (
+        SCENES, manylight_cell)
+    cell = manylight_cell(SCENES / "manylight16k.pbrt")
+    images, get_image = [], film.get_image
+
+    def recorded(*a, **k):
+        images.append(get_image(*a, **k))
+        return images[-1]
+
+    monkeypatch.setattr(film, "get_image", recorded)
+    seed = 3
+    assert harness.run(cell, seed, 0.05, False, "cpu", 0.0)["correct"] \
+        is True
+    with faults.planted("altered", film, path):
+        result = harness.run(cell, seed, 0.05, False, "cpu", 0.0)
+    assert result["correct"] is False and result["failed"] == 1
+    assert len(images) >= 4
+    assert all(not img[8, 8].any() and img.any() for img in images)
 
 
 def film_of(golden, wl):
