@@ -220,7 +220,8 @@ Phases, each of which raises on failure (exit code 1):
      every interface query of one wave bit-equal to the plain version,
      bare launches queued beside their bounds;
  45. the megakernel front end's lanes and film kernels (ops/megafront)
-     on a 1920x1080 cornell wave: each bit-equal to its plain version,
+     and the readout kernel (ops/film_readout) on a 1920x1080 cornell
+     wave: each bit-equal to its plain version,
      then bare launches queued beside their bounds (bytes) and the
      megakernel's (front_phases).
 A bare launch (the launch alone, its arguments prepared once) is timed
@@ -2166,10 +2167,11 @@ def plytex_volume_phases(dev, card, named):
 
 
 def front_phases(dev, card):
-    """Phase 45: the front end's lanes and film kernels (ops/megafront) on
-    cornell.1080p's wave (1920x1080, one sample index a wave, sample index
-    37 of 64): each against its plain version on the card (mi, lam, le and
-    the film's accumulator bit for bit), then each timed with CUDA events
+    """Phase 45: the front end's lanes and film kernels (ops/megafront) and
+    the film's readout kernel (ops/film_readout) on cornell.1080p's wave
+    (1920x1080, one sample index a wave, sample index 37 of 64): each
+    against its plain version on the card (mi, lam, le, the film's
+    accumulator and the image bit for bit), then each timed with CUDA events
     as bare launches queued behind a spin (the device's time) beside its
     bound (bytes once over 3.35 TB/s) and its plain version's time, and the
     megakernel's launch on the same wave."""
@@ -2178,7 +2180,8 @@ def front_phases(dev, card):
     from pbrt_tpu_torch import filters as flt
     from pbrt_tpu_torch import samplers as smp
     from pbrt_tpu_torch import scenes
-    from pbrt_tpu_torch.ops import megafront, megawave
+    from pbrt_tpu_torch.ops import film_readout, megafront, megawave
+    from pbrt_tpu_torch.utils import color as pcolor
     W, H, s = 1920, 1080, 37
     scene, cam = scenes.make_cornell_box(W, H, device=dev)
     film = film_mod.make_film(W, H, dev)
@@ -2199,25 +2202,41 @@ def front_phases(dev, card):
     film.accum.copy_(accum0)
     megafront.film_plain(front)
     film_eq = torch.equal(got.view(torch.int32), film.accum.view(torch.int32))
+    ro_args = (film.accum, H, W, front.sensor.xyz_from_sensor_rgb,
+               pcolor.srgb().rgb_from_xyz)
+    readout_eq = torch.equal(
+        film_readout.film_readout(*ro_args).view(torch.int32),
+        film_readout.film_readout_plain(*ro_args).view(torch.int32))
     print(f"[45 front] {n} lanes: lanes kernel bit-equal to its plain version"
-          f" {lanes_eq}; film kernel's accumulator bit-equal {film_eq}",
-          flush=True)
+          f" {lanes_eq}; film kernel's accumulator bit-equal {film_eq}; "
+          f"readout kernel's image bit-equal {readout_eq}", flush=True)
     check(lanes_eq, "the lanes kernel differs from its plain version")
     check(film_eq, "the film kernel differs from its plain version")
+    check(readout_eq, "the readout kernel differs from its plain version")
     lanes_b = bound(n * (4 + 16 + 16) + 4 * 471, 0)
     film_b = bound(n * (16 + 4 + 16) + 2 * 32 * n, 0)
+    # the accumulator's 32 B rows read (16 B used, a whole sector fetched),
+    # the image's 12 B a pixel written
+    readout_b = bound(n * (32 + 12), 0)
     t = dict(lanes=cuda_ms(lambda: megafront.lanes(front, s), 50, 3, True),
              film=cuda_ms(lambda: megafront.film(front), 50, 3, True),
              megawave=cuda_ms(lambda: megawave.launch(front.mega_args), 20,
                               3, True),
+             readout=cuda_ms(lambda: film_readout.film_readout(*ro_args), 50,
+                             3, True),
              lanes_plain=cuda_ms(lambda: megafront.lanes_plain(front, s), 5),
-             film_plain=cuda_ms(lambda: megafront.film_plain(front), 5))
+             film_plain=cuda_ms(lambda: megafront.film_plain(front), 5),
+             readout_plain=cuda_ms(
+                 lambda: film_readout.film_readout_plain(*ro_args), 5))
     print(f"[45 times] card {card}: bare queued ms: lanes kernel "
           f"{t['lanes']:.4f} (bound {lanes_b[0]:.4f}, {lanes_b[1]}; plain "
           f"{t['lanes_plain']:.3f}), film kernel {t['film']:.4f} (bound "
           f"{film_b[0]:.4f}, {film_b[1]}; plain {t['film_plain']:.3f}), "
-          f"megakernel {t['megawave']:.4f}", flush=True)
-    return dict(ms=t, lanes_bound=lanes_b, film_bound=film_b)
+          f"readout kernel {t['readout']:.4f} (bound {readout_b[0]:.4f}, "
+          f"{readout_b[1]}; plain {t['readout_plain']:.3f}), megakernel "
+          f"{t['megawave']:.4f}", flush=True)
+    return dict(ms=t, lanes_bound=lanes_b, film_bound=film_b,
+                readout_bound=readout_b)
 
 
 def main():
@@ -2240,6 +2259,7 @@ def main():
     from pbrt_tpu_torch.ops import bvh8_pages as bp
     from pbrt_tpu_torch.ops import curves
     from pbrt_tpu_torch.ops import dma_probe as dp
+    from pbrt_tpu_torch.ops import film_readout
     from pbrt_tpu_torch.ops import megafront
     from pbrt_tpu_torch.ops import megawave
     from pbrt_tpu_torch.ops import tri_intersect as ti
@@ -2249,6 +2269,7 @@ def main():
     named = {"megawave": megawave.counter, "tri_intersect": ti.counter,
              "mega_lanes": megafront.lanes_counter,
              "mega_film": megafront.film_counter,
+             "film_readout": film_readout.counter,
              "bvh8": bvh8.counter, "bvh2": bvh2.counter_bvh2,
              "two_level": bvh2.counter_two_level, "curves": curves.counter,
              "bvh8_forest": bp.counter_forest,
@@ -2332,7 +2353,8 @@ def main():
     img, stats = render.render(scene, cam, spp=64, device=dev,
                                opts=path_mod.PathOptions(max_depth=5))
     launches = {k: named[k].launches for k in ("mega_lanes", "megawave",
-                                               "mega_film", "tri_intersect")}
+                                               "mega_film", "film_readout",
+                                               "tri_intersect")}
     plain_runs = sum(c.plain for c in counters)
     waves5 = 64 * 400 * 400 // stats["lanes_per_wave"]
     print(f"[5 render] launches {launches}, plain-version runs "
@@ -2342,6 +2364,8 @@ def main():
     check(launches["megawave"] == launches["mega_lanes"] ==
           launches["mega_film"] == waves5,
           "main path: not one lanes, megakernel and film launch a wave")
+    check(launches["film_readout"] == 1,
+          "main path: not one readout launch a render")
     check(plain_runs == 0, "main path ran a plain version on the card")
     check(img.shape == (400, 400, 3) and bool(np.isfinite(img).all()),
           "render output shape or values")

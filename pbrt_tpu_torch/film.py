@@ -8,12 +8,14 @@ reference does; `add_samples` adds into it in place.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
 from . import device as dev_mod
 from . import spans
+from .ops import film_readout
 from .utils import color as pcolor
 from .utils import spectrum as spc
 
@@ -80,9 +82,26 @@ def add_samples(film: Film, pixel_index: torch.Tensor, rgb: torch.Tensor,
 
 @spans.span("film.get_image")
 def get_image(film: Film, sensor: PixelSensor) -> np.ndarray:
-    """(H, W, 3) float32 linear sRGB (reference RGBFilm::GetPixelRGB)."""
-    acc = film.accum.detach().cpu().numpy()
-    rgb = acc[:, 0:3] / np.maximum(acc[:, 3], 1e-12)[:, None]
-    xyz = rgb @ np.asarray(sensor.xyz_from_sensor_rgb).T
-    out = xyz @ np.asarray(pcolor.srgb().rgb_from_xyz).T
-    return out.reshape(film.height, film.width, 3).astype(np.float32)
+    """(H, W, 3) float32 linear sRGB (reference RGBFilm::GetPixelRGB), a
+    fresh array the caller owns. On a card the readout kernel computes the
+    image there and only the image is copied to the host, through the
+    device's pinned staging buffer."""
+    img = film_readout.film_readout(
+        film.accum.detach(), film.height, film.width,
+        sensor.xyz_from_sensor_rgb, pcolor.srgb().rgb_from_xyz)
+    if img.device.type != "cuda":
+        return img.numpy()
+    with _staging_lock:
+        staging = _staging.get(img.device)
+        if staging is None or staging.shape != img.shape:
+            staging = torch.empty(img.shape, dtype=img.dtype,
+                                  pin_memory=True)
+            _staging[img.device] = staging
+        staging.copy_(img)
+        return staging.numpy().copy()
+
+
+# one pinned (H, W, 3) float32 host buffer a card, kept across readouts of
+# one shape and remade when the film's shape changes
+_staging: dict = {}
+_staging_lock = threading.Lock()

@@ -59,6 +59,11 @@ SIGNATURES = {
         # L, fw, lam, accum, n_pix, m, imaging_ratio, stream
         "mega_film_launch": [_P] * 4 + [_I] * 2 + [_F] + [_P],
     },
+    "film": {
+        # accum, out, n_pix, s (9 float32, host), m (9 float64, host),
+        # stream
+        "film_readout_launch": [_P, _P, _I, _P, _P, _P],
+    },
     "bvh8": {
         # nodes_f, nodes_q, tris, prim_indices, o, d, t_max, t, prim, b1,
         # b2, n, any_hit, stream

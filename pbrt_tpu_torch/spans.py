@@ -37,7 +37,9 @@ import functools
 import time
 
 MODES = ("off", "host", "device")
-KEEP_IMAGES = 256
+# more than a benchmark window renders (cornell.1080p: ~580 images in
+# 51 s on an H100), so that its per-image readers see every image
+KEEP_IMAGES = 1024
 
 # fields of an open or recorded span (a list, for speed)
 _NAME, _PARENT, _START, _END, _CHILD, _ATTRS, _EV0, _EV1, _IDX = range(9)

@@ -626,28 +626,66 @@ def test_film_kernel_matches_plain(cuda_device, width, height, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width, height", [(1920, 1080), (333, 77)])
+def test_film_readout_kernel_bit_equal_to_plain(cuda_device, width, height):
+    """The readout kernel's image bit for bit against its plain version on
+    the card, on the accumulator of a megakernel wave added by the film
+    kernel, some pixels' weight sums zeroed; film.get_image returns that
+    image as fresh, writable host arrays."""
+    from pbrt_tpu_torch import film as film_mod
+    from pbrt_tpu_torch.ops import film_readout, megafront
+    from pbrt_tpu_torch.utils import color as pcolor
+    front = _front(cuda_device, width, height, 1)
+    megafront.lanes(front, 0)
+    megawave.launch(front.mega_args)
+    megafront.film(front)
+    accum = front.film.accum
+    accum[::97, 3] = 0.0
+    args = (accum, height, width, front.sensor.xyz_from_sensor_rgb,
+            pcolor.srgb().rgb_from_xyz)
+    c = film_readout.counter
+    before = (c.launches, c.plain)
+    got = film_readout.film_readout(*args)
+    torch.cuda.synchronize()
+    assert (c.launches, c.plain) == (before[0] + 1, before[1])
+    want = film_readout.film_readout_plain(*args)
+    assert got.shape == (height, width, 3) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    a = film_mod.get_image(front.film, front.sensor)
+    b = film_mod.get_image(front.film, front.sensor)
+    assert np.array_equal(a.view(np.uint32), got.cpu().numpy().view(
+        np.uint32))
+    assert np.array_equal(a, b) and not np.shares_memory(a, b)
+    assert a.flags.writeable and b.flags.writeable
+
+
+@pytest.mark.cuda
 def test_cornell_render_launches_each_kernel_once_a_wave(cuda_device):
     """render.render on cornell 512x512 at 4 spp (four waves of one sample
     index): the lanes kernel, the megakernel and the film kernel once a
-    wave, no plain version, and the image equal to the chain of
-    path.render_wave, film.sensor_to_sensor_rgb and film.add_samples on the
-    card."""
+    wave, the readout kernel once a render, no plain version, and the image
+    equal to the chain of path.render_wave, film.sensor_to_sensor_rgb and
+    film.add_samples on the card, read out by the kernel and by its plain
+    version."""
     from pbrt_tpu_torch import film as film_mod
     from pbrt_tpu_torch.integrators import path as path_mod
     from pbrt_tpu_torch.integrators import render
-    from pbrt_tpu_torch.ops import megafront
+    from pbrt_tpu_torch.ops import film_readout, megafront
+    from pbrt_tpu_torch.utils import color as pcolor
     size, spp = 512, 4
     scene, cam = scenes.make_cornell_box(size, size, device=cuda_device)
     sampler = smp.make_sampler("zsobol", spp, 5,
                                full_resolution=(size, size))
     counters = (megafront.lanes_counter, megawave.counter,
                 megafront.film_counter)
-    before = [(c.launches, c.plain) for c in counters]
+    before = [(c.launches, c.plain)
+              for c in (*counters, film_readout.counter)]
     img, st = render.render(scene, cam, spp, device=cuda_device,
                             sampler=sampler)
     assert st["lanes_per_wave"] == size * size
-    for c, (launches, plain) in zip(counters, before):
-        assert (c.launches, c.plain) == (launches + spp, plain)
+    for c, (launches, plain), k in zip(
+            (*counters, film_readout.counter), before, (spp,) * 3 + (1,)):
+        assert (c.launches, c.plain) == (launches + k, plain)
     sensor = film_mod.make_pixel_sensor()
     film = film_mod.make_film(size, size, cuda_device)
     pix = torch.arange(size * size, device=cuda_device)
@@ -659,6 +697,10 @@ def test_cornell_render_launches_each_kernel_once_a_wave(cuda_device):
         film_mod.add_samples(film, pix, rgb, fw, identity=True)
     want = film_mod.get_image(film, sensor)
     assert np.array_equal(img, want)
+    plain = film_readout.film_readout_plain(
+        film.accum, size, size, sensor.xyz_from_sensor_rgb,
+        pcolor.srgb().rgb_from_xyz)
+    assert np.array_equal(img, plain.cpu().numpy())
 
 
 @pytest.mark.cuda

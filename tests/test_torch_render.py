@@ -104,6 +104,62 @@ def test_add_samples_and_get_image_match_reference(identity):
         atol=1e-6)
 
 
+def _numpy_readout(acc, sensor, height, width):
+    """The film's readout as NumPy computed it before the readout kernel:
+    the oracle of film_readout's plain version."""
+    from pbrt_tpu_torch.utils import color as pcolor
+    rgb = acc[:, 0:3] / np.maximum(acc[:, 3], 1e-12)[:, None]
+    xyz = rgb @ np.asarray(sensor.xyz_from_sensor_rgb).T
+    out = xyz @ np.asarray(pcolor.srgb().rgb_from_xyz).T
+    return out.reshape(height, width, 3).astype(np.float32)
+
+
+def _accumulator(height, width, seed):
+    """A seeded (H*W, 8) accumulator: sums over nine decades, a tenth of
+    the pixels with zero weight, a twentieth wholly zero."""
+    rs = np.random.RandomState(seed)
+    n = height * width
+    acc = (rs.exponential(1.0, (n, 8))
+           * 10.0 ** rs.uniform(-3, 6, (n, 1))).astype(np.float32)
+    acc[rs.rand(n) < 0.1, 3] = 0.0
+    acc[rs.rand(n) < 0.05, :4] = 0.0
+    return acc
+
+
+@pytest.mark.parametrize("width, height", [(8, 8), (64, 48)])
+def test_get_image_bit_equal_to_numpy_readout(width, height):
+    acc = _accumulator(height, width, seed=width)
+    sensor = film.make_pixel_sensor()
+    got = film.get_image(film.Film(torch.as_tensor(acc), width, height),
+                         sensor)
+    want = _numpy_readout(acc, sensor, height, width)
+    assert got.dtype == np.float32 and got.shape == (height, width, 3)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_get_image_returns_fresh_arrays():
+    """Two readouts of one film: equal, writable, sharing no memory with
+    each other or the accumulator."""
+    f = film.Film(torch.as_tensor(_accumulator(6, 10, seed=2)), 10, 6)
+    sensor = film.make_pixel_sensor()
+    a, b = film.get_image(f, sensor), film.get_image(f, sensor)
+    assert np.array_equal(a, b)
+    assert a.flags.writeable and b.flags.writeable
+    assert not np.shares_memory(a, b)
+    assert not np.shares_memory(a, f.accum.numpy())
+    a[0, 0] += 1.0
+    assert np.array_equal(b, film.get_image(f, sensor))
+
+
+def test_get_image_on_the_cpu_runs_the_plain_readout():
+    from pbrt_tpu_torch.ops import film_readout
+    f = film.Film(torch.as_tensor(_accumulator(4, 4, seed=3)), 4, 4)
+    before = (film_readout.counter.launches, film_readout.counter.plain)
+    film.get_image(f, film.make_pixel_sensor())
+    assert (film_readout.counter.launches, film_readout.counter.plain) == \
+        (before[0], before[1] + 1)
+
+
 def test_exr_codec_matches_reference(tmp_path):
     golden = ROOT / "goldens" / "cornell_400_64spp.exr"
     np.testing.assert_array_equal(image.read_exr(golden),

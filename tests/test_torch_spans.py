@@ -8,8 +8,8 @@
   anchor holds every aten op of its render(), and the trace holds no event
   named after a program span;
 - images bit-identical in the "off", "host" and "device" modes;
-- the records bounded: after 300 renders at most KEEP_IMAGES + 1 records,
-  sequence number 0 still kept;
+- the records bounded: after KEEP_IMAGES + 44 renders at most
+  KEEP_IMAGES + 1 records, sequence number 0 still kept;
 - the device counters (lanes alive a depth, shadow rays), the flight
   counters on a crop of volume.pbrt (the counts the volumetric wave's own
   counter dict gave before the spans took it over), and the LaunchCounters
@@ -200,7 +200,7 @@ def test_records_are_bounded():
     sampler = samplers.make_sampler("zsobol", 1, full_resolution=(4, 4))
     opts = path_mod.PathOptions(max_depth=1)
     first = None
-    for i in range(300):
+    for i in range(spans.KEEP_IMAGES + 44):
         render.render(scene, cam, 1, device="cpu", sampler=sampler,
                       opts=opts)
         if first is None:
