@@ -886,8 +886,8 @@ def rays_in_phases(dev, card, libs, counters, scene, cam, w6, stats):
     L2, _fw2 = megawave.wave_full(w6)
     # the in-kernel camera's own rays (the plain version's camera, which
     # phase 6 holds to the kernel's bit for bit) through the rays-in entry
-    o2, d2, _fw = megawave._camera_rays(w6, megawave._ZSobol(w6.mi, w6.seeds,
-                                                            w6.B))
+    o2, d2, _fw = megawave._camera_rays(w6, megawave._ZSobol(
+        megawave.widen_mi(w6.mi), w6.seeds, w6.B))
     L3c, _ = megawave.wave_full(megawave.prepare_rays(
         scene, sampler, px, py, si, torch.stack(o2, -1), torch.stack(d2, -1),
         swl.lam, max_depth=5))

@@ -29,7 +29,7 @@
 //   before, so this step alone gained nothing; the next ones build on it.)
 // - Persistent warps that refill. The grid is as many blocks as the card
 //   holds at once. A warp draws chunks of kChunk consecutive rays from a
-//   global counter; when at least refill_idle of its lanes have finished,
+//   global counter; when at least kRefillIdle of its lanes have finished,
 //   those lanes take the chunk's next rays while the others walk on (a
 //   ray's result depends on its own inputs alone, so the order rays run in
 //   changes no bit).
@@ -38,7 +38,7 @@
 //   tests its leaves side by side; a loop that takes a node or a leaf a
 //   pass runs the long segment test for the one or two lanes that happen
 //   to hold a leaf in that pass. The waiting ends when fewer than
-//   min_walkers lanes still walk.
+//   kMinWalkers lanes still walk.
 // - The stack, in local memory, holds (ref, entry distance) of far
 //   children that were hit; a popped entry is tested again against the
 //   present t_best without a fetch (slab.cuh, slab_again).
@@ -87,17 +87,17 @@
 
 namespace {
 
-// Tuning knobs, compile-time so that tools/torch_redesign_ab.py can build
-// the variants side by side: threads a block, and the resident blocks an SM
-// the compiler must leave registers for.
-#ifndef CURVES_THREADS
-#define CURVES_THREADS 256
-#endif
-#ifndef CURVES_MIN_BLOCKS
-#define CURVES_MIN_BLOCKS 4
-#endif
-
-constexpr int kThreads = CURVES_THREADS;
+// Threads a block: eight warps, each drawing and refilling on its own.
+constexpr int kThreads = 256;
+// Resident blocks an SM the compiler leaves registers for: 4 x 256 threads
+// at up to 64 registers; more blocks at fewer registers spill.
+constexpr int kMinBlocks = 4;
+// A warp refills once this many of its lanes are idle (or all 32 are): a
+// refill stalls the whole warp, so it waits until it serves a quarter of it.
+constexpr int kRefillIdle = 8;
+// The lanes that hold a leaf wait for the others while at least this many
+// still walk; with fewer, they test their leaves at once.
+constexpr int kMinWalkers = 8;
 constexpr int kStack = 64;
 constexpr int kSegCols = 16;
 constexpr int kWideQuads = 4;   // 16 B quarters of a 64 B wide row
@@ -175,13 +175,12 @@ __device__ __forceinline__ bool segment_test(const float* __restrict__ r,
   return inside && t > kTMin && t < t_best;
 }
 
-__global__ void __launch_bounds__(kThreads, CURVES_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 curves_kernel(const float* __restrict__ nodes, const float4* __restrict__ wide,
               const float* __restrict__ segs, const float* __restrict__ o,
               const float* __restrict__ d, const float* __restrict__ t_max,
               float* __restrict__ t_out, int* __restrict__ seg_out,
-              unsigned* __restrict__ next_ray, int n, int any_hit,
-              int refill_idle, int min_walkers) {
+              unsigned* __restrict__ next_ray, int n, int any_hit) {
   RayFrame f;
   // the root: its box, and its ref (interior row 0, or a leaf)
   const float4 root_a = __ldg(reinterpret_cast<const float4*>(nodes));
@@ -217,7 +216,7 @@ curves_kernel(const float* __restrict__ nodes, const float4* __restrict__ wide,
     // ---- refill: finished lanes take the next rays of the warp's chunk ----
     const unsigned idle = __ballot_sync(0xffffffffu, !active);
     const int n_idle = __popc(idle);
-    if (!exhausted && (n_idle >= refill_idle || n_idle == 32)) {
+    if (!exhausted && (n_idle >= kRefillIdle || n_idle == 32)) {
       if (chunk_next == chunk_end) {
         unsigned base = 0u;
         if (lane == 0u) base = atomicAdd(next_ray, unsigned(kChunk));
@@ -282,7 +281,7 @@ curves_kernel(const float* __restrict__ nodes, const float4* __restrict__ wide,
       }
       // when only a few lanes still walk, the waiting ones go first (a
       // heuristic: the lanes that run together here, no more)
-      if (__popc(__activemask()) < min_walkers) break;
+      if (__popc(__activemask()) < kMinWalkers) break;
     }
     // ---- leaves ----
     if (active && cur < 0) {
@@ -317,19 +316,15 @@ curves_kernel(const float* __restrict__ nodes, const float4* __restrict__ wide,
 // (ops/curves.py::wide_nodes); segs (S*16,) float32: the segment rows in
 // leaf order; all 16-byte aligned. o, d: (n, 3) float32; t_max, t: (n,)
 // float32; seg: (n,) int32; next_ray: one uint32 of scratch, zeroed here on
-// the stream. The tree is at most 64 deep (the stack's entries).
-// refill_idle: a warp refills when this many lanes are idle (32: only when
-// all are); min_walkers: the lanes that hold a leaf wait for the others
-// only while at least this many still walk (0: always; 33: never, a node
-// or a leaf a pass). Runs on the calling thread's current device, which the caller
-// sets to the one the tensors live on. Returns the first CUDA error, or
-// cudaGetLastError() after the launch.
+// the stream. The tree is at most 64 deep (the stack's entries). Runs on
+// the calling thread's current device, which the caller sets to the one
+// the tensors live on. Returns the first CUDA error, or cudaGetLastError()
+// after the launch.
 extern "C" int curves_intersect_launch(const float* nodes, const int* wide,
                                        const float* segs, const float* o,
                                        const float* d, const float* t_max,
                                        float* t, int* seg, unsigned* next_ray,
-                                       int n, int any_hit, int refill_idle,
-                                       int min_walkers, void* stream) {
+                                       int n, int any_hit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err;
@@ -352,6 +347,6 @@ extern "C" int curves_intersect_launch(const float* nodes, const int* wide,
   }
   curves_kernel<<<blocks, kThreads, 0, st>>>(
       nodes, reinterpret_cast<const float4*>(wide), segs, o, d, t_max, t, seg,
-      next_ray, n, any_hit, refill_idle, min_walkers);
+      next_ray, n, any_hit);
   return static_cast<int>(cudaGetLastError());
 }

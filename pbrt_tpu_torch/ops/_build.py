@@ -90,8 +90,8 @@ SIGNATURES = {
     },
     "curves": {
         # nodes, wide, segs, o, d, t_max, t, seg, next_ray, n, any_hit,
-        # refill_idle, min_walkers, stream
-        "curves_intersect_launch": [_P] * 9 + [_I] * 4 + [_P],
+        # stream
+        "curves_intersect_launch": [_P] * 9 + [_I] * 2 + [_P],
     },
     "dma_probe": {
         # pages, x, out, n_pages, rows, page, variant, copy, reduce, blocks,

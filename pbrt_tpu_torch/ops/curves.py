@@ -60,11 +60,6 @@ SUBDIV = 3
 # stack (STACK) in this walk
 MAX_DEPTH = STACK
 WIDE_COLS = 16
-# a warp of the kernel (csrc/curves.cu) refills when this many of its lanes
-# are idle, and its lanes that hold a leaf wait for the others while at
-# least this many still walk
-REFILL_IDLE = 8
-MIN_WALKERS = 8
 
 counter = LaunchCounter("curves")
 
@@ -312,16 +307,12 @@ def curves_intersect(nodes, segs, o, d, t_max, any_hit: bool = False, *,
     return _launch(nodes, wide, segs, o, d, t_max, any_hit)
 
 
-def _launch(nodes, wide, segs, o, d, t_max, any_hit, *,
-            refill_idle=REFILL_IDLE, min_walkers=MIN_WALKERS, lib=None):
-    """lib: a build of csrc/curves.cu other than the package's own (a
-    tuning tool's)."""
+def _launch(nodes, wide, segs, o, d, t_max, any_hit):
     from . import _build
-    lib = lib or _build.load_library("curves")
+    lib = _build.load_library("curves")
     with torch.cuda.device(o.device):
         args, out, _keep = launch_args(nodes, wide, segs, o, d, t_max,
-                                       any_hit, refill_idle=refill_idle,
-                                       min_walkers=min_walkers)
+                                       any_hit)
         if args is None:
             return out
         with spans.span("curves.kernel"):
@@ -331,8 +322,7 @@ def _launch(nodes, wide, segs, o, d, t_max, any_hit, *,
     return out
 
 
-def launch_args(nodes, wide, segs, o, d, t_max, any_hit, *,
-                refill_idle=REFILL_IDLE, min_walkers=MIN_WALKERS):
+def launch_args(nodes, wide, segs, o, d, t_max, any_hit):
     """The arguments of curves_intersect_launch on the current device's
     current stream, the outputs they write and the scratch they point to
     (the ray counter, which the launch zeroes): (args, (t, seg), keep),
@@ -360,10 +350,10 @@ def launch_args(nodes, wide, segs, o, d, t_max, any_hit, *,
         return None, (t, seg), None
     next_ray = torch.empty((1,), dtype=torch.int32, device=o.device)
     stream = torch.cuda.current_stream().cuda_stream
-    return (nodes.data_ptr(), wide.data_ptr(), segs.data_ptr(), o.data_ptr(),
+    args = (nodes.data_ptr(), wide.data_ptr(), segs.data_ptr(), o.data_ptr(),
             d.data_ptr(), t_max.data_ptr(), t.data_ptr(), seg.data_ptr(),
-            next_ray.data_ptr(), N, int(any_hit), refill_idle, min_walkers,
-            ctypes.c_void_p(stream)), (t, seg), next_ray
+            next_ray.data_ptr(), N, int(any_hit), ctypes.c_void_p(stream))
+    return args, (t, seg), next_ray
 
 
 def intersect_curves(nodes, segs, o, d, t_max, *, depth: int, wide=None):

@@ -81,7 +81,7 @@ def prepare(scene, camera, sampler, filt, sensor, film, m, max_depth=5,
     spec = scene.spectra_pool[scene.mega.light_spec].contiguous()
     with torch.cuda.device(dev):
         front.mega_args, front.L, front.fw, keep = megawave.launch_args(full)
-        seeds = megawave._device_seeds(dev, full.seed, full.max_depth)
+        seeds = megawave.device_seeds(dev, full.seed, full.max_depth)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     front.lanes_args = (
         seeds.data_ptr(), spec.data_ptr(), full.mi.data_ptr(),
@@ -130,8 +130,8 @@ def lanes_plain(front: Front, s: int):
     px, py = pix % front.camera.width, pix // front.camera.width
     lam = spc.sample_visible_wavelengths(smp.sample_1d(
         front.sampler, px, py, si, LAMBDA_DIM)).lam
-    mi = smp.morton_index(front.sampler, px, py, si)
-    w.mi.copy_(torch.where(mi >= 2 ** 31, mi - 2 ** 32, mi))
+    w.mi.copy_(megawave.encode_mi(smp.morton_index(front.sampler, px, py,
+                                                   si)))
     w.lam.copy_(lam)
     w.le.copy_(megawave.light_spectrum(front.scene, lam))
 

@@ -119,15 +119,27 @@ def sobol_table() -> np.ndarray:
     return table
 
 
+def encode_mi(mi: torch.Tensor) -> torch.Tensor:
+    """The morton|spp lane index, u32 values in int64, as the int32 bits
+    the kernels read and write (FullWave.mi)."""
+    return torch.where(mi >= 2 ** 31, mi - 2 ** 32, mi).to(torch.int32)
+
+
+def widen_mi(mi: torch.Tensor) -> torch.Tensor:
+    """FullWave.mi's int32 bits as the u32 values in int64 that the plain
+    version's arithmetic takes."""
+    return mi.to(torch.int64) & prng.MASK32
+
+
 def _on_card(a: np.ndarray, device) -> torch.Tensor:
     """u32 values as int32 bits on the card (the kernel reads uint32)."""
     return torch.as_tensor(a.view(np.int32).copy(), device=device)
 
 
 @functools.lru_cache(maxsize=16)
-def _device_seeds(device: torch.device, seed: int, max_depth: int):
+def device_seeds(device: torch.device, seed: int, max_depth: int):
     """The seed table on the card, uploaded once per (device, seed,
-    max_depth)."""
+    max_depth); the megakernel and the front end's lanes kernel read it."""
     return _on_card(seed_table(seed, max_depth), device)
 
 
@@ -187,8 +199,8 @@ def eligible_full(scene, sampler, camera, filt) -> bool:
 @dataclasses.dataclass
 class FullWave:
     """Inputs of one megakernel launch. Tensors live on one device; mi is
-    the morton|spp lane index, int64 u32 values or int32 holding their bits
-    (as the front end's lanes kernel writes them); lam and le are (N, 4).
+    the morton|spp lane index, int32 holding its u32 bits (encode_mi; the
+    kernels read and write that form); lam and le are (N, 4).
     The camera rays are made in the kernel from cam and filt, or given as
     o, d (N, 3) (then cam and filt are None)."""
     cam: torch.Tensor | None
@@ -250,7 +262,7 @@ def _prepare(scene, sampler, px, py, sample_index, lam, max_depth,
     spectrum at the lanes' wavelengths, and the constant tables; `rays`:
     cam and filt, or o and d."""
     return wave_of(scene, sampler,
-                   smp.morton_index(sampler, px, py, sample_index),
+                   encode_mi(smp.morton_index(sampler, px, py, sample_index)),
                    lam.contiguous(), light_spectrum(scene, lam).contiguous(),
                    max_depth, rr_start, **rays)
 
@@ -368,9 +380,10 @@ class _ZSobol:
 
 def _camera_rays(w: FullWave, zs: _ZSobol):
     """Pixel decode, gaussian filter sample and pinhole ray (reference
-    _wave_kernel_full). Returns (o, d, filter weight)."""
+    _wave_kernel_full) of the lanes zs draws for. Returns (o, d, filter
+    weight)."""
     cam = w.cam
-    pm = w.mi >> w.log2_spp
+    pm = zs.mi >> w.log2_spp
     pxf = prng.compact_bits_2(pm).to(torch.float32)
     pyf = prng.compact_bits_2(pm >> 1).to(torch.float32)
     u0, u1 = zs.d2(0)
@@ -396,9 +409,7 @@ def wave_full_plain(w: FullWave):
     None when rays were given). counter.work: what the kernel runs on these
     inputs (`_path_loop`), for its bound."""
     counter.plain += 1
-    if w.mi.dtype == torch.int32:
-        w = dataclasses.replace(w, mi=w.mi.to(torch.int64) & prng.MASK32)
-    zs = _ZSobol(w.mi, w.seeds, w.B)
+    zs = _ZSobol(widen_mi(w.mi), w.seeds, w.B)
     if w.o is None:
         o, d, fw = _camera_rays(w, zs)
     else:
@@ -670,11 +681,9 @@ def launch_args(w: FullWave, *, out=None):
     if not rays and w.cam.numel() != CAM_COLS:
         raise ValueError("megawave: camera table must have 19 entries")
     dev = w.lam.device
-    # u32 values reinterpreted as int32 (the kernel reads uint32)
-    mi32 = w.mi.contiguous() if w.mi.dtype == torch.int32 else \
-        torch.where(w.mi >= 2 ** 31, w.mi - 2 ** 32, w.mi) \
-        .to(torch.int32).contiguous()
-    seeds, sobol = _device_seeds(dev, w.seed, w.max_depth), _device_sobol(dev)
+    if w.mi.dtype != torch.int32 or not w.mi.is_contiguous():
+        raise ValueError("megawave: mi must be int32 contiguous (encode_mi)")
+    seeds, sobol = device_seeds(dev, w.seed, w.max_depth), _device_sobol(dev)
     # float4 access: the kernel needs 16-byte aligned (N, 4) rows
     lam, le = (x if x.data_ptr() % 16 == 0 else x.clone()
                for x in (w.lam, w.le))
@@ -695,7 +704,7 @@ def launch_args(w: FullWave, *, out=None):
     args = (
         None if rays else w.cam.data_ptr(), w.tri.data_ptr(),
         w.attr.data_ptr(), w.light.data_ptr(), w.mat.data_ptr(),
-        seeds.data_ptr(), sobol.data_ptr(), mi32.data_ptr(),
+        seeds.data_ptr(), sobol.data_ptr(), w.mi.data_ptr(),
         lam.data_ptr(), le.data_ptr(),
         w.o.data_ptr() if rays else None,
         w.d.data_ptr() if rays else None, L.data_ptr(),
@@ -706,4 +715,4 @@ def launch_args(w: FullWave, *, out=None):
         F(c["s2"]), F(c["inv_2s2"]), F(c["norm"]), F(c["zx"]),
         F(c["zy"]), F(c["ex"]), F(c["ey"]), F(c["rx"]), F(c["ry"]),
         ctypes.c_void_p(stream.cuda_stream))
-    return args, L, fw, (mi32, lam, le, next_lane, seeds, sobol)
+    return args, L, fw, (lam, le, next_lane, seeds, sobol)

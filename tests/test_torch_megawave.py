@@ -209,7 +209,7 @@ def test_trace_plain_is_the_full_path_loop_on_the_same_rays():
                                                        5)).lam
     w = megawave.prepare_full(scene, sampler, cam, flt.make_filter("gaussian"),
                               px, py, si, lam, max_depth=MAX_DEPTH)
-    zs = megawave._ZSobol(w.mi, w.seeds, w.B)
+    zs = megawave._ZSobol(megawave.widen_mi(w.mi), w.seeds, w.B)
     o, d, _fw = megawave._camera_rays(w, zs)
     L_full, _ = megawave.wave_full_plain(w)
     L_rays = megawave.trace(scene, sampler, px, py, si, torch.stack(o, -1),

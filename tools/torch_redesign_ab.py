@@ -7,14 +7,14 @@ process on one card.
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
     python3 tools/torch_redesign_ab.py --parent DIR [--reps 10] [--only ...]
 DIR holds a checkout of the commit to compare with (for instance
-`git archive <commit> | tar -x -C DIR`); the sources of the chosen
-sections (SECTION_SOURCES) are compiled from it with this tree's flags into
-pbrt_tpu_torch/_build/ as ab_*.so, with the entry points of
-PARENT_SIGNATURES (tri: the tiled kernel's, mega: the one before its
-persistent grid, curves: the one before its wide node table). The bvh8 and
-two_level sections import DIR's pbrt_tpu_torch itself as `ab_parent`
-(parent_package) and run its wrappers, which build its libraries into
-DIR's own _build/. (pbrt_tpu_torch only; no jax.)
+`git archive <commit> | tar -x -C DIR`; any commit whose BVH8 and
+two-level kernels have their own launch entry points, this one included).
+DIR's pbrt_tpu_torch is imported as `ab_parent` (parent_package), and every
+section runs the parent's kernels through the parent's own wrappers, and
+its bare launches with the arguments of the parent's own launch_args; the
+parent's libraries build into DIR's own _build/. The ptxas reports of both
+trees' sources of the chosen sections (SECTION_SOURCES) come first.
+(pbrt_tpu_torch only; no jax.)
 
 Every time is the median of --reps rounds with the range beside it; a
 round times each variant once, in the order old, new, new, old (CUDA events
@@ -22,29 +22,29 @@ around --inner launches), so drift hits both alike. A variant timed
 "queued" (the bvh8 and two_level sections' "... dev", kernel 7)
 has its launches enqueued behind a spin kernel, so that the card runs them
 back to back: the device's time a launch, whatever the host takes to make
-it. --reps 0 times nothing: it builds, prints the ptxas reports and checks
-every variant against the parent. Sections (--only):
+it. --reps 0 times nothing: it builds, prints the ptxas reports (of the
+libraries this run builds), checks every result of this tree against the
+parent's and runs each render once on either kernel. Sections (--only):
   tri      the triangle kernel at 32 (cornell), 1,280 (a subdivision-3
            icosphere) and 4,096 (a seeded soup) triangles x 160,000 rays,
-           closest and any hit: through the wrapper and as the bare launch
-           with the outputs allocated once (the device's share); the parent
-           kernel where it launches at all; the BVH8 kernel on the same
-           meshes and rays;
+           closest and any hit, the parent's against this tree's: through
+           the wrappers and as the bare launches with the outputs allocated
+           once (the device's share); the BVH8 kernel on the same meshes
+           and rays;
   mega     the two megakernels (in-kernel camera, rays in) on the main
-           path's 160,000-lane cornell wave at depth 5, the parent kernel
-           against this tree's, through the wrappers and as the bare
-           launches (arguments prepared once); L and the filter weight
-           equal to the parent's there and on the 64x64x16 cornell waves of
-           both light samplers, with this tree's grid and the warp busy
-           share of the plain version's schedule (one path a thread, 32
-           consecutive lanes side by side);
+           path's 160,000-lane cornell wave at depth 5, each tree's waves
+           prepared by its own package, the parent kernel against this
+           tree's, through the wrappers and as the bare launches (arguments
+           prepared once); L and the filter weight equal to the parent's
+           there and on the 64x64x16 cornell waves of both light samplers,
+           with this tree's grid and the warp busy share of the plain
+           version's schedule (one path a thread, 32 consecutive lanes
+           side by side);
   curves   the curve kernel on the hair scene's 524,288 segments: 2^20 box
            rays and one hair wave's own queries (camera rays, bounces, the
-           shadow rays), the parent kernel against this tree's: as the
-           package builds it, without refill (32 idle lanes), and built
-           with other tuning knobs (--curve-builds, each
-           THREADS,MIN_BLOCKS[,REFILL_IDLE[,MIN_WALKERS]]: csrc/curves.cu's
-           CURVES_* macros and the wrapper's two thresholds);
+           shadow rays), the parent kernel (on its own wide_nodes table)
+           against this tree's, through the wrappers and as the bare
+           launches;
   bvh8     the BVH8 kernel on meshfield: 2^20 box rays (chip_smoke phase
            7's), closest and any hit, 160,000 dead rays (t_max -1, a
            wave's finished paths: the launch's own cost) and every query of
@@ -54,19 +54,19 @@ every variant against the parent. Sections (--only):
            the bare launches queued, each held to the parent's result with
            torch.equal and to the plain version bit for bit, with the bound
            of traversal_bound from the plain version's count; the binned page
-           kernel (kernel 6, unchanged) on meshfield's chunked pages, old
-           against new; the meshfield render in paths/s on the parent's
-           kernel and on this tree's;
-  two_level the two-level kernel as bvh8 does the BVH8 kernel: 2^20 box
-           rays and 160,000 dead rays on chip_smoke phase 13's 64-instance
-           grid and on the instances golden's tables, and every query of
-           one instances wave; the single-level kernel (kernel 7,
-           unchanged) on meshfield's binary BVH, queued; the instances
-           render in paths/s.
+           kernel (kernel 6) on meshfield's chunked pages, old against new;
+           the meshfield render in paths/s on the parent's kernel and on
+           this tree's;
+  two_level the two-level kernel as bvh8 does the BVH8 kernel (the parent
+           on its own kernel_tables): 2^20 box rays and 160,000 dead rays
+           on chip_smoke phase 13's 64-instance grid and on the instances
+           golden's tables, and every query of one instances wave; the
+           single-level kernel (kernel 7) on meshfield's binary BVH,
+           queued; the instances render in paths/s.
 The last line is one JSON object with these numbers.
 """
 import argparse
-import ctypes
+import importlib
 import json
 import statistics
 import subprocess
@@ -79,62 +79,13 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the parent's entry points (the triangle kernel's is this tree's too; the
-# megakernel's is the one before its persistent grid)
-PARENT_SIGNATURES = {
-    "tri_intersect": {
-        "tri_intersect_launch": [_P] * 8 + [_I] * 4 + [_P]},
-    "megawave": {
-        "megawave_launch": [_P] * 14 + [_I] * 11 + [_F] * 9 + [_P]},
-    "curves": {"curves_intersect_launch": [_P] * 7 + [_I] * 2 + [_P]},
-}
-# this tree's sources of each section; the parent's are built from them
-# too, except for bvh8 and two_level, whose parent kernels the parent's own
-# package builds and launches (parent_package)
+# the sources of each section, whose ptxas reports open the run
 SECTION_SOURCES = {"tri": ("tri_intersect",), "mega": ("megawave",),
                    "curves": ("curves",), "bvh8": ("bvh8", "bvh8_binned"),
                    "two_level": ("bvh2",)}
-PARENT_PACKAGE = ("bvh8", "two_level")
-
-
-def build_extra(parent: Path, sections, curve_builds) -> dict:
-    """Compile the parent's sources of `sections` and this tree's curves.cu
-    once for each (threads, min blocks) of curve_builds, one nvcc each, all
-    at once. Returns {"parent": {source: lib}, "curves": {knobs: lib}}."""
-    from pbrt_tpu_torch.ops import _build
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {("parent", name): (
-        parent / "pbrt_tpu_torch" / "csrc" / f"{name}.cu", [],
-        PARENT_SIGNATURES[name])
-        for sec in sections if sec not in PARENT_PACKAGE
-        for name in SECTION_SOURCES[sec]}
-    for knobs in curve_builds:
-        t, b = knobs
-        jobs["curves", knobs] = (
-            _build.CSRC / "curves.cu",
-            [f"-DCURVES_THREADS={t}", f"-DCURVES_MIN_BLOCKS={b}"],
-            _build.SIGNATURES["curves"])
-    procs = {}
-    for key, (src, flags, _sig) in jobs.items():
-        tag = key[1] if key[0] != "curves" else "_".join(map(str, key[1]))
-        out = _build.BUILD_DIR / f"ab_{key[0]}_{tag}.so"
-        procs[key] = (out, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(out),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {"parent": {}, "curves": {}}
-    for key, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"{key}: nvcc failed:\n{log}")
-        print(f"{key[0]} {key[1]}: {ptxas_lines(log)}", flush=True)
-        lib = ctypes.CDLL(str(out))
-        for fn_name, argtypes in jobs[key][2].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        libs[key[0]][key[1]] = lib
-    return libs
+# the package this tree's kernels come from; the parent's is imported as
+# PARENT (parent_package)
+OWN, PARENT = "pbrt_tpu_torch", "ab_parent"
 
 
 def ptxas_lines(log):
@@ -145,21 +96,32 @@ def ptxas_lines(log):
                      or "stack frame" in ln)
 
 
-class use_library:
-    """Within the block, the wrappers of ops/ launch `lib` for `name`."""
+def parent_package(parent: Path):
+    """The parent checkout's pbrt_tpu_torch, imported as `ab_parent`: its
+    wrappers build and launch its own libraries (into its own _build/)."""
+    import importlib.util
+    if PARENT in sys.modules:
+        return sys.modules[PARENT]
+    root = parent / "pbrt_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        PARENT, root / "__init__.py",
+        submodule_search_locations=[str(root)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[PARENT] = pkg
+    spec.loader.exec_module(pkg)
+    return pkg
 
-    def __init__(self, name, lib):
-        self.name, self.lib = name, lib
 
-    def __enter__(self):
-        from pbrt_tpu_torch.ops import _build
-        self._load = _build.load_library
-        _build.load_library = lambda n: self.lib if n == self.name \
-            else self._load(n)
+def parent_module(parent: Path, name: str):
+    parent_package(parent)
+    return importlib.import_module(f"{PARENT}.{name}")
 
-    def __exit__(self, *exc):
-        from pbrt_tpu_torch.ops import _build
-        _build.load_library = self._load
+
+def bare(entry, args, what):
+    """A launch of the library entry point with arguments prepared once:
+    the device's share."""
+    from pbrt_tpu_torch.ops import _build
+    return lambda: _build.check(entry(*args), what)
 
 
 # cycles of the spin kernel a queued timing puts ahead of each of its
@@ -209,12 +171,13 @@ def show(label, res):
     return res
 
 
-def section_tri(args, dev, parent):
+def section_tri(args, dev):
     import torch
     import chip_smoke as cs
     from pbrt_tpu_torch import scenes
     from pbrt_tpu_torch.ops import bvh8
     from pbrt_tpu_torch.ops import tri_intersect as ti
+    pti = parent_module(args.parent, "ops.tri_intersect")
     cornell, _cam = scenes.make_cornell_box(400, 400, device=dev)
     n = cs.LAUNCH_RAYS
     cases = [(32, cornell.tri_pallas, cornell.mega.n_tris, None,
@@ -227,24 +190,21 @@ def section_tri(args, dev, parent):
     for n_tris, pool, n_real, b8, (o, d) in cases:
         for any_hit, t_max in ((False, 1e30), (True, 1.5 if b8 else 700.0)):
             tv = torch.full((n,), t_max, device=dev)
+            ref = pti.tri_intersect(pool, o, d, tv, n_real, any_hit)
             res = ti.tri_intersect(pool, o, d, tv, n_real, any_hit)
-
-            def old(bare):
-                with use_library("tri_intersect", parent["tri_intersect"]):
-                    return ti._launch(pool, o, d, tv, n_real, any_hit,
-                                      out=res if bare else None)
+            if not _equal(ref, res, any_hit):
+                raise RuntimeError(f"tri {n_tris} triangles, any_hit="
+                                   f"{any_hit}: differs from the parent "
+                                   "kernel")
             variants = {
+                "old": lambda: pti.tri_intersect(pool, o, d, tv, n_real,
+                                                 any_hit),
+                "old bare": lambda: pti._launch(pool, o, d, tv, n_real,
+                                                any_hit, out=ref),
                 "new": lambda: ti.tri_intersect(pool, o, d, tv, n_real,
                                                 any_hit),
                 "new bare": lambda: ti._launch(pool, o, d, tv, n_real,
                                                any_hit, out=res)}
-            try:
-                old(True)
-                variants = {"old": lambda: old(False),
-                            "old bare": lambda: old(True), **variants}
-            except RuntimeError as e:
-                print(f"tri {n_tris} triangles: the parent kernel does not "
-                      f"launch: {e}", flush=True)
             if b8 is not None:
                 variants["bvh8"] = lambda: bvh8.bvh8_intersect(b8, o, d, tv,
                                                                any_hit)
@@ -253,66 +213,26 @@ def section_tri(args, dev, parent):
             key = f"{n_tris}_{'any' if any_hit else 'closest'}"
             out[key] = dict(bound_ms=b_ms, bound_by=b_by, **show(
                 f"tri {n_tris} triangles x {n} rays, any_hit={any_hit}, "
-                f"bound {b_ms:.5f} ms by {b_by}",
+                f"bound {b_ms:.5f} ms by {b_by}, equal to the parent's "
+                "result",
                 alternate(variants, args.reps, args.inner)))
     return out
 
 
-def parent_args(w):
-    """The parent megakernel's launch arguments for wave w (its signature:
-    one block a 128 lanes, the Sobol' columns copied on every launch):
-    (args, L, fw, keep), as megawave.launch_args."""
+def mega_waves(pkg, dev):
+    """The megakernel's waves, each prepared by package pkg (OWN or
+    PARENT) from its own scene, sampler and camera: (timed, checked),
+    {label: FullWave} each. timed: the main path's 160,000-lane cornell
+    wave at depth 5, in-kernel camera and rays in; checked: the waves of
+    tests/test_torch_cuda.py::test_megakernel_matches_plain, 64x64, 16 spp,
+    both light samplers."""
     import torch
-    from pbrt_tpu_torch import filters as flt
-    from pbrt_tpu_torch.ops import megawave
-    rays = w.o is not None
-    N = w.mi.shape[0]
-    dev = w.lam.device
-    mi32 = torch.where(w.mi >= 2 ** 31, w.mi - 2 ** 32, w.mi) \
-        .to(torch.int32).contiguous()
-    seeds = megawave._device_seeds(dev, w.seed, w.max_depth)
-    cols = megawave._on_card(megawave.sobol_cols01(), dev)
-    L = torch.empty((N, 4), dtype=torch.float32, device=dev)
-    fw = None if rays else torch.empty((N,), dtype=torch.float32, device=dev)
-    c = dict.fromkeys(("s2", "inv_2s2", "norm", "zx", "zy", "ex", "ey", "rx",
-                       "ry"), 0.0) if rays else flt.gaussian_constants(w.filt)
-    args = (
-        None if rays else w.cam.data_ptr(), w.tri.data_ptr(),
-        w.attr.data_ptr(), w.light.data_ptr(), w.mat.data_ptr(),
-        seeds.data_ptr(), cols.data_ptr(), mi32.data_ptr(),
-        w.lam.data_ptr(), w.le.data_ptr(),
-        w.o.data_ptr() if rays else None, w.d.data_ptr() if rays else None,
-        L.data_ptr(), None if rays else fw.data_ptr(), N,
-        w.tri.numel() // 16, w.n_real, w.n_mats, w.n_lights, seeds.shape[0],
-        w.max_depth, w.rr_start, w.B, w.log2_spp, int(w.ls_uniform),
-        *(_F(c[k]) for k in ("s2", "inv_2s2", "norm", "zx", "zy", "ex", "ey",
-                             "rx", "ry")),
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    return args, L, fw, (mi32, seeds, cols)
 
-
-def bare_launch(lib, args, what):
-    """A launch with arguments prepared once: the device's share."""
-    from pbrt_tpu_torch.ops import _build
-    return lambda: _build.check(lib.megawave_launch(*args), what)
-
-
-def parent_megawave(lib, w):
-    """The parent's megakernel on wave w through its host work."""
-    args, L, fw, _keep = parent_args(w)
-    bare_launch(lib, args, "parent megawave")()
-    return L, fw
-
-
-def section_mega(args, dev, parent):
-    import torch
-    from pbrt_tpu_torch import filters as flt
-    from pbrt_tpu_torch import samplers as smp
-    from pbrt_tpu_torch import scenes
-    from pbrt_tpu_torch.integrators import path as path_mod
-    from pbrt_tpu_torch.ops import _build
-    from pbrt_tpu_torch.ops import megawave
-    from pbrt_tpu_torch.utils import spectrum as spc
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+    flt, smp, scenes = mod("filters"), mod("samplers"), mod("scenes")
+    path_mod, megawave = mod("integrators.path"), mod("ops.megawave")
+    spc = mod("utils.spectrum")
     scene, cam = scenes.make_cornell_box(400, 400, device=dev)
     sampler = smp.make_sampler("zsobol", spp=64, full_resolution=(400, 400))
     filt = flt.make_filter("gaussian")
@@ -320,12 +240,10 @@ def section_mega(args, dev, parent):
     si = torch.full_like(pix, 37)
     px, py, swl = path_mod.camera_lanes(cam, sampler, pix, si)
     o, d, _wt = path_mod.camera_rays(cam, sampler, filt, px, py, si)
-    waves = {"in-kernel camera": megawave.prepare_full(
+    timed = {"in-kernel camera": megawave.prepare_full(
         scene, sampler, cam, filt, px, py, si, swl.lam, max_depth=5),
         "rays in": megawave.prepare_rays(scene, sampler, px, py, si, o, d,
                                          swl.lam, max_depth=5)}
-    # the waves of tests/test_torch_cuda.py::test_megakernel_matches_plain:
-    # 64x64, 16 spp, both light samplers; checked, untimed
     w64, spp64 = 64, 16
     cam64 = scenes.make_cornell_box(w64, w64, device=dev)[1]
     sampler64 = smp.make_sampler("zsobol", spp=spp64,
@@ -340,11 +258,24 @@ def section_mega(args, dev, parent):
         for label, sc in (
             ("power", scenes.make_cornell_box(w64, w64, device=dev)[0]),
             ("uniform", scenes.make_uniform_light_box(dev)))}
+    return timed, checked
+
+
+def section_mega(args, dev):
+    import torch
+    from pbrt_tpu_torch.ops import _build
+    from pbrt_tpu_torch.ops import megawave
+    pmw = parent_module(args.parent, "ops.megawave")
+    old_lib = parent_module(args.parent, "ops._build").load_library(
+        "megawave")
     new_lib = _build.load_library("megawave")
+    old_timed, old_checked = mega_waves(PARENT, dev)
+    timed, checked = mega_waves(OWN, dev)
+    old_waves = {**old_timed, **old_checked}
     out = {}
-    for label, w in {**waves, **checked}.items():
-        L0, fw0 = parent_megawave(parent["megawave"], w)
-        L1, fw1 = megawave._launch(w)
+    for label, w in {**timed, **checked}.items():
+        L0, fw0 = pmw.wave_full(old_waves[label])
+        L1, fw1 = megawave.wave_full(w)
         same = torch.equal(L0, L1) and (fw0 is None or torch.equal(fw0, fw1))
         megawave.wave_full_plain(w)
         share = megawave.counter.work["warp_busy_share"]
@@ -357,34 +288,40 @@ def section_mega(args, dev, parent):
                                "parent kernel")
         out[label] = dict(equal_to_parent=same, grid=grid,
                           plain_warp_busy_share=share)
-        if label not in waves:
+        if label not in timed:
             continue
-        # through the wrappers, then the launches alone
-        old_args, new_args = parent_args(w), megawave.launch_args(w)
+        # through the wrappers, then the launches alone (each launch_args'
+        # tensors held while its arguments are used)
+        old_args = pmw.launch_args(old_waves[label])
+        new_args = megawave.launch_args(w)
         out[label].update(show(
             f"megakernel, {label}, 160,000 lanes, depth 5",
-            alternate({"old": lambda: parent_megawave(parent["megawave"], w),
+            alternate({"old": lambda: pmw.wave_full(old_waves[label]),
                        "new": lambda: megawave.wave_full(w),
-                       "old bare": bare_launch(parent["megawave"],
-                                               old_args[0], "parent"),
-                       "new bare": bare_launch(new_lib, new_args[0], "new")},
+                       "old bare": bare(old_lib.megawave_launch, old_args[0],
+                                        "parent megawave"),
+                       "new bare": bare(new_lib.megawave_launch, new_args[0],
+                                        "megawave")},
                       args.reps, args.inner)))
     return out
 
 
-def section_curves(args, dev, parent, builds):
+def section_curves(args, dev):
     import torch
     import chip_smoke as cs
     from hair_scene import hair_scene_text
     from pbrt_tpu_torch.ops import _build
     from pbrt_tpu_torch.ops import curves
     from pbrt_tpu_torch.scene import parser
+    pcv = parent_module(args.parent, "ops.curves")
+    old_lib = parent_module(args.parent, "ops._build").load_library("curves")
+    new_lib = _build.load_library("curves")
     path = _build.BUILD_DIR / "hair.pbrt"
     path.write_text(hair_scene_text(*cs.HAIR))
     desc = parser.parse_file(path, device=dev)
     s = desc.scene
-    closest, shadow, lanes = cs.wave_queries(curves, "curves_intersect", 5,
-                                             desc, 5, dev)
+    closest, shadow, _lanes = cs.wave_queries(curves, "curves_intersect", 5,
+                                              desc, 5, dev)
     box = s.curve_nodes[0, :6].cpu().numpy()
     n = 1 << 20
     o, d = cs.seeded_box_rays(box[:3], box[3:], n, dev, seed=17)  # phase 17's
@@ -396,77 +333,39 @@ def section_curves(args, dev, parent, builds):
             "wave bounce 3": closest[3][0][2:6],
             "wave shadow 1": shadow[0][0][2:6],
             "wave shadow 3": shadow[2][0][2:6]}
-    old_lib = parent["curves"]
+    nodes, segs = s.curve_nodes, s.curve_segs
+    # each tree's wrapper on its own kernel table
+    sides = {"old": (pcv, pcv.wide_nodes(nodes)),
+             "new": (curves, s.curve_wide)}
 
-    def old(o, d, tv, any_hit):
-        t = torch.empty_like(tv)
-        seg = torch.empty(tv.shape, dtype=torch.int32, device=dev)
-        err = old_lib.curves_intersect_launch(
-            s.curve_nodes.data_ptr(), s.curve_segs.data_ptr(), o.data_ptr(),
-            d.data_ptr(), tv.data_ptr(), t.data_ptr(), seg.data_ptr(),
-            o.shape[0], int(any_hit),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        _build.check(err, "parent curves")
-        return t, seg
-
-    def new(o, d, tv, any_hit, **kw):
-        return curves._launch(s.curve_nodes, s.curve_wide, s.curve_segs, o, d,
-                              tv, any_hit, **kw)
-    # "new" is the wrapper's default; a build's knobs are THREADS,
-    # MIN_BLOCKS and the two thresholds
-    steps = {"new, no refill": dict(refill_idle=32)}
-    for (t, b), refill, walkers in args.curve_builds:
-        steps[f"{t},{b},{refill},{walkers}"] = dict(
-            lib=builds[t, b], refill_idle=refill, min_walkers=walkers)
+    def run(who, o, d, tv, any_hit):
+        mod, wide = sides[who]
+        return mod.curves_intersect(nodes, segs, o, d, tv, any_hit,
+                                    depth=s.curve_depth, wide=wide)
     out = {}
     for label, (o, d, tv, any_hit) in sets.items():
         tv = torch.as_tensor(tv, device=dev).expand(o.shape[0]).contiguous()
         o, d = o.contiguous(), d.contiguous()
-        t0, seg0 = old(o, d, tv, any_hit)
-        for name, kw in steps.items():
-            t1, seg1 = new(o, d, tv, any_hit, **kw)
-            same = torch.equal(seg0 >= 0, seg1 >= 0) and (any_hit or (
-                torch.equal(seg0, seg1) and torch.equal(t0, t1)))
-            if not same:
-                raise RuntimeError(f"curves {label}, {name}: differs from "
-                                   "the parent kernel")
-        variants = {"old": lambda: old(o, d, tv, any_hit)}
-        variants.update({name: (lambda kw=kw: new(o, d, tv, any_hit, **kw))
-                         for name, kw in steps.items()})
-        variants["new"] = lambda: new(o, d, tv, any_hit)
-        hit = (seg0 >= 0).float().mean().item()
+        ref, res = run("old", o, d, tv, any_hit), run("new", o, d, tv, any_hit)
+        if not _equal(ref, res, any_hit):
+            raise RuntimeError(f"curves {label}: differs from the parent "
+                               "kernel")
+        # each tree's launch_args, whose ray counter is held while its
+        # arguments are used
+        prepared = {who: mod.launch_args(nodes, wide, segs, o, d, tv, any_hit)
+                    for who, (mod, wide) in sides.items()}
+        hit = (ref[1] >= 0).float().mean().item()
         out[label] = dict(rays=o.shape[0], hit_share=hit, **show(
-            f"curves, {label}, {o.shape[0]} rays, hit share {hit:.4f}, every "
-            "variant equal to the parent's result",
-            alternate(variants, args.reps, args.inner)))
+            f"curves, {label}, {o.shape[0]} rays, hit share {hit:.4f}, equal "
+            "to the parent's result",
+            alternate({"old": lambda: run("old", o, d, tv, any_hit),
+                       "new": lambda: run("new", o, d, tv, any_hit),
+                       "old bare": bare(old_lib.curves_intersect_launch,
+                                        prepared["old"][0], "parent curves"),
+                       "new bare": bare(new_lib.curves_intersect_launch,
+                                        prepared["new"][0], "curves")},
+                      args.reps, args.inner)))
     return out
-
-
-def parent_package(parent: Path):
-    """The parent checkout's pbrt_tpu_torch, imported as `ab_parent`: its
-    wrappers build and launch its own libraries (into its own _build/)."""
-    import importlib.util
-    if "ab_parent" in sys.modules:
-        return sys.modules["ab_parent"]
-    root = parent / "pbrt_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        "ab_parent", root / "__init__.py",
-        submodule_search_locations=[str(root)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules["ab_parent"] = pkg
-    spec.loader.exec_module(pkg)
-    return pkg
-
-
-def parent_module(parent: Path, name: str):
-    import importlib
-    parent_package(parent)
-    return importlib.import_module(f"ab_parent.{name}")
-
-
-def _stream():
-    import torch
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
 def _equal(a, b, any_hit):
@@ -516,10 +415,9 @@ def _time_sets(args, label, sets, k):
     timed in turns: the wrappers, the bare launches, and the bare launches
     queued ("... dev"). k: dict(old, new (the wrappers: fn(o, d, t_max,
     any_hit) -> outputs), old_args, new_args (fn(o, d, t_max, any_hit, out)
-    -> the launch's prepared arguments), old_lib, new_lib (the entry
-    points), plain (fn(o, d, t_max, any_hit) -> (outputs, work)), bound
-    (fn(work, n) -> (ms, by)))."""
-    from pbrt_tpu_torch.ops import _build
+    -> the launch's prepared arguments, each tree's own launch_args),
+    old_lib, new_lib (the entry points), plain (fn(o, d, t_max, any_hit) ->
+    (outputs, work)), bound (fn(work, n) -> (ms, by)))."""
     out = {}
     for name, (o, d, tv, any_hit) in sets.items():
         ref = k["old"](o, d, tv, any_hit)
@@ -530,16 +428,15 @@ def _time_sets(args, label, sets, k):
                                "kernel or the plain version")
         old_args = k["old_args"](o, d, tv, any_hit, ref)
         new_args = k["new_args"](o, d, tv, any_hit, new)
-        bare = {"old bare": lambda: _build.check(k["old_lib"](*old_args),
-                                                 "old"),
-                "new bare": lambda: _build.check(k["new_lib"](*new_args),
-                                                 "new")}
+        launches = {"old bare": bare(k["old_lib"], old_args, "old"),
+                    "new bare": bare(k["new_lib"], new_args, "new")}
         # the same launches queued behind a spin: the device's time alone
-        bare["old dev"], bare["new dev"] = bare["old bare"], bare["new bare"]
+        launches["old dev"] = launches["old bare"]
+        launches["new dev"] = launches["new bare"]
         b_ms, b_by = k["bound"](work, o.shape[0])
         hit = (ref[1] >= 0).float().mean().item()
         timed = {"old": lambda: k["old"](o, d, tv, any_hit),
-                 "new": lambda: k["new"](o, d, tv, any_hit), **bare}
+                 "new": lambda: k["new"](o, d, tv, any_hit), **launches}
         res = show(f"{label}, {name}, {o.shape[0]} rays, hit share "
                    f"{hit:.4f}, bound {b_ms:.5f} ms by {b_by}, every variant "
                    "equal to the parent's result and to the plain version",
@@ -552,9 +449,8 @@ def _time_sets(args, label, sets, k):
 
 def _render_pair(args, dev, label, desc, depth, module, fn_name, parent_fn):
     """desc's render in paths/s on the parent's kernel (module.fn_name
-    replaced by parent_fn) and on this tree's: parent, this, this, parent
-    a round, --render-reps rounds."""
-    import statistics
+    replaced by parent_fn) and on this tree's: once each, then parent,
+    this, this, parent a round, --render-reps rounds (none at --reps 0)."""
     from pbrt_tpu_torch.integrators import path as path_mod
     from pbrt_tpu_torch.integrators import render
     own = getattr(module, fn_name)
@@ -571,6 +467,8 @@ def _render_pair(args, dev, label, desc, depth, module, fn_name, parent_fn):
         return st["paths_per_sec"]
     go(parent_fn)
     go(own)
+    if not (args.reps and args.render_reps):
+        return {}
     rates = {"parent": [], "this tree": []}
     for _ in range(args.render_reps):
         for who in ("parent", "this tree", "this tree", "parent"):
@@ -605,21 +503,14 @@ def section_bvh8(args, dev):
             return r["t"], r["prim"], r["b1"], r["b2"]
         return run
 
-    def old_args(o, d, tv, any_hit, out):
-        # the parent's entry: nodes_f, nodes_q, tris, prim_indices, o, d,
-        # t_max, t, prim, b1, b2, n, any_hit, stream
-        return (b8.nodes_f.data_ptr(), b8.nodes_q.data_ptr(),
-                b8.tris.data_ptr(), b8.prim_indices.data_ptr(), o.data_ptr(),
-                d.data_ptr(), tv.data_ptr(), *(x.data_ptr() for x in out),
-                o.shape[0], int(any_hit), _stream())
-
     def plain(o, d, tv, any_hit):
         return bvh8.bvh8_intersect_plain(b8, o, d, tv, any_hit), \
             bvh8.counter.work
     tables = (b8.nodes_f, b8.nodes_q, b8.tris, b8.prim_indices)
     out = _time_sets(args, "bvh8", sets, dict(
         old=wrapper(pb8.bvh8_intersect), new=wrapper(bvh8.bvh8_intersect),
-        old_args=old_args,
+        old_args=lambda o, d, tv, any_hit, res: pb8.launch_args(
+            b8, o, d, tv, any_hit, out=res)[0],
         new_args=lambda o, d, tv, any_hit, res: bvh8.launch_args(
             b8, o, d, tv, any_hit, out=res)[0],
         old_lib=old_lib.bvh8_intersect_launch,
@@ -673,9 +564,12 @@ def section_two_level(args, dev):
     pb2 = parent_module(args.parent, "ops.bvh2")
     old_lib = parent_module(args.parent, "ops._build").load_library("bvh2")
     mesh = parser.parse_file(cs.MESH_SCENE, device=dev).scene
-    scenes = {"grid64": cs.instanced_meshfield(mesh, dev),
-              "golden": parser.parse_file(cs.INST_SCENE, device=dev).scene}
     desc = parser.parse_file(cs.INST_SCENE, device=dev)
+    scenes = {"grid64": cs.instanced_meshfield(mesh, dev),
+              "golden": desc.scene}
+    # the parent's kernel tables, from its own kernel_tables
+    old_kt = {key: pb2.kernel_tables(s.inst_rows, s.tri_geo_tlas)
+              for key, s in scenes.items()}
     new_lib = _build.load_library("bvh2")
     out = {}
     names = ("t", "prim", "b1", "b2", "inst")
@@ -691,27 +585,20 @@ def section_two_level(args, dev):
                 return tuple(r[k] for k in names)
             return run
 
-        def old_args(o, d, tv, any_hit, out_, s=s):
-            # the parent's entry: nodes, insts, tris, o, d, t_max, t, prim,
-            # b1, b2, inst, n, tlas_root, two_level, any_hit, stream
-            return (s.tlas_nodes.data_ptr(), s.inst_rows.data_ptr(),
-                    s.tri_geo_tlas.data_ptr(), o.data_ptr(), d.data_ptr(),
-                    tv.data_ptr(), *(x.data_ptr() for x in out_),
-                    o.shape[0], s.tlas_root, 1, int(any_hit), _stream())
-
         def plain(o, d, tv, any_hit, tables=tables):
             return bvh2.two_level_plain(*tables, o, d, tv, any_hit), \
                 bvh2.counter_two_level.work
-        kt = s.tlas_kernel
         ktab = cs.two_level_bound_tables(s)
         out[key] = _time_sets(args, f"two_level {key}", sets, dict(
-            old=wrapper(pb2.two_level_intersect),
-            new=wrapper(bvh2.two_level_intersect, kernel=kt),
-            old_args=old_args,
+            old=wrapper(pb2.two_level_intersect, kernel=old_kt[key]),
+            new=wrapper(bvh2.two_level_intersect, kernel=s.tlas_kernel),
+            old_args=lambda o, d, tv, any_hit, res, s=s, kt=old_kt[key]:
+            pb2.launch_args(s.tlas_nodes, kt, s.tlas_root, o, d, tv, any_hit,
+                            out=res)[0],
             new_args=lambda o, d, tv, any_hit, res, s=s: bvh2.launch_args(
                 s.tlas_nodes, s.tlas_kernel, s.tlas_root, o, d, tv, any_hit,
                 out=res)[0],
-            old_lib=old_lib.bvh2_intersect_launch,
+            old_lib=old_lib.two_level_launch,
             new_lib=new_lib.two_level_launch,
             plain=plain,
             bound=lambda work, n, ktab=ktab: cs.traversal_bound(
@@ -745,8 +632,8 @@ def section_two_level(args, dev):
     out["render"] = _render_pair(
         args, dev, "instances 200x200x32, depth 3", desc, 3, bvh2,
         "two_level_intersect",
-        lambda *a, depth, kernel=None: pb2.two_level_intersect(
-            *a, depth=depth))
+        lambda *a, depth, kernel: pb2.two_level_intersect(
+            *a, depth=depth, kernel=old_kt["golden"]))
     return out
 
 
@@ -758,16 +645,7 @@ def main():
     ap.add_argument("--render-reps", type=int, default=3)
     ap.add_argument("--only", nargs="*", default=list(SECTION_SOURCES),
                     choices=list(SECTION_SOURCES))
-    ap.add_argument("--curve-builds", nargs="*", default=[],
-                    help="THREADS,MIN_BLOCKS[,REFILL_IDLE[,MIN_WALKERS]] "
-                    "each")
     args = ap.parse_args()
-    from pbrt_tpu_torch.ops import curves
-    args.curve_builds = [
-        (tuple(v[:2]), v[2] if len(v) > 2 else curves.REFILL_IDLE,
-         v[3] if len(v) > 3 else curves.MIN_WALKERS)
-        for v in ([int(x) for x in b.split(",")]
-                  for b in args.curve_builds)]
     import torch
     if not torch.cuda.is_available():
         print("torch_redesign_ab: needs an NVIDIA GPU", file=sys.stderr)
@@ -778,30 +656,19 @@ def main():
                           timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     from pbrt_tpu_torch.ops import _build
-    own = sorted({n for sec in args.only for n in SECTION_SOURCES[sec]})
-    for name, (_path, log) in _build.build(own).items():
-        print(f"this tree {name}: {ptxas_lines(log)}", flush=True)
-    libs = build_extra(args.parent, args.only,
-                       sorted({b[0] for b in args.curve_builds}))
-    own = sorted({n for sec in args.only if sec in PARENT_PACKAGE
-                  for n in SECTION_SOURCES[sec]})
-    if own:
-        built = parent_module(args.parent, "ops._build").build(own)
-        for name, (_path, log) in built.items():
-            print(f"parent {name}: {ptxas_lines(log)}", flush=True)
+    sources = sorted({n for sec in args.only for n in SECTION_SOURCES[sec]})
+    for who, build in (("this tree", _build.build), ("parent", parent_module(
+            args.parent, "ops._build").build)):
+        for name, (_path, log) in build(sources).items():
+            report = ptxas_lines(log) or "built before this run: no report"
+            print(f"{who} {name}: {report}", flush=True)
     dev = torch.device("cuda", 0)
+    sections = dict(tri=section_tri, mega=section_mega, curves=section_curves,
+                    bvh8=section_bvh8, two_level=section_two_level)
     out = dict(card=card, reps=args.reps, inner=args.inner)
-    if "tri" in args.only:
-        out["tri"] = section_tri(args, dev, libs["parent"])
-    if "mega" in args.only:
-        out["mega"] = section_mega(args, dev, libs["parent"])
-    if "curves" in args.only:
-        out["curves"] = section_curves(args, dev, libs["parent"],
-                                       libs["curves"])
-    if "bvh8" in args.only:
-        out["bvh8"] = section_bvh8(args, dev)
-    if "two_level" in args.only:
-        out["two_level"] = section_two_level(args, dev)
+    for name in SECTION_SOURCES:
+        if name in args.only:
+            out[name] = sections[name](args, dev)
     print(json.dumps(out))
     return 0
 
