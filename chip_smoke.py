@@ -224,6 +224,12 @@ Phases, each of which raises on failure (exit code 1):
      wave: each bit-equal to its plain version,
      then bare launches queued beside their bounds (bytes) and the
      megakernel's (front_phases).
+ 46. the BxDF kernel (ops/bxdf) on one killeroo wave (200x200, 4 spp:
+     160,000 lanes, depth 5): every bsdf_f, bsdf_pdf and bsdf_sample call
+     the wave makes, through the kernel, bit-equal to the plain version on
+     the same inputs; then depth 0's eval and sample as bare launches
+     queued beside their bounds (bytes), the wrapper's calls and the plain
+     versions' times (bxdf_phases).
 A bare launch (the launch alone, its arguments prepared once) is timed
 queued: its launches are enqueued behind a spin kernel, so that the card
 runs them back to back and the time is the device's, whatever the host
@@ -346,6 +352,14 @@ PROBE_VALUES = {"var": 4096.0, "var2": [8192.0, 12288.0, 16384.0, 20480.0],
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def wave_launches(launches):
+    """The launches of a render's wave kernels: launches less the film
+    readout's, which a render makes once (checked here)."""
+    readout = launches.get("film_readout", 0)
+    check(readout == 1, f"not one readout launch a render: {readout}")
+    return sum(launches.values()) - readout
 
 
 def mrse(img, ref, trim=0.0):
@@ -947,7 +961,7 @@ def rays_in_phases(dev, card, libs, counters, scene, cam, w6, stats):
     print(f"[23 rays-in path] launches {launches}, plain-version runs "
           f"{plain}; {dt:.3f} s, {pps:.6g} paths/s (phase 5, in-kernel "
           f"camera: {stats['paths_per_sec']:.6g})", flush=True)
-    check(launches["megawave"] == 64 and sum(launches.values()) == 64,
+    check(launches["megawave"] == 64 and wave_launches(launches) == 64,
           "the rays-in path launched other than 64 megakernels")
     check(plain == 0, "the rays-in path ran a plain version on the card")
     m, ratio = gate(img, GOLDEN, (400, 400, 3), GATE_MRSE, GATE_MEAN_RATIO,
@@ -1398,7 +1412,7 @@ def patches_phases(dev, card, named):
           f"triangles; launches {launches}, plain-version runs {plain}; "
           f"{stats['lanes_per_wave']} lanes per wave", flush=True)
     check(launches["tri_intersect"] >= 1
-          and sum(launches.values()) == launches["tri_intersect"],
+          and wave_launches(launches) == launches["tri_intersect"],
           "patches left the triangle-kernel route")
     check(plain == 0, "patches ran a plain version on the card")
     m, ratio = gate(img, PATCH_GOLDEN, (200, 200, 3), PATCH_GATE_MRSE,
@@ -1660,7 +1674,8 @@ def redesign_phases(dev, card, named, cornell, descs):
               f"{sstats['paths_per_sec']:.6g} paths/s, image mean "
               f"{float(imgs[force].mean()):.6g}", flush=True)
         route = "bvh8" if force else "tri_intersect"
-        check(set(launches) == {route} and plain == 0,
+        check(wave_launches(launches) == launches.get(route, 0) > 0
+              and plain == 0,
               f"the sphere scene with force_bvh={force} left the {route} "
               "route")
         if force is None:
@@ -1906,7 +1921,7 @@ def envlit_phases(dev, card, named):
           f"plain-version runs {plain}; {stats['lanes_per_wave']} lanes per "
           "wave", flush=True)
     check(launches["tri_intersect"] >= 1
-          and sum(launches.values()) == launches["tri_intersect"],
+          and wave_launches(launches) == launches["tri_intersect"],
           "envlit left the triangle-kernel route")
     check(plain == 0, "envlit ran a plain version on the card")
     m, ratio = gate(img, ENV_GOLDEN, (200, 200, 3), ENV_GATE_MRSE,
@@ -2018,7 +2033,8 @@ def golden_rung(name, dev, card, named, route, tag):
           f"{build_s['build_bvh8']:.3f} s (native SAH "
           f"{build_s['build_bvh']:.3f} s, BVH8 collapse "
           f"{build_s['collapse_to_bvh8']:.3f} s)", flush=True)
-    check(launches[route] >= 1 and sum(launches.values()) == launches[route],
+    check(launches[route] >= 1
+          and wave_launches(launches) == launches[route],
           f"{name} left the {route} route")
     check(plain == 0, f"{name} ran a plain version on the card")
     m, ratio = gate(img, ROOT / "goldens" / f"{name}_200_{spp}spp.exr",
@@ -2140,7 +2156,7 @@ def plytex_volume_phases(dev, card, named):
           f"(BVH depth {shell.iface_depth}), {shell.n_tris} triangles; "
           f"launches {launches}, plain-version runs {plain}", flush=True)
     check(launches["bvh2"] >= 1 and launches["tri_intersect"] >= 1
-          and sum(launches.values()) == launches["bvh2"]
+          and wave_launches(launches) == launches["bvh2"]
           + launches["tri_intersect"], "the shell left its kernels' route")
     check(plain == 0, "the shell ran a plain version on the card")
     check(bool(np.isfinite(img).all()) and float(img.mean()) > 0,
@@ -2237,6 +2253,113 @@ def front_phases(dev, card):
           f"{t['megawave']:.4f}", flush=True)
     return dict(ms=t, lanes_bound=lanes_b, film_bound=film_b,
                 readout_bound=readout_b)
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (zeros with their sign), any NaN matching any
+    NaN; bools equal."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def bxdf_phases(dev, card):
+    """Phase 46: the BxDF kernel (ops/bxdf, csrc/bxdf.cu) on one killeroo
+    wave (200x200, 4 spp: 160,000 lanes, depth 5): every bsdf_f, bsdf_pdf
+    and bsdf_sample call of the wave goes through the kernel and is held
+    bit for bit to the plain version on the same inputs; then depth 0's
+    eval and sample are timed as bare launches queued behind a spin (the
+    device's time) beside their bound (every input byte read and output
+    byte written once over 3.35 TB/s), through the wrapper (host and
+    device), and the plain versions (bsdf_f_plain + bsdf_pdf_plain, as NEE
+    calls both; bsdf_sample_plain)."""
+    import ctypes
+    import torch
+    from pbrt_tpu_torch import bxdfs
+    from pbrt_tpu_torch import samplers as smp
+    from pbrt_tpu_torch.integrators import path as path_mod
+    from pbrt_tpu_torch.integrators import render
+    from pbrt_tpu_torch.ops import bxdf
+    from pbrt_tpu_torch.scene import parser
+    desc = parser.parse_file(ROOT / "scenes" / "killeroo.pbrt", device=dev)
+    W, H = desc.camera.width, desc.camera.height
+    names = ("bsdf_f", "bsdf_pdf", "bsdf_sample")
+    calls = {name: [] for name in names}
+    fns = {name: getattr(bxdfs, name) for name in names}
+
+    def recorder(name):
+        def recording(*a):
+            calls[name].append(a)
+            return fns[name](*a)
+        return recording
+    launches, plain = bxdf.counter.launches, bxdf.counter.plain
+    for name in names:
+        setattr(bxdfs, name, recorder(name))
+    try:
+        render.render(desc.scene, desc.camera, device=dev,
+                      sampler=smp.make_sampler("zsobol", spp=4,
+                                               full_resolution=(W, H)),
+                      opts=path_mod.PathOptions(max_depth=5))
+    finally:
+        for name in names:
+            setattr(bxdfs, name, fns[name])
+    torch.cuda.synchronize()
+    n_calls = sum(len(c) for c in calls.values())
+    launched = bxdf.counter.launches - launches
+    check(launched == n_calls and bxdf.counter.plain == plain,
+          f"the wave's {n_calls} BxDF calls made {launched} kernel launches "
+          f"and {bxdf.counter.plain - plain} plain runs")
+    bad = []
+    for name in ("bsdf_f", "bsdf_pdf"):
+        for depth, a in enumerate(calls[name]):
+            if not same_bits(fns[name](*a),
+                             getattr(bxdfs, f"{name}_plain")(*a)):
+                bad.append(f"{name} call {depth}")
+    for depth, a in enumerate(calls["bsdf_sample"]):
+        got, want = bxdfs.bsdf_sample(*a), bxdfs.bsdf_sample_plain(*a)
+        bad += [f"bsdf_sample call {depth} {k}" for k in want
+                if not same_bits(got[k], want[k])]
+    n = calls["bsdf_f"][0][1].shape[0]
+    print(f"[46 bxdf] killeroo wave, {n} lanes, tags "
+          f"{calls['bsdf_f'][0][0].tags_present}: {n_calls} calls "
+          f"({', '.join(f'{k} {len(v)}' for k, v in calls.items())}), "
+          f"{launched} launches, every output bit-equal to the plain "
+          f"version: {not bad} {bad[:4]}", flush=True)
+    check(not bad, f"the BxDF kernel differs from its plain version: {bad}")
+    p, wo, wi = calls["bsdf_f"][0]
+    sp, swo, uc, u2 = calls["bsdf_sample"][0]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    eval_args, _ = bxdf.eval_args(p, wo, wi)
+    sample_args, _ = bxdf.sample_args(sp, swo, uc, u2)
+    # tag 4, albedo 16, alpha_x and alpha_y 8, eta 16, k 16 B and wo 12 a
+    # lane, then eval's wi 12, or sample's uc 4 and u2 8; written: f 16 and
+    # pdf 4, or also wi 12, eta_scale 4 and four bools
+    eval_b = bound(n * (72 + 12 + 20), 0)
+    sample_b = bound(n * (72 + (4 if uc is not None else 0) + 8 + 40), 0)
+    t = dict(eval=bare_ms("bxdf", "bxdf_eval_launch", (*eval_args, stream),
+                          reps=50),
+             sample=bare_ms("bxdf", "bxdf_sample_launch",
+                            (*sample_args, stream), reps=50),
+             eval_wrapper=cuda_ms(lambda: bxdfs.bsdf_f(p, wo, wi), 50, 3),
+             sample_wrapper=cuda_ms(
+                 lambda: bxdfs.bsdf_sample(sp, swo, uc, u2), 50, 3),
+             eval_plain=cuda_ms(lambda: (bxdfs.bsdf_f_plain(p, wo, wi),
+                                         bxdfs.bsdf_pdf_plain(p, wo, wi)), 5),
+             sample_plain=cuda_ms(
+                 lambda: bxdfs.bsdf_sample_plain(sp, swo, uc, u2), 5))
+    print(f"[46 times] card {card}: {n} lanes, bare queued ms: eval "
+          f"{t['eval']:.4f} (bound {eval_b[0]:.4f}, {eval_b[1]}), sample "
+          f"{t['sample']:.4f} (bound {sample_b[0]:.4f}, {sample_b[1]}); "
+          f"through the wrapper, one call: bsdf_f {t['eval_wrapper']:.4f}, "
+          f"bsdf_sample {t['sample_wrapper']:.4f}; plain: bsdf_f + bsdf_pdf "
+          f"{t['eval_plain']:.3f}, bsdf_sample {t['sample_plain']:.3f}",
+          flush=True)
+    return dict(ms=t, eval_bound=eval_b, sample_bound=sample_b,
+                launches=launched)
 
 
 def main():
@@ -2649,6 +2772,7 @@ def main():
     print(f"[44 times] phases 41-44 took {time.perf_counter() - t_new:.1f} "
           "s", flush=True)
     mk["front"] = front_phases(dev, card)
+    mk["bxdf"] = bxdf_phases(dev, card)
 
     bad = [name for name in sys.modules
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "pbrt_tpu")]

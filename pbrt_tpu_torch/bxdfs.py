@@ -6,10 +6,14 @@ ported paths use.
 Conventions follow the reference: wo, wi in shading space with n = (0, 0,
 1), both pointing away from the surface; f holds no cosine; pdfs are
 solid angle; spectral values are (N, 4). The dispatchers take the static
-set of tags present in the scene (`BSDFParams.tags_present`), evaluate the
-lobe of each present tag and select per lane by tag, as the reference
-does; a tag outside PORTED raises. The dielectric is the radiance-mode
-one (the reference's adjoint mode serves light subpaths, not ported).
+set of tags present in the scene (`BSDFParams.tags_present`). On a card,
+a tag set within the diffuse lobe, the conductor and the dielectric runs
+as one kernel a call (ops/bxdf.py, csrc/bxdf.cu); CPU tensors and the hair
+lobe run the plain versions (bsdf_f_plain, bsdf_pdf_plain,
+bsdf_sample_plain), which evaluate the lobe of each present tag and
+select per lane by tag, as the reference does; a tag outside PORTED
+raises. The dielectric is the radiance-mode one (the reference's adjoint
+mode serves light subpaths, not ported).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from . import spans
+from .ops import bxdf as bxdf_kernel
 from .utils import vecmath as vm
 from .utils.math import INV_PI, PI, safe_div, safe_sqrt, sqr
 
@@ -514,16 +519,35 @@ def _select(p: BSDFParams, per_tag):
 
 @spans.span("bsdf.eval")
 def bsdf_f(p: BSDFParams, wo, wi):
-    """f(wo, wi) of the non-specular lobes, (N, 4)."""
-    _check(p)
-    return _select(p, {t: _F_PDF_FNS[t](p, wo, wi)[0]
-                       for t in p.tags_present})
+    """f(wo, wi) of the non-specular lobes, (N, 4): the kernel where
+    bxdf_kernel.takes the scene's tag set on wo's device, else
+    bsdf_f_plain."""
+    if bxdf_kernel.takes(p.tags_present, wo.device):
+        return bxdf_kernel.f_pdf(p, wo, wi)[0]
+    return bsdf_f_plain(p, wo, wi)
 
 
 @spans.span("bsdf.eval")
 def bsdf_pdf(p: BSDFParams, wo, wi):
-    """Solid-angle pdf of sampling wi, (N,)."""
+    """Solid-angle pdf of sampling wi, (N,): the kernel or bsdf_pdf_plain,
+    as bsdf_f."""
+    if bxdf_kernel.takes(p.tags_present, wo.device):
+        return bxdf_kernel.f_pdf(p, wo, wi)[1]
+    return bsdf_pdf_plain(p, wo, wi)
+
+
+def bsdf_f_plain(p: BSDFParams, wo, wi):
+    """Plain version of bsdf_f: every present tag's lobe over all lanes."""
     _check(p)
+    bxdf_kernel.counter.plain += 1
+    return _select(p, {t: _F_PDF_FNS[t](p, wo, wi)[0]
+                       for t in p.tags_present})
+
+
+def bsdf_pdf_plain(p: BSDFParams, wo, wi):
+    """Plain version of bsdf_pdf."""
+    _check(p)
+    bxdf_kernel.counter.plain += 1
     return _select(p, {t: _F_PDF_FNS[t](p, wo, wi)[1]
                        for t in p.tags_present})
 
@@ -594,8 +618,17 @@ def bsdf_sample(p: BSDFParams, wo, uc, u2):
     divides out (reference etaScale); dispersed a transmission through a
     spectral eta. Hair and the dielectric pick their lobe with uc; the
     diffuse lobe and the conductor leave it unused, so it may be None when
-    neither is present."""
+    neither is present. The kernel or bsdf_sample_plain, as bsdf_f."""
+    if bxdf_kernel.takes(p.tags_present, wo.device):
+        return bxdf_kernel.sample(p, wo, uc, u2)
+    return bsdf_sample_plain(p, wo, uc, u2)
+
+
+def bsdf_sample_plain(p: BSDFParams, wo, uc, u2):
+    """Plain version of bsdf_sample: every present tag's sample over all
+    lanes, the dielectric's smooth and rough branches both."""
     _check(p)
+    bxdf_kernel.counter.plain += 1
     false = torch.zeros_like(wo[..., 0], dtype=torch.bool)
     one = torch.ones_like(wo[..., 0])
     smooth = None

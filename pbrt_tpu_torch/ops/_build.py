@@ -64,6 +64,15 @@ SIGNATURES = {
         # stream
         "film_readout_launch": [_P, _P, _I, _P, _P, _P],
     },
+    "bxdf": {
+        # tag, albedo, alpha_x, alpha_y, eta, k, wo, wi, f, pdf, n,
+        # present, single, stream
+        "bxdf_eval_launch": [_P] * 10 + [_I] * 3 + [_P],
+        # tag, albedo, alpha_x, alpha_y, eta, k, wo, uc, u2, wi, f, pdf,
+        # valid, specular, transmission, eta_scale, dispersed, n, present,
+        # single, stream
+        "bxdf_sample_launch": [_P] * 17 + [_I] * 3 + [_P],
+    },
     "bvh8": {
         # nodes_f, nodes_q, tris, prim_indices, o, d, t_max, t, prim, b1,
         # b2, n, any_hit, stream

@@ -247,11 +247,11 @@ def test_flight_counters_on_the_volume_crop():
 
 
 def test_launch_counters_are_counters(plytex, cornell):
-    from pbrt_tpu_torch.ops import bvh2, curves, tri_intersect
+    from pbrt_tpu_torch.ops import bvh2, bxdf, curves, tri_intersect
     wrappers = {"bvh8": bvh8.counter, "megawave": megawave.counter,
                 "tri": tri_intersect.counter, "bvh2": bvh2.counter_bvh2,
                 "two_level": bvh2.counter_two_level,
-                "curves": curves.counter}
+                "curves": curves.counter, "bxdf": bxdf.counter}
     for fn in (lambda: _render_desc(plytex, max_depth=3),
                lambda: _render_cornell(cornell)):
         before = {k: (c.launches, c.plain) for k, c in wrappers.items()}
